@@ -1,0 +1,75 @@
+"""Host wrapper of the CUDA paged decode-attention kernel
+(``csrc/paged_attention.cu``), which replaces the TPU kernel
+``repro/kernels/paged_attention/kernel.py:paged_attention_rkgd``."""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+MAX_GROUP_WIDTH = 1024        # G * hd per block (csrc: MAXA * NT)
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    fn = build.library().repro_paged_attention_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def paged_attention_rhd(q: torch.Tensor, k_pages: torch.Tensor,
+                        v_pages: torch.Tensor, page_tables: torch.Tensor,
+                        lengths: torch.Tensor, *, window: int = 0,
+                        softcap: float = 0.0, scale=None) -> torch.Tensor:
+    """q: (R, H, hd); k_pages/v_pages: (P, ps, K, hd) (the serve layout,
+    read in place); page_tables: (R, MPR) int32; lengths: (R,) int32, the
+    query's position.  Contiguous CUDA tensors -> o: (R, H, hd)."""
+    dev = q.device
+    tensors = (k_pages, v_pages, page_tables, lengths)
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("paged_attention_rhd runs on one CUDA device")
+    if q.dim() != 3 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(f"shapes: q {tuple(q.shape)}, pages "
+                         f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
+    R, H, hd = q.shape
+    _, ps, K, _ = k_pages.shape
+    if k_pages.shape[3] != hd or H % K:
+        raise ValueError(f"shapes: q {tuple(q.shape)}, pages "
+                         f"{tuple(k_pages.shape)}")
+    if page_tables.shape[0] != R or page_tables.dim() != 2 \
+            or lengths.shape != (R,):
+        raise ValueError(f"page_tables {tuple(page_tables.shape)} / lengths "
+                         f"{tuple(lengths.shape)} do not match R={R}")
+    if page_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError("page_tables and lengths must be int32")
+    if not (q.dtype == k_pages.dtype == v_pages.dtype):
+        raise TypeError(f"dtypes differ: {q.dtype}, {k_pages.dtype}, "
+                        f"{v_pages.dtype}")
+    G = H // K
+    if G * hd > MAX_GROUP_WIDTH or hd % 8:
+        raise ValueError(f"needs G*hd <= {MAX_GROUP_WIDTH} and hd % 8 == 0, "
+                         f"got G={G}, hd={hd}")
+    if not all(t.is_contiguous() for t in (q,) + tensors):
+        raise ValueError("paged_attention_rhd needs contiguous inputs")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("paged_attention_rhd reads the pages with 16-byte "
+                         "loads: k_pages and v_pages must be 16-byte aligned")
+    scale = scale if scale else hd ** -0.5
+    o = torch.empty_like(q)
+    err = _entry()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                   page_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
+                   R, K, G, hd, ps, page_tables.shape[1], float(scale),
+                   int(window or 0), float(softcap or 0.0),
+                   build.dtype_code(q.dtype), build.stream_ptr(dev))
+    build.check(err, "paged_attention_rhd")
+    paged_attention_rhd.launches += 1
+    return o
+
+
+paged_attention_rhd.launches = 0

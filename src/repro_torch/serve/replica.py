@@ -1,0 +1,143 @@
+"""One model replica: params + paged KV pool + the shared serve steps.
+
+N replicas hold the same parameter tensors (one set on the card, as the
+reference shares one pytree), each with its own ``PagedKVCache``, each
+emitting heartbeats to the shared ``HeartbeatMonitor`` under its host ids.
+
+Prefill is B=1 against a fresh contiguous row, run at one fixed length
+(the page-aligned ``cache_len``, see ``train.serve.make_prefill_step``),
+and the row's pages are scattered into the pool.  Decode is ONE batched
+step over all ``max_active`` rows through their page tables, so every
+decode call has the same shapes whatever rows are live — a row's tokens
+do not depend on which row it sits in or who shares the batch.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.heartbeat import HeartbeatEmitter
+from repro_torch.models import init_cache
+from repro_torch.sdc import DecodeSentinel
+from repro_torch.serve.page_table import DEFAULT_PAGE_SIZE, PagedKVCache
+from repro_torch.train import make_paged_decode_step, make_prefill_step
+
+
+class ServeFns:
+    """Serve steps and pool geometry shared by every replica of one
+    engine.  The pool is the reference's equal-memory default: the slot
+    pool's budget of ``num_slots`` rows of ``max_len`` tokens, repaged
+    into ``page_size``-token pages (+1 for the reserved null page)."""
+
+    def __init__(self, cfg, num_slots: int, max_len: int, device,
+                 page_size: int = DEFAULT_PAGE_SIZE,
+                 num_pages: Optional[int] = None,
+                 max_active: Optional[int] = None,
+                 prefix_cache: bool = True):
+        self.cfg = cfg
+        self.device = device
+        self.num_slots = num_slots
+        self.max_len = max_len
+        self.page_size = page_size
+        self.pages_per_row = -(-max_len // page_size)
+        self.cache_len = self.pages_per_row * page_size
+        self.num_pages = (num_pages if num_pages is not None
+                          else num_slots * self.cache_len // page_size + 1)
+        self.max_active = max_active if max_active is not None else num_slots
+        self.prefix_cache = prefix_cache
+        self.prefill = make_prefill_step(cfg, pad_to=self.cache_len)
+        self.paged_decode = make_paged_decode_step(cfg)
+
+    @property
+    def num_rows(self) -> int:
+        """Rows the decode step advances per call (pool width)."""
+        return self.max_active
+
+    def make_pool(self, registry=None) -> PagedKVCache:
+        return PagedKVCache(self.cfg, self.num_pages, self.page_size,
+                            self.cache_len, self.max_active,
+                            prefix=self.prefix_cache, registry=registry,
+                            device=self.device)
+
+
+class Replica:
+    def __init__(self, replica_id: int, params: Any, fns: ServeFns,
+                 sentinel: Optional[DecodeSentinel] = None,
+                 hosts: Optional[Sequence[int]] = None,
+                 registry=None):
+        self.id = replica_id
+        self.params = params
+        self.fns = fns
+        self.pool = fns.make_pool(registry=registry)
+        self.sentinel = sentinel
+        # one heartbeat identity per host; default one host = replica id
+        self.hosts: Tuple[int, ...] = (tuple(int(h) for h in hosts)
+                                       if hosts is not None
+                                       else (replica_id,))
+        self.emitters: List[HeartbeatEmitter] = []
+        self.healthy = True
+        self.fail_reason: Optional[str] = None
+        self.steps = 0                      # decode steps this replica ran
+        self.prefills = 0                   # prefills this replica ran
+
+    # ------------------------------------------------------------------
+    # heartbeat
+    # ------------------------------------------------------------------
+    @property
+    def emitter(self) -> Optional[HeartbeatEmitter]:
+        return self.emitters[0] if self.emitters else None
+
+    def attach_emitter(self, monitor_addr, period: float) -> None:
+        for h in self.hosts:
+            self.emitters.append(
+                HeartbeatEmitter(h, tuple(monitor_addr),
+                                 period=period).start())
+
+    def shutdown(self) -> None:
+        for em in self.emitters:
+            em.stop()
+        self.emitters = []
+
+    # ------------------------------------------------------------------
+    # model steps
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def prefill(self, prompt: Sequence[int]) -> Tuple[int, Any]:
+        """Run B=1 prefill for one request; returns (first greedy token,
+        filled cache row) — the caller scatters the row into the pool."""
+        if len(prompt) > self.fns.max_len:
+            raise ValueError(f"prompt length {len(prompt)} exceeds "
+                             f"max_len {self.fns.max_len}")
+        dev = self.fns.device
+        toks = torch.tensor([list(prompt)], dtype=torch.long, device=dev)
+        row = init_cache(self.fns.cfg, 1, self.fns.cache_len, dev)
+        tok, row = self.fns.prefill(self.params, {"tokens": toks}, row)
+        self.prefills += 1
+        return int(tok[0]), row
+
+    @torch.no_grad()
+    def decode(self, last_tokens) -> Tuple[np.ndarray, Dict[str, Any]]:
+        """One decode step over the WHOLE pool: ``last_tokens`` is
+        (num_rows,) int — the previous token per row, arbitrary for
+        inactive rows (their outputs are ignored).  Returns (tokens
+        (num_rows,), stats with per-row nonfinite and entropy) on the
+        host."""
+        dev = self.fns.device
+        pool = self.pool
+        batch = {"tokens": torch.tensor(np.asarray(last_tokens),
+                                        dtype=torch.long,
+                                        device=dev).reshape(-1, 1),
+                 "lengths": torch.tensor(pool.lengths, dtype=torch.int32,
+                                         device=dev),
+                 "page_tables": torch.tensor(pool.page_tables,
+                                             dtype=torch.int32, device=dev)}
+        toks, pool.pages, stats = self.fns.paged_decode(self.params, batch,
+                                                        pool.pages)
+        self.steps += 1
+        return (toks.cpu().numpy().reshape(-1),
+                {k: v.cpu().numpy() for k, v in stats.items()})
+
+
+__all__ = ["Replica", "ServeFns"]

@@ -1,0 +1,78 @@
+"""Serving steps: B=1 prefill against a fresh cache row, and one batched
+decode step over the block-paged pool, both with greedy sampling.
+
+``argmax`` ties go to the first index, as in the reference."""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.layers.attention import NEG_INF
+from repro_torch.models.base import ModelConfig
+from repro_torch.models.transformer import forward
+
+
+def _mask_pad_vocab(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    if cfg.padded_vocab > cfg.vocab_size:
+        logits = logits.clone()
+        logits[..., cfg.vocab_size:] = NEG_INF
+    return logits
+
+
+def make_prefill_step(cfg: ModelConfig,
+                      pad_to: Optional[int] = None) -> Callable:
+    """``prefill_step(params, batch, cache) -> (next_tok (1,), cache)``.
+
+    ``pad_to``: run every prompt at this one length (zero tokens past the
+    prompt; causal attention keeps them out of every real position, and
+    only the prompt's positions enter the cache).  On the card, cuBLAS
+    picks its GEMM kernel — tile shape, split-K — from the shape, so two
+    prompts of different lengths could compute their shared prefix's k/v
+    with different summation orders.  One prefill shape keeps a prefix's
+    k/v bit-identical whichever prompt computed it, which the prefix
+    cache and token-identical failover retries rely on."""
+    def prefill_step(params, batch, cache):
+        tokens = batch["tokens"]
+        L = tokens.shape[1]
+        if pad_to is not None and pad_to > L:
+            batch = {"tokens": F.pad(tokens, (0, pad_to - L)), "length": L}
+        logits, cache = forward(cfg, params, batch, mode="prefill",
+                                cache=cache)
+        logits = _mask_pad_vocab(cfg, logits[:, L - 1].float())
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+    return prefill_step
+
+
+def logit_stats(cfg: ModelConfig,
+                logits: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Per-row decode-path SDC signals from the last-position logits
+    (B, V) fp32: a non-finite flag and the softmax entropy in nats (pad
+    vocab columns are already masked to NEG_INF by the caller)."""
+    nonfinite = 1.0 - torch.isfinite(logits).all(dim=-1).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    p = torch.softmax(logits, dim=-1)
+    entropy = lse - torch.where(p > 0, p * logits,
+                                torch.zeros_like(p)).sum(dim=-1)
+    return {"nonfinite": nonfinite, "entropy": entropy}
+
+
+def make_paged_decode_step(cfg: ModelConfig) -> Callable:
+    """One decode step for the block-paged serving pool: every pool row
+    advances one token against the shared page pool through its page
+    table, in one batched call.
+
+    batch: ``tokens`` (R, 1) last emitted token per row, ``lengths`` (R,)
+    int32 the query position per row, ``page_tables`` (R, MPR) int32.
+    Inactive rows carry a zeroed table + length 0 and only ever touch the
+    null page; their outputs are discarded by the engine."""
+    def paged_decode_step(params, batch, pages):
+        logits, pages = forward(cfg, params, batch, mode="paged_decode",
+                                cache=pages)
+        last = _mask_pad_vocab(cfg, logits[:, -1].float())
+        next_tok = torch.argmax(last, dim=-1).to(torch.int32)
+        return next_tok, pages, logit_stats(cfg, last)
+
+    return paged_decode_step
