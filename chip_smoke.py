@@ -30,7 +30,21 @@ ends the run with a non-zero exit code and no result line:
                  stay quiet;
 6. ``steps``   — one decode step and one prefill at the serve phase's
                  shapes, eager (as the engine runs them) against their
-                 device time alone (captured in a CUDA graph).
+                 device time alone (captured in a CUDA graph);
+7. ``train-tiny`` — tiny granite in float32 trained on the card through
+                 ``run_with_recovery``: a run with a fail-stop and raw
+                 saves ends bit-equal to an uninterrupted card run, and
+                 the card's losses match the CPU run's (plain versions);
+8. ``train``   — granite-3-8b at full width (4 layers, S = 2048, global
+                 batch 4 in 2 microbatches, float32 master weights, bf16
+                 compute) through the ``Dependability`` facade with the
+                 int8 device codec, async saves every 2 steps and a
+                 fail-stop at step 5: two identical steps are bit-equal,
+                 the step's eager and device time, then the protected run
+                 (launch counters zeroed just before it and held to the
+                 path after it), each save's bytes and seconds and the
+                 restore's seconds.  The checkpoints go to a temporary
+                 directory under ``build/`` that is removed afterwards.
 
 Then the kernels summary (one JSON object), the ``nvidia-smi`` line, and
 the last line ``{"ok": true, "device": {...}}``.
@@ -41,9 +55,12 @@ import argparse
 import dataclasses
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -55,7 +72,20 @@ SRC = ROOT / "src"
 # Published peaks (dense, NVIDIA data sheets): bytes/s, bf16 FLOP/s.
 PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
          "H100 SXM": (3.35e12, 989e12)}
+# float32 on the CUDA cores (no tensor cores), FLOP/s
+FP32_PEAKS = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100 SXM": 67e12}
 BF16_TOL = 2e-2                  # tests/test_kernels.py's bf16 tolerance
+# gradients: of the largest magnitude of the plain version's gradient
+GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# the train phase: full width, depth cut to 4 layers (40 layers of float32
+# weights and AdamW moments, 16 B a parameter, do not fit 80 GB)
+TRAIN_LAYERS = 4
+TRAIN_SEQ = 2048
+TRAIN_BATCH = 4
+TRAIN_MICRO = 2
+TRAIN_STEPS = 6
+TRAIN_EVERY = 2
+TRAIN_FAIL = 5
 PAGE_SIZE = 16
 PROMPT_LENS = (128, 200, 256)
 GEN = 32
@@ -71,6 +101,16 @@ KERNELS = {
                         "src/repro/kernels/flash_attention/kernel.py:77"),
     "paged_attention": ("csrc/paged_attention.cu",
                         "src/repro/kernels/paged_attention/kernel.py:84"),
+    # the TPU kernels had no backward: these supply the gradients of the
+    # two above
+    "rmsnorm_bwd": ("csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm/kernel.py:26"),
+    "flash_attention_bwd": ("csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:77"),
+    "ckpt_quantize": ("csrc/ckpt_codec.cu",
+                      "src/repro/kernels/ckpt_codec/kernel.py:53"),
+    "ckpt_dequantize": ("csrc/ckpt_codec.cu",
+                        "src/repro/kernels/ckpt_codec/kernel.py:83"),
 }
 
 
@@ -83,6 +123,10 @@ def peaks(name: str):
         if key.split()[1] in name:
             return key, val
     return "H100 SXM", PEAKS["H100 SXM"]
+
+
+def part_of(name: str) -> str:
+    return peaks(name)[0]
 
 
 def time_ms(fn, iters: int = 20, reps: int = 7) -> float:
@@ -110,6 +154,24 @@ def time_ms(fn, iters: int = 20, reps: int = 7) -> float:
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events) / iters
+
+
+def check_grad(name: str, got, want, tol: float) -> float:
+    """Raises unless |got - want| <= tol * max|want| + tol * |want|
+    everywhere (a gradient is a sum over many terms taken in another
+    order; the error follows the tensor's scale); returns the max abs
+    error."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)} or non-finite output")
+    diff = (got - want).abs()
+    atol = tol * want.abs().max().item()
+    if (diff > atol + tol * want.abs()).any():
+        raise AssertionError(f"{name}: max abs error {diff.max().item():.3g}"
+                             f" beyond {tol} of the largest magnitude "
+                             f"{want.abs().max().item():.3g}")
+    return diff.max().item()
 
 
 def check_close(name: str, got, want, tol: float) -> float:
@@ -275,12 +337,200 @@ def _paged_cases(gen, bw):
     return out
 
 
-def phase_kernels(seed: int, bw: float, flops: float):
+def _codec_leaf(gen, shape, dtype):
+    """A weight-like leaf with a first block of exact .5 ties (amax 127
+    makes the scale 1) and an all-zero second block."""
+    x = torch.randn(shape, generator=gen, device="cuda") * 0.02
+    flat = x.view(-1)
+    flat[:256] = torch.randn(256, generator=gen, device="cuda") * 20.0
+    flat[:8] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5],
+                            device="cuda")
+    flat[256:512] = 0.0
+    return x.to(dtype)
+
+
+def _codec_cases(gen, bw):
+    """Quantize and dequantize against their plain versions byte for byte
+    at the embed leaf's shape (51200 x 4096, float32 master weights and
+    bfloat16), a ragged leaf and a small one."""
+    from repro_torch.kernels.ckpt_codec.kernel import (dequantize_blocks,
+                                                       quantize_blocks)
+    from repro_torch.kernels.ckpt_codec.ref import (dequantize_ref,
+                                                    quantize_ref)
+
+    quant, dequant = [], []
+    for shape, dtype in (((51200, 4096), torch.float32),
+                         ((51200, 4096), torch.bfloat16),
+                         ((4095, 4097), torch.float32),
+                         ((4, 4096), torch.float32)):
+        x = _codec_leaf(gen, shape, dtype)
+        q, sc = quantize_blocks(x)
+        qr, sr = quantize_ref(x)
+        label = f"{tuple(shape)} {str(dtype).split('.')[-1]}"
+        if not (torch.equal(q, qr)
+                and torch.equal(sc.view(torch.int32), sr.view(torch.int32))):
+            bad = (q != qr).sum().item()
+            raise AssertionError(f"ckpt quantize {label}: payload differs "
+                                 f"from the plain version ({bad} bytes of "
+                                 "q, or a scale)")
+        y = dequantize_blocks(q, sc, shape)
+        if not torch.equal(y.view(torch.int32),
+                           dequantize_ref(q, sc, shape).view(torch.int32)):
+            raise AssertionError(f"ckpt dequantize {label}: differs from "
+                                 "the plain version")
+        n, nb = x.numel(), q.shape[0]
+        main = shape == (51200, 4096) and dtype == torch.float32
+        common = {"shape": label, "main": main, "max_abs_err": 0.0,
+                  "tol": "byte-identical", "library_ms": None,
+                  "bound_by": "bytes"}
+        kw = dict(iters=3, reps=5)
+        quant.append({
+            **common,
+            "kernel_ms": time_ms(lambda: quantize_blocks(x), **kw),
+            "plain_ms": time_ms(lambda: quantize_ref(x), **kw),
+            "bound_ms": (n * x.element_size() + n + nb * 4) / bw * 1e3})
+        dequant.append({
+            **common,
+            "kernel_ms": time_ms(lambda: dequantize_blocks(q, sc, shape),
+                                 **kw),
+            "plain_ms": time_ms(lambda: dequantize_ref(q, sc, shape), **kw),
+            "bound_ms": (n + nb * 4 + n * 4) / bw * 1e3})
+        del x, q, sc, qr, sr, y
+    return quant, dequant
+
+
+def _grads(forward, inputs, g):
+    return torch.autograd.grad(forward(*inputs), inputs, g)
+
+
+def _bwd_ms(forward, inputs, g, **kw) -> float:
+    """Device time of the backward alone of a plain (autograd) function:
+    its forward and backward captured together in a CUDA graph, less the
+    forward captured alone (a backward is captured on the stream of its
+    forward, so the two are captured together)."""
+    both = time_ms(lambda: _grads(forward, inputs, g), **kw)
+    return both - time_ms(lambda: forward(*inputs), **kw)
+
+
+def _rmsnorm_bwd_cases(gen, bw):
+    from repro_torch.kernels.rmsnorm.kernel import (rms_norm_2d,
+                                                    rms_norm_2d_bwd)
+    from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
+
+    R, D = TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ, 4096   # a microbatch
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        x, g = (torch.randn(R, D, generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        w = (1.0 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+             ).to(dtype)
+        rstd = torch.empty(R, dtype=torch.float32, device="cuda")
+        rms_norm_2d(x, w, rstd=rstd)
+        dx, dw = rms_norm_2d_bwd(g, x, w, rstd)
+        leaves = (x.clone().requires_grad_(), w.clone().requires_grad_())
+        gx, gw = _grads(rms_norm_ref, leaves, g)
+        tol = GRAD_TOL[dtype]
+        err = max(check_grad(f"rmsnorm_bwd dx {dtype}", dx, gx, tol),
+                  check_grad(f"rmsnorm_bwd dw {dtype}", dw, gw, tol))
+
+        def library(xl, wl):
+            return torch.nn.functional.rms_norm(xl, (D,), wl, eps=1e-6)
+
+        es = x.element_size()
+        out.append({
+            "shape": f"({R}, {D}) {str(dtype).split('.')[-1]}",
+            "main": dtype == torch.bfloat16, "max_abs_err": err, "tol": tol,
+            "kernel_ms": time_ms(
+                lambda: rms_norm_2d_bwd(g, x, w, rstd)),
+            "plain_ms": _bwd_ms(rms_norm_ref, leaves, g),
+            "library_ms": _bwd_ms(library, leaves, g),
+            "bound_ms": ((3 * R * D + 2 * D) * es + R * 4) / bw * 1e3,
+            "bound_by": "bytes"})
+        del x, g, w, leaves, gx, gw, dx, dw
+    return out
+
+
+def _flash_bwd_cases(gen, bw, flops, fp32_flops):
+    """The backward at the train shape (a microbatch: B = 2, S = 2048,
+    32/8 heads of 128) in bfloat16 and float32, and a softcap + window
+    case; against autograd of the plain version on the same inputs."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bshd, flash_attention_bshd_bwd)
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    B, S, H, K, hd = TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, 32, 8, 128
+    out = []
+    for dtype, window, softcap in ((torch.bfloat16, 0, 0.0),
+                                   (torch.float32, 0, 0.0),
+                                   (torch.bfloat16, 512, 30.0)):
+        q, do = (torch.randn(B, S, H, hd, generator=gen, device="cuda"
+                             ).to(dtype) for _ in range(2))
+        k, v = (torch.randn(B, S, K, hd, generator=gen, device="cuda"
+                            ).to(dtype) for _ in range(2))
+        kw = dict(causal=True, window=window, softcap=softcap)
+        o, lse = flash_attention_bshd(q, k, v, lse=True, **kw)
+        got = flash_attention_bshd_bwd(q, k, v, o, do, lse, **kw)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+        def plain(qq, kk, vv):
+            return flash_attention_ref(qq, kk, vv, **kw)
+
+        want = _grads(plain, leaves, do)
+        tol = GRAD_TOL[dtype]
+        err = max(check_grad(f"flash_bwd {n} {dtype} window={window} "
+                             f"softcap={softcap}", a, b, tol)
+                  for n, a, b in zip(("dq", "dk", "dv"), got, want))
+        again = flash_attention_bshd_bwd(q, k, v, o, do, lse, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("flash_bwd is not deterministic")
+        library_ms = None
+        if not window and not softcap:
+            lib = [t.transpose(1, 2).clone().requires_grad_()
+                   for t in (q, k, v)]
+
+            def sdpa(qq, kk, vv):
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qq, kk, vv, is_causal=True, enable_gqa=True)
+
+            library_ms = _bwd_ms(sdpa, lib, do.transpose(1, 2).contiguous(),
+                                 iters=3, reps=3)
+            del lib
+        pairs = _attended_pairs(S, True, window)
+        peak = flops if dtype == torch.bfloat16 else fp32_flops
+        op_s = 10 * hd * pairs * H * B / peak
+        es = q.element_size()
+        byte_s = ((4 * B * S * H * hd + 4 * B * S * K * hd) * es
+                  + B * H * S * 4) / bw
+        out.append({
+            "shape": f"q (B={B}, {S}, {H}, {hd}) kv ({S}, {K}, {hd}) "
+                     f"{str(dtype).split('.')[-1]} causal window={window} "
+                     f"softcap={softcap}",
+            "main": dtype == torch.bfloat16 and not window,
+            "max_abs_err": err, "tol": tol,
+            "kernel_ms": time_ms(
+                lambda: flash_attention_bshd_bwd(q, k, v, o, do, lse, **kw),
+                iters=3, reps=3),
+            "plain_ms": _bwd_ms(plain, leaves, do, iters=3, reps=3),
+            "library_ms": library_ms,
+            "bound_ms": max(op_s, byte_s) * 1e3,
+            "bound_by": "operations" if op_s >= byte_s else "bytes"})
+        del q, k, v, do, o, lse, got, again, leaves, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_kernels(seed: int, bw: float, flops: float, fp32_flops: float):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
+    quant, dequant = _codec_cases(gen, bw)
+    torch.cuda.empty_cache()
     results = {"rmsnorm": _rmsnorm_cases(gen, bw),
                "flash_attention": _flash_cases(gen, bw, flops),
-               "paged_attention": _paged_cases(gen, bw)}
+               "paged_attention": _paged_cases(gen, bw),
+               "rmsnorm_bwd": _rmsnorm_bwd_cases(gen, bw),
+               "flash_attention_bwd": _flash_bwd_cases(gen, bw, flops,
+                                                       fp32_flops),
+               "ckpt_quantize": quant, "ckpt_dequantize": dequant}
     for name, cases in results.items():
         for case in cases:
             emit({"phase": "kernel", "name": name, **case})
@@ -382,14 +632,21 @@ def _tree_to(tree, device):
 
 
 def _counters():
-    from repro_torch.kernels.flash_attention.kernel import \
-        flash_attention_bshd
+    from repro_torch.kernels.ckpt_codec.kernel import (dequantize_blocks,
+                                                       quantize_blocks)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bshd, flash_attention_bshd_bwd)
     from repro_torch.kernels.paged_attention.kernel import \
         paged_attention_rhd
-    from repro_torch.kernels.rmsnorm.kernel import rms_norm_2d
+    from repro_torch.kernels.rmsnorm.kernel import (rms_norm_2d,
+                                                    rms_norm_2d_bwd)
 
     return {"rmsnorm": rms_norm_2d, "flash_attention": flash_attention_bshd,
-            "paged_attention": paged_attention_rhd}
+            "paged_attention": paged_attention_rhd,
+            "rmsnorm_bwd": rms_norm_2d_bwd,
+            "flash_attention_bwd": flash_attention_bshd_bwd,
+            "ckpt_quantize": quantize_blocks,
+            "ckpt_dequantize": dequantize_blocks}
 
 
 def phase_serve(seed: int):
@@ -401,7 +658,8 @@ def phase_serve(seed: int):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     prompts = _prompts(cfg.vocab_size, seed, PROMPT_LENS)
-    counters = _counters()
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("rmsnorm", "flash_attention", "paged_attention")}
     L = cfg.num_layers
     runs = {}
     for label, kill in (("fault_free", False), ("replica_kill", True)):
@@ -488,11 +746,225 @@ def phase_steps(cfg, params, seed: int, calls: int = 10):
     emit(out)
 
 
+def _tree_equal(a, b) -> bool:
+    from repro_torch.tree import flatten_named
+
+    fa, fb = flatten_named(a), flatten_named(b)
+    return ([n for n, _ in fa] == [n for n, _ in fb]
+            and all(x.dtype == y.dtype and torch.equal(x, y)
+                    for (_, x), (_, y) in zip(fa, fb)))
+
+
+def _ckpt_root() -> Path:
+    """Checkpoints of the train phases: a directory of the checkout that
+    git ignores; each run takes a temporary directory under it and
+    removes it."""
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    root.mkdir(parents=True, exist_ok=True)
+    return root
+
+
+def _protected_run(state, data, step_fn, ckpt_dir, *, steps, fail_at,
+                   **config):
+    """``run_with_recovery`` through the facade with a fail-stop at
+    ``fail_at``; returns (state, info, facade, train-step calls)."""
+    from repro_torch.core import (Dependability, DependabilityConfig,
+                                  FaultInjector, run_with_recovery)
+
+    dep = Dependability(DependabilityConfig(
+        checkpoint_dir=ckpt_dir, policy_mode="every_n",
+        every_n=TRAIN_EVERY, signal_detection=False, **config)).start()
+    dep.register_local_state(data)
+    dep.register_global_state(state)
+    injector = FaultInjector()
+    injector.schedule_failstop(fail_at)
+    calls = [0]
+
+    def counted(st, batch):
+        calls[0] += 1
+        return step_fn(st, batch)
+
+    try:
+        out, info = run_with_recovery(dep, counted, state, data, steps,
+                                      fault_injector=injector)
+        torch.cuda.synchronize()
+    finally:
+        dep.stop()
+    if info["status"] != "done" or info["restarts"] != 1:
+        raise AssertionError(f"protected run: {info['status']}, "
+                             f"{info['restarts']} restarts")
+    return out, info, dep, calls[0]
+
+
+def phase_train_tiny(seed: int):
+    """Tiny granite in float32 on the card: a run with a fail-stop and raw
+    saves ends bit-equal to an uninterrupted card run; the card's losses
+    match the CPU's (plain versions) to float32 tolerance (1e-4 relative:
+    the two sum in different orders)."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import get_config
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.train.step import metrics_to_host
+
+    steps = 9
+    cfg = dataclasses.replace(get_config("granite-3-8b", tiny=True),
+                              dtype=torch.float32)
+    cpu_state = init_state(cfg, seed=seed, device="cpu")
+    step_fn = make_train_step(cfg, total_steps=steps, warmup_steps=1)
+    losses = {}
+    for device in ("cpu", "cuda"):
+        state = _tree_to(cpu_state, device)
+        data = make_pipeline(cfg, 32, 4, seed=seed)
+        losses[device] = []
+        for _ in range(steps):
+            state, m = step_fn(state, data.next_batch())
+            losses[device].append(metrics_to_host(m)["loss"])
+    uninterrupted = state
+    for a, b in zip(losses["cuda"], losses["cpu"]):
+        if not abs(a - b) <= 1e-4 * max(1.0, abs(b)):
+            raise AssertionError(f"tiny train: card losses {losses['cuda']}"
+                                 f" vs CPU {losses['cpu']}")
+    tmp = tempfile.mkdtemp(dir=_ckpt_root())
+    try:
+        out, info, _, _ = _protected_run(
+            _tree_to(cpu_state, "cuda"), make_pipeline(cfg, 32, 4, seed=seed),
+            step_fn, tmp, steps=steps, fail_at=TRAIN_FAIL, async_save=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if not _tree_equal(out, uninterrupted):
+        raise AssertionError("tiny train: the recovered run's state differs "
+                             "from the uninterrupted run's")
+    emit({"phase": "train-tiny", "arch": cfg.name, "dtype": "float32",
+          "steps": steps, "fail_stop_at": TRAIN_FAIL,
+          "restarts": info["restarts"], "recovered_bit_equal": True,
+          "card_losses": losses["cuda"], "cpu_losses": losses["cpu"]})
+
+
+def _train_launches(L: int, microbatches: int, calls: int):
+    """Launches the train path implies: per microbatch each of L layers
+    runs its 2 RMSNorms and 1 attention forward twice (the forward and the
+    recomputation of the backward), the final norm once; each backward
+    once."""
+    return {"rmsnorm": calls * microbatches * (4 * L + 1),
+            "rmsnorm_bwd": calls * microbatches * (2 * L + 1),
+            "flash_attention": calls * microbatches * 2 * L,
+            "flash_attention_bwd": calls * microbatches * L}
+
+
+def phase_train(seed: int):
+    """granite-3-8b at full width (depth cut to TRAIN_LAYERS) trained
+    through the facade with the int8 device codec."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.profile_steps import profile_step
+    from repro_torch.models import get_config
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.train.step import metrics_to_host
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"),
+                              num_layers=TRAIN_LAYERS)
+    L = cfg.num_layers
+    tmp = tempfile.mkdtemp(dir=_ckpt_root())
+    disk_free = shutil.disk_usage(tmp).free
+    emit({"phase": "train", "disk_free_gb": disk_free / 1e9,
+          "ckpt_dir": str(Path(tmp).relative_to(ROOT))})
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        state = init_state(cfg, seed=seed, device="cuda")
+        n_params = sum(t.numel() for t in leaves(state["params"]))
+        eligible = sum(1 for t in leaves(state)
+                       if t.is_floating_point() and t.numel() >= 1024)
+        step_fn = make_train_step(cfg, microbatches=TRAIN_MICRO,
+                                  total_steps=TRAIN_STEPS)
+        data = make_pipeline(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+        batch = data.peek_batch(0)
+
+        # determinism: two steps from one state, the same bits (the second
+        # one timed on the host clock, ended by a synchronize)
+        s1, m1 = step_fn(state, batch)
+        h1 = metrics_to_host(m1)
+        t0 = time.perf_counter()
+        s2, m2 = step_fn(state, batch)
+        h2 = metrics_to_host(m2)
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        same = _tree_equal(s1, s2)
+        if not (same and h1["loss"] == h2["loss"]
+                and h1["grad_norm"] == h2["grad_norm"]):
+            raise AssertionError(f"two identical steps differ: {h1} vs {h2}"
+                                 f", states equal: {same}")
+        emit({"phase": "train", "check": "two identical steps",
+              "loss": [h1["loss"], h2["loss"]],
+              "grad_norm": [h1["grad_norm"], h2["grad_norm"]],
+              "states_bit_equal": same})
+        del s1, s2, m1, m2
+        prof = profile_step(lambda: step_fn(state, batch), calls=1)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        emit({"phase": "train", "check": "step", "arch": cfg.name,
+              "layers": L, "d_model": cfg.d_model,
+              "params": n_params, "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+              "microbatches": TRAIN_MICRO, "eager_ms": eager_ms,
+              "profiled_wall_ms": prof["wall_ms"],
+              "device_ms": prof["device_ms"],
+              "host_share": 1.0 - prof["device_ms"] / eager_ms,
+              "tokens_per_s": tokens / (eager_ms / 1e3),
+              "kernels_per_step": prof["kernels_per_call"],
+              "device_ms_by_group": prof["device_ms_by_group"],
+              "top_kernels_ms": prof["top_kernels_ms"],
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+        # the main path: the protected run, counters zeroed just before it
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        out, info, dep, calls = _protected_run(
+            state, data, step_fn, tmp, steps=TRAIN_STEPS,
+            fail_at=TRAIN_FAIL, async_save=True, device_codec=True)
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        saves, restores = len(dep.save_history), len(dep.restore_seconds)
+        want = {**_train_launches(L, TRAIN_MICRO, calls),
+                "paged_attention": 0,
+                "ckpt_quantize": eligible * saves,
+                "ckpt_dequantize": eligible * restores}
+        if launches != want or min(v for k, v in launches.items()
+                                   if k != "paged_attention") <= 0:
+            raise AssertionError(f"train: launches {launches}, the path "
+                                 f"implies {want}")
+        losses = [h["loss"] for h in info["history"] if "loss" in h]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train: non-finite losses {losses}")
+        if int(out["step"]) != TRAIN_STEPS:
+            raise AssertionError(f"train: ended at step {int(out['step'])}")
+        emit({"phase": "train", "check": "protected run",
+              "status": info["status"], "restarts": info["restarts"],
+              "events": [h["event"] for h in info["history"]
+                         if "event" in h],
+              "train_step_calls": calls, "losses": losses, "wall_s": wall,
+              "saves": [{"step": st.step, "bytes": st.bytes_written,
+                         "snapshot_s": st.snapshot_seconds,
+                         "write_s": st.write_seconds}
+                        for st in dep.save_history],
+              "fp32_bytes_per_save": sum(
+                  t.numel() * t.element_size() for t in leaves(state)),
+              "restore_s": dep.restore_seconds,
+              "eligible_leaves": eligible, "launches": launches,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        del state, out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights, prompts and inputs")
     args = ap.parse_args(argv)
+    # the train step's fixed cuBLAS workspace (determinism) is read when
+    # cuBLAS starts: set it before any CUDA work
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device is available", file=sys.stderr)
         return 1
@@ -506,18 +978,24 @@ def main(argv=None) -> int:
 
     name, smi, bw, flops = phase_card()
     phase_build()
-    cases = phase_kernels(args.seed, bw, flops)
+    cases = phase_kernels(args.seed, bw, flops, FP32_PEAKS[part_of(name)])
+    torch.cuda.empty_cache()
     phase_tiny(args.seed)
-    launches = phase_serve(args.seed)
+    serve = phase_serve(args.seed)
+    torch.cuda.empty_cache()
+    phase_train_tiny(args.seed)
+    train = phase_train(args.seed)
 
     summary = []
     for kname, case_list in cases.items():
         main_case = next(c for c in case_list if c["main"])
         source, replaces = KERNELS[kname]
+        by_path = {"serve": serve.get(kname, 0), "train": train[kname]}
         summary.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/{source}", "replaces": replaces,
-            "launches": launches[kname],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(c["max_abs_err"] for c in case_list),
             "ms": main_case["kernel_ms"],
             "plain_ms": main_case["plain_ms"],

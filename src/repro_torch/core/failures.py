@@ -1,19 +1,29 @@
-"""Fault injection for the serving engine.
+"""Fault injection (fail-stop, straggle, the serving events) and the
+straggler watchdog.
 
-``FaultInjector`` carries the serving events of the reference's injector:
-a scheduled replica kill raises ``SimulatedFailure`` the first time the
+``FaultInjector`` carries the training and serving events of the
+reference's injector.  Training: a scheduled fail-stop raises
+``SimulatedFailure`` at a step boundary (the process "dies"); the harness
+then restarts from the last checkpoint exactly like a scheduler would
+relaunch the job; a straggle sleeps inside the superstep.  Serving: a
+scheduled replica kill raises ``SimulatedFailure`` the first time the
 replica is dispatched to at or past its step, a scheduled replica SDC
 raises ``CorruptionDetected`` (the engine takes the sentinel path), and a
-latency spike sleeps before the replica's work.  The serving engine drains
-the replica and retries its streams on survivors (docs/serving.md).
+latency spike sleeps before the replica's work.  Scheduled bit-flips
+(``schedule_bitflip``/``apply_sdc``) wait for the SDC slice of the port
+(ROADMAP item 5).
 
-``CorruptionDetected`` is the signal the SDC tiers raise; serving treats
-it as a replica failure.
+``CorruptionDetected`` is the signal the SDC tiers raise.
+
+``StragglerWatchdog`` tracks step durations and flags steps slower than
+``factor`` x the running median.
 """
 from __future__ import annotations
 
+import statistics
 import time
-from typing import Dict, List, Tuple
+from collections import deque
+from typing import Deque, Dict, List, Tuple
 
 
 class SimulatedFailure(RuntimeError):
@@ -48,6 +58,7 @@ class FaultInjector:
     def __init__(self, obs=None):
         self._events: Dict[int, Dict] = {}    # eid -> event record
         self._next_eid = 0
+        self.triggered: List[int] = []
         self.replica_kills: List[Tuple[int, int]] = []   # (step, replica)
         # telemetry: fired injections land on the bus as ground truth to
         # hold the detectors' events against (injected vs detected)
@@ -90,6 +101,12 @@ class FaultInjector:
     # ------------------------------------------------------------------
     # scheduling (each returns the event id)
     # ------------------------------------------------------------------
+    def schedule_failstop(self, step: int, host_id: int = 0) -> int:
+        return self._add("failstop", step, host=host_id)
+
+    def schedule_straggle(self, step: int, extra_seconds: float) -> int:
+        return self._add("straggle", step, extra=float(extra_seconds))
+
     def schedule_replica_kill(self, step: int, replica_id: int = 0) -> int:
         """Kill serving replica ``replica_id`` at engine step ``step``:
         ``check_replica`` raises ``SimulatedFailure(kind="replica-kill")``
@@ -138,3 +155,43 @@ class FaultInjector:
                 self.replica_kills.append((step, replica_id))
                 self._emit("replica_kill", step=step, replica=replica_id)
                 raise SimulatedFailure(step, replica_id, kind="replica-kill")
+
+    def check(self, step: int):
+        """Call at each BSP step boundary."""
+        for ev in self._match("straggle"):
+            if ev["step"] == step:
+                del self._events[ev["id"]]
+                self._emit("straggle", step=step, extra=ev["extra"])
+                time.sleep(ev["extra"])
+        for ev in self._match("failstop"):
+            if ev["step"] == step:
+                del self._events[ev["id"]]
+                self.triggered.append(step)
+                self._emit("failstop", step=step, host=ev["host"])
+                raise SimulatedFailure(step, ev["host"])
+
+
+class StragglerWatchdog:
+    def __init__(self, factor: float = 3.0, window: int = 32,
+                 min_samples: int = 5):
+        self.factor = factor
+        self.window = window
+        self.min_samples = min_samples
+        # bounded at exactly ``window`` samples: the median only ever
+        # looks at the newest window
+        self.durations: Deque[float] = deque(maxlen=window)
+        self.flagged_steps: List[int] = []
+
+    def observe(self, step: int, seconds: float) -> bool:
+        """Returns True if this step is a straggler."""
+        is_straggler = False
+        if len(self.durations) >= self.min_samples:
+            med = statistics.median(self.durations)
+            if seconds > self.factor * med:
+                is_straggler = True
+                self.flagged_steps.append(step)
+                # keep the newest 4x window flags, not every flag
+                if len(self.flagged_steps) > 4 * self.window:
+                    del self.flagged_steps[:-2 * self.window]
+        self.durations.append(seconds)
+        return is_straggler

@@ -31,6 +31,7 @@
 // masked for a row leaves that row's state bit-for-bit unchanged — a
 // row's result does not depend on S or on the other rows of its tile.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -49,9 +50,9 @@ constexpr size_t smem_bytes() {
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT)
     flash_fwd_f32(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o, int S, int Sk,
-                  int H, int K, float scale, int causal, int window,
-                  float softcap) {
+                  const T* __restrict__ v, T* __restrict__ o,
+                  float* __restrict__ lse, int S, int Sk, int H, int K,
+                  float scale, int causal, int window, float softcap) {
   extern __shared__ float smem[];
   float* Qs = smem;                       // BQ x (HD + 1)
   float* Ks = Qs + BQ * (HD + 1);         // BK x (HD + 1)
@@ -158,42 +159,9 @@ __global__ void __launch_bounds__(NT)
 #pragma unroll
     for (int i = 0; i < HD / 4; ++i)
       orow[sub + 4 * i] = from_f32<T>(acc[i] * inv);
+    if (lse != nullptr && sub == 0)
+      lse[(static_cast<long long>(b) * H + h) * S + qpos] = m + logf(l);
   }
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned* r,
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_16816(float* c, const unsigned* a,
-                                          unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<unsigned*>(&v);
 }
 
 template <int HD>
@@ -201,32 +169,14 @@ constexpr size_t smem_bytes_mma() {
   return sizeof(__nv_bfloat16) * 3 * BQ * (HD + 8);
 }
 
-// Copies rows [row0, row0 + 64) of one head (row stride `stride`
-// elements) into a (64, HD + 8) shared tile with 16-byte loads; rows at
-// or past `rows` are zero.
-template <int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long stride, int row0,
-                                          int rows) {
-  constexpr int VEC = HD / 8;
-  for (int i = threadIdx.x; i < BQ * VEC; i += NT_MMA) {
-    const int r = i / VEC, c = (i % VEC) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * (HD + 8) + c) = val;
-  }
-}
-
 template <int HD>
 __global__ void __launch_bounds__(NT_MMA)
     flash_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
-                       __nv_bfloat16* __restrict__ o, int S, int Sk, int H,
-                       int K, float scale, int causal, int window,
-                       float softcap) {
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int S, int Sk, int H, int K,
+                       float scale, int causal, int window, float softcap) {
   constexpr int LD = HD + 8;            // padded row: ldmatrix conflict-free
   constexpr int KS = HD / 16;           // k-steps of Q K^T
   constexpr int NS = BK / 8;            // score n-tiles per warp
@@ -249,7 +199,7 @@ __global__ void __launch_bounds__(NT_MMA)
   const __nv_bfloat16* vb = v + static_cast<long long>(b) * Sk * kv_row +
                             static_cast<long long>(kh) * HD;
 
-  load_tile<HD>(Qs, qb, q_row, q_lo, S);
+  load_rows_bf16<HD, BQ, NT_MMA>(Qs, qb, q_row, q_lo, S);
   __syncthreads();
   unsigned qa[KS][4];                   // this warp's 16 q rows, A operand
 #pragma unroll
@@ -274,8 +224,8 @@ __global__ void __launch_bounds__(NT_MMA)
   for (int j = lo; j < hi; ++j) {
     const int k_lo = j * BK;
     __syncthreads();            // previous tile consumed
-    load_tile<HD>(Ks, kb, kv_row, k_lo, Sk);
-    load_tile<HD>(Vs, vb, kv_row, k_lo, Sk);
+    load_rows_bf16<HD, BK, NT_MMA>(Ks, kb, kv_row, k_lo, Sk);
+    load_rows_bf16<HD, BK, NT_MMA>(Vs, vb, kv_row, k_lo, Sk);
     __syncthreads();
 
     float sc[NS][4];
@@ -346,10 +296,8 @@ __global__ void __launch_bounds__(NT_MMA)
     }
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const unsigned pa[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+      unsigned pa[4];
+      c_to_a(pa, sc, kk);
 #pragma unroll
       for (int dn = 0; dn < HD / 16; ++dn) {
         unsigned vb4[4];
@@ -366,6 +314,9 @@ __global__ void __launch_bounds__(NT_MMA)
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= S) continue;
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(static_cast<long long>(b) * H + h) * S + rows[r]] =
+          m[r] + logf(l[r]);
     __nv_bfloat16* orow = o + static_cast<long long>(b) * S * q_row +
                           rows[r] * q_row + static_cast<long long>(h) * HD;
 #pragma unroll
@@ -378,8 +329,8 @@ __global__ void __launch_bounds__(NT_MMA)
 
 template <int HD>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       int B, int S, int Sk, int H, int K, float scale,
-                       int causal, int window, float softcap,
+                       float* lse, int B, int S, int Sk, int H, int K,
+                       float scale, int causal, int window, float softcap,
                        cudaStream_t stream) {
   auto kernel = flash_fwd_bf16_mma<HD>;
   const size_t bytes = smem_bytes_mma<HD>();
@@ -391,14 +342,14 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      S, Sk, H, K, scale, causal, window, softcap);
+      lse, S, Sk, H, K, scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int S, int Sk, int H, int K, float scale,
-                   int causal, int window, float softcap,
+                   float* lse, int B, int S, int Sk, int H, int K,
+                   float scale, int causal, int window, float softcap,
                    cudaStream_t stream) {
   auto kernel = flash_fwd_f32<T, HD>;
   const size_t bytes = smem_bytes<HD>();
@@ -408,21 +359,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   dim3 grid((S + BQ - 1) / BQ, H, B);
   kernel<<<grid, NT, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Sk, H, K, scale,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, Sk, H, K, scale,
       causal, window, softcap);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_dtype(int dtype, const void* q, const void* k,
-                         const void* v, void* o, int B, int S, int Sk, int H,
-                         int K, float scale, int causal, int window,
-                         float softcap, cudaStream_t s) {
+                         const void* v, void* o, float* lse, int B, int S,
+                         int Sk, int H, int K, float scale, int causal,
+                         int window, float softcap, cudaStream_t s) {
   if (dtype == DT_BF16)
-    return launch_mma<HD>(q, k, v, o, B, S, Sk, H, K, scale, causal, window,
-                          softcap, s);
+    return launch_mma<HD>(q, k, v, o, lse, B, S, Sk, H, K, scale, causal,
+                          window, softcap, s);
   if (dtype == DT_F32)
-    return launch<float, HD>(q, k, v, o, B, S, Sk, H, K, scale, causal,
+    return launch<float, HD>(q, k, v, o, lse, B, S, Sk, H, K, scale, causal,
                              window, softcap, s);
   return cudaErrorInvalidValue;
 }
@@ -430,20 +381,23 @@ cudaError_t launch_dtype(int dtype, const void* q, const void* k,
 }  // namespace
 
 // q, o: (B, S, H, hd); k, v: (B, Sk, K, hd); contiguous, one dtype.
-// hd in {16, 32, 64, 128}.  Returns the cudaError_t of the launch.
+// lse: (B, H, S) float32, the log-sum-exp of each row's (scaled, capped)
+// scores for the backward, or null (serving).  hd in {16, 32, 64, 128}.
+// Returns the cudaError_t of the launch.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
-                                         const void* v, void* o, int B,
-                                         int S, int Sk, int H, int K, int hd,
-                                         float scale, int causal, int window,
-                                         float softcap, int dtype,
-                                         void* stream) {
+                                         const void* v, void* o, void* lse,
+                                         int B, int S, int Sk, int H, int K,
+                                         int hd, float scale, int causal,
+                                         int window, float softcap,
+                                         int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || S <= 0) return cudaSuccess;
+  float* l = static_cast<float*>(lse);
   switch (hd) {
-    case 16: return launch_dtype<16>(dtype, q, k, v, o, B, S, Sk, H, K, scale, causal, window, softcap, s);
-    case 32: return launch_dtype<32>(dtype, q, k, v, o, B, S, Sk, H, K, scale, causal, window, softcap, s);
-    case 64: return launch_dtype<64>(dtype, q, k, v, o, B, S, Sk, H, K, scale, causal, window, softcap, s);
-    case 128: return launch_dtype<128>(dtype, q, k, v, o, B, S, Sk, H, K, scale, causal, window, softcap, s);
+    case 16: return launch_dtype<16>(dtype, q, k, v, o, l, B, S, Sk, H, K, scale, causal, window, softcap, s);
+    case 32: return launch_dtype<32>(dtype, q, k, v, o, l, B, S, Sk, H, K, scale, causal, window, softcap, s);
+    case 64: return launch_dtype<64>(dtype, q, k, v, o, l, B, S, Sk, H, K, scale, causal, window, softcap, s);
+    case 128: return launch_dtype<128>(dtype, q, k, v, o, l, B, S, Sk, H, K, scale, causal, window, softcap, s);
     default: return cudaErrorInvalidValue;
   }
 }

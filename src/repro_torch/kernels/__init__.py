@@ -9,5 +9,8 @@ it replaces:
                      package on the CPU and against the kernel on the card
 
 Kernels on the serving path (slice 1): rmsnorm, flash_attention,
-paged_attention.  ``build`` compiles and loads the CUDA sources.
+paged_attention.  On the training path (slice 2): rmsnorm and
+flash_attention with their backward kernels (run as autograd Functions
+when a gradient is needed), and ckpt_codec (int8 checkpoint quantize and
+dequantize).  ``build`` compiles and loads the CUDA sources.
 """

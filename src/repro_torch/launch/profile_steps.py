@@ -10,7 +10,8 @@ ended by a synchronize, as the engine runs it), the device time summed
 over its kernels, their ratio as the card's idle share, and the device
 time by group (the port's three kernels, matrix products, the rest) with
 the largest kernels by name.  ``serve_steps`` builds the two steps; the
-chip smoke test times the same callables.
+chip smoke test times the same callables, and ``profile_step`` also
+reads its train step.
 """
 from __future__ import annotations
 
@@ -32,7 +33,9 @@ from repro_torch.train import make_paged_decode_step, make_prefill_step
 # 18-page table (max_len 288 at page size 16)
 LENGTHS = (0, 15, 16, 100, 200, 255, 287, 17)
 GROUPS = (("rmsnorm", "rmsnorm_kernel"), ("flash_attention", "flash_fwd"),
-          ("paged_attention", "paged_decode_kernel"))
+          ("paged_attention", "paged_decode_kernel"),
+          ("rmsnorm_bwd", "rmsnorm_bwd"), ("flash_attention_bwd", "flash_bwd"),
+          ("ckpt_codec", "quantize_kernel"))
 MATMUL_MARKS = ("gemm", "gemv", "xmma", "nvjet", "cutlass", "splitk")
 
 

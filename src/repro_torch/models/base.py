@@ -2,8 +2,10 @@
 
 The same frozen dataclass as the reference's, with torch dtypes and the
 fields the dense attention path reads.  ``use_pallas`` is gone: the
-tensor's device decides between a kernel and its plain version.  The MoE,
-SSM and RG-LRU fields wait for their slices.
+tensor's device decides between a kernel and its plain version.  The
+train state always stacks homogeneous blocks, as the reference does with
+``scan_layers=True``, so that flag is gone too.  The MoE, SSM and RG-LRU
+fields wait for their slices.
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ class ModelConfig:
     # --- embeddings / head ---
     tie_embeddings: bool = True
     embed_scale: bool = False              # gemma-style sqrt(d_model) embed scaling
+    sandwich_norm: bool = False            # gemma2 post-attn/post-mlp norms
     norm_eps: float = 1e-6
     # --- execution ---
     param_dtype: Any = torch.float32

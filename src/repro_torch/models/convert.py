@@ -1,7 +1,10 @@
-"""Weights carried across from the JAX package.
+"""Weights and train states carried across from the JAX package.
 
 ``params_from_jax`` takes the reference's ``init_params`` pytree as numpy
-arrays (``jax.device_get``) and returns the port's parameters.  The
+arrays (``jax.device_get``) and returns the port's serving parameters.
+``state_from_jax`` takes the reference's whole train state (``params``,
+``opt.{m,v,count}``, ``rng``, ``step``) and returns the port's, which
+keeps the reference's stacked layout leaf for leaf.  The
 reference stacks homogeneous blocks for ``scan``: ``{"embed": {"tok"},
 "blocks": {"l<p>": {...}}, "final_norm"}`` with a leading G axis on every
 block leaf, layer ``g * len(pattern) + p``.  The unstacked layout
@@ -17,6 +20,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models.base import ModelConfig
 from repro_torch.models.transformer import load_weight
+from repro_torch.tree import tree_map
 
 
 def _tree(cfg, x, index, device):
@@ -46,3 +50,15 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
         out["layers"] = [_tree(cfg, tree["layers"][f"layer_{i}"], None,
                                device) for i in range(cfg.num_layers)]
     return out
+
+
+def state_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
+                   device=None) -> Dict[str, Any]:
+    """The reference's train state (numpy leaves) as the port's: the same
+    tree, every leaf a tensor of the same dtype and bits on ``device``."""
+    device = resolve_device(device)
+    if "blocks" not in tree["params"]:
+        raise ValueError(f"{cfg.name}: the port's train state stacks its "
+                         "blocks (the reference's scan_layers=True)")
+    return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device),
+                    tree)

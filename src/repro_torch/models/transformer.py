@@ -5,6 +5,12 @@ vocab.  A Python loop over layers replaces the reference's ``scan``; the
 sharding constraints have no counterpart on one card and are dropped.
 
 Modes of ``forward``:
+  ``train``        — logits for every position from the train state's
+                     parameters (``init_train_params``: float32 master
+                     weights, blocks stacked as the reference stacks them
+                     for ``scan``), cast to the compute dtype inside the
+                     autograd graph on every call; each block is
+                     recomputed in the backward.
   ``prefill``      — logits for every position; with ``cache`` (a fresh
                      row from ``init_cache``) the row's k/v/pos are filled
                      in place.
@@ -21,10 +27,11 @@ compute dtype once at load.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -33,6 +40,7 @@ from repro_torch.layers.mlp import mlp_apply, mlp_init
 from repro_torch.layers.norms import rms_norm
 from repro_torch.layers.rope import apply_rope, make_positions
 from repro_torch.models.base import BIDIR, FULL, LOCAL, ModelConfig
+from repro_torch.tree import flatten_named, unflatten
 
 Params = Dict[str, Any]
 
@@ -97,9 +105,66 @@ def init_params(cfg: ModelConfig, *, seed: int, device=None) -> Params:
                 "wo": normal((h, hd, d), (h * hd) ** -0.5)}
         if cfg.qkv_bias:
             attn.update(bq=zeros(h, hd), bk=zeros(kv, hd), bv=zeros(kv, hd))
-        layers.append({"ln1": ones(d), "attn": attn, "ln2": ones(d),
-                       "mlp": mlp_init(normal, d, cfg.d_ff, cfg.mlp_act)})
+        layer = {"ln1": ones(d), "attn": attn, "ln2": ones(d),
+                 "mlp": mlp_init(normal, d, cfg.d_ff, cfg.mlp_act)}
+        if cfg.sandwich_norm:
+            layer.update(ln1_post=ones(d), ln2_post=ones(d))
+        layers.append(layer)
     params["layers"] = layers
+    params["final_norm"] = ones(d)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((d, cfg.padded_vocab), d ** -0.5)
+    return params
+
+
+def init_train_params(cfg: ModelConfig, *, seed: int, device=None) -> Params:
+    """The train state's parameters: ``cfg.param_dtype`` (float32) master
+    weights from a ``torch.Generator`` seeded with ``seed``, in the
+    reference's stacked layout ``{"embed": {"tok"}, "blocks": {"l<p>":
+    {...}}, "final_norm"[, "lm_head"]}`` where every block leaf has a
+    leading axis of ``num_layers / len(pattern)`` (layer ``g * len(pattern)
+    + p``).  Same shapes and scales as the reference's ``init_params``."""
+    _check_kinds(cfg)
+    device = resolve_device(device)
+    P_ = len(cfg.pattern)
+    if cfg.num_layers % P_:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not "
+                         f"stack into blocks of {P_}")
+    G = cfg.num_layers // P_
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(seed))
+    pd = cfg.param_dtype
+
+    def normal(shape, std):
+        return (torch.randn(tuple(shape), generator=gen, device=device,
+                            dtype=torch.float32) * std).to(pd)
+
+    def stacked(shape, std):
+        return normal((G,) + tuple(shape), std)
+
+    def ones(*shape):
+        return torch.ones(shape, device=device, dtype=pd)
+
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    params: Params = {"embed": {"tok": normal((cfg.padded_vocab, d),
+                                              d ** -0.5)}}
+    blocks = {}
+    for p in range(P_):
+        attn = {"wq": stacked((d, h, hd), d ** -0.5),
+                "wk": stacked((d, kv, hd), d ** -0.5),
+                "wv": stacked((d, kv, hd), d ** -0.5),
+                "wo": stacked((h, hd, d), (h * hd) ** -0.5)}
+        if cfg.qkv_bias:
+            attn.update(bq=torch.zeros(G, h, hd, device=device, dtype=pd),
+                        bk=torch.zeros(G, kv, hd, device=device, dtype=pd),
+                        bv=torch.zeros(G, kv, hd, device=device, dtype=pd))
+        blk = {"ln1": ones(G, d), "attn": attn, "ln2": ones(G, d),
+               "mlp": mlp_init(stacked, d, cfg.d_ff, cfg.mlp_act)}
+        if cfg.sandwich_norm:
+            blk.update(ln1_post=ones(G, d), ln2_post=ones(G, d))
+        blocks[f"l{p}"] = blk
+    params["blocks"] = blocks
     params["final_norm"] = ones(d)
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, cfg.padded_vocab), d ** -0.5)
@@ -208,9 +273,15 @@ def _attn_apply(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig,
             _fill_cache(entry, k, v, n_valid)
 
     H, hd, d = a["wo"].shape
-    x = x + o.reshape(B, S, H * hd) @ a["wo"].reshape(H * hd, d)
+    o = o.reshape(B, S, H * hd) @ a["wo"].reshape(H * hd, d)
+    if cfg.sandwich_norm:
+        o = rms_norm(o, p["ln1_post"], cfg.norm_eps)
+    x = x + o
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp_apply(p["mlp"], h2, cfg.mlp_act)
+    m = mlp_apply(p["mlp"], h2, cfg.mlp_act)
+    if cfg.sandwich_norm:
+        m = rms_norm(m, p["ln2_post"], cfg.norm_eps)
+    return x + m
 
 
 # --------------------------------------------------------------------------
@@ -229,17 +300,74 @@ def _logits_out(cfg: ModelConfig, params: Params,
     return logits
 
 
+def _train_weights(cfg: ModelConfig,
+                   params: Params) -> Tuple[Params, List[Params]]:
+    """The reference's ``_cast_params`` for the train layout: float32
+    master weights cast to the compute dtype inside the autograd graph
+    (so their gradients come back in float32), then each stacked block
+    leaf unbound into per-layer views (one stack in the backward)."""
+    cd = cfg.dtype
+
+    def cast(w):
+        if w.dtype == torch.float32 and cd != torch.float32:
+            return w.to(cd)
+        return w
+
+    P_ = len(cfg.pattern)
+    G = cfg.num_layers // P_
+    layers: List[Params] = [None] * cfg.num_layers
+    for p in range(P_):
+        blk = params["blocks"][f"l{p}"]
+        parts = [cast(w).unbind(0) for _, w in flatten_named(blk)]
+        for g in range(G):
+            layers[g * P_ + p] = unflatten(blk, [pt[g] for pt in parts])
+    top: Params = {"embed": {"tok": cast(params["embed"]["tok"])},
+                   "final_norm": cast(params["final_norm"])}
+    if "lm_head" in params:
+        top["lm_head"] = cast(params["lm_head"])
+    return top, layers
+
+
+def _train_block(x, layers, kinds, cfg, positions):
+    for p, kind in zip(layers, kinds):
+        x = _attn_apply(p, x, kind, cfg, positions)
+    return x
+
+
+def _forward_train(cfg: ModelConfig, params: Params,
+                   batch: Dict[str, Any]) -> torch.Tensor:
+    top, layers = _train_weights(cfg, params)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = F.embedding(tokens.long(), top["embed"]["tok"])
+    if cfg.embed_scale:
+        x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
+                           device=x.device)
+    positions = make_positions(B, S, device=tokens.device)
+    kinds = cfg.layer_kinds()
+    P_ = len(cfg.pattern)
+    # one recomputed unit per stacked block (the reference checkpoints its
+    # scan body): only each block's input is kept for the backward
+    for g in range(0, cfg.num_layers, P_):
+        x = checkpoint(_train_block, x, layers[g:g + P_], kinds[g:g + P_],
+                       cfg, positions, use_reentrant=False)
+    return _logits_out(cfg, top, x)
+
+
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
             mode: str = "prefill", cache=None):
     """Returns (logits, cache); the cache is updated in place.
 
-    batch: ``tokens`` (B, S).  ``prefill`` may carry ``length``: only the
+    batch: ``tokens`` (B, S).  ``train`` takes the train state's
+    parameters (``init_train_params``) and returns (logits, None).  ``prefill`` may carry ``length``: only the
     first ``length`` positions are real (the rest is padding past them,
     which causal attention keeps out of every real position) and only
     those enter the cache.  ``paged_decode`` carries ``lengths`` (R,)
     int32, each row's query position, and ``page_tables`` (R, MPR)
     int32."""
     _check_kinds(cfg)
+    if mode == "train":
+        return _forward_train(cfg, params, batch), None
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = params["embed"]["tok"][tokens.long()]
@@ -260,7 +388,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     elif mode == "prefill":
         positions = make_positions(B, S, device=tokens.device)
     else:
-        raise ValueError(f"mode {mode!r}: the port runs prefill and "
+        raise ValueError(f"mode {mode!r}: the port runs train, prefill and "
                          "paged_decode (decode waits for the slot-pool "
                          "slice)")
     n_valid = int(batch.get("length", S))
