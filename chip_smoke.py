@@ -12,8 +12,9 @@ ends the run with a non-zero exit code and no result line:
                  (``kernels/build.py``: one ``nvcc`` per source, in
                  parallel) and reports the seconds it took;
 3. ``kernel``  — each hand-written kernel against its plain PyTorch version
-                 on the same inputs on the card, at the serving path's
-                 shapes: max error and tolerance, kernel / plain / library
+                 on the same inputs on the card, at the shapes the serve
+                 and train paths give it: max error and tolerance, kernel /
+                 plain / library
                  times (calls captured in a CUDA graph, timed with CUDA
                  events) and the card's lower bound;
 4. ``tiny``    — tiny granite served in float32 through ``ServeEngine`` on
@@ -75,6 +76,7 @@ PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
 # float32 on the CUDA cores (no tensor cores), FLOP/s
 FP32_PEAKS = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100 SXM": 67e12}
 BF16_TOL = 2e-2                  # tests/test_kernels.py's bf16 tolerance
+FP32_TOL = 1e-4                  # float32 outputs (RMSNorm rstd, flash LSE)
 # gradients: of the largest magnitude of the plain version's gradient
 GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # the train phase: full width, depth cut to 4 layers (40 layers of float32
@@ -86,6 +88,7 @@ TRAIN_MICRO = 2
 TRAIN_STEPS = 6
 TRAIN_EVERY = 2
 TRAIN_FAIL = 5
+TRAIN_ROWS = TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ   # tokens a microbatch
 PAGE_SIZE = 16
 PROMPT_LENS = (128, 200, 256)
 GEN = 32
@@ -123,10 +126,6 @@ def peaks(name: str):
         if key.split()[1] in name:
             return key, val
     return "H100 SXM", PEAKS["H100 SXM"]
-
-
-def part_of(name: str) -> str:
-    return peaks(name)[0]
 
 
 def time_ms(fn, iters: int = 20, reps: int = 7) -> float:
@@ -225,19 +224,32 @@ def _rmsnorm_cases(gen, bw):
     w = (1.0 + 0.1 * torch.randn(D, generator=gen, device="cuda")
          ).to(torch.bfloat16)
     out = []
-    for T in (1, 4, MAX_ACTIVE, MAX_LEN):
+    # the serve path's row counts, then the train path's (a microbatch of
+    # TRAIN_SEQ tokens), where the forward also writes each row's rstd
+    for T in (1, 4, MAX_ACTIVE, MAX_LEN, TRAIN_ROWS):
         x = torch.randn(T, D, generator=gen, device="cuda"
                         ).to(torch.bfloat16)
-        err = check_close(f"rmsnorm T={T}", rms_norm_2d(x, w),
+        rstd = (torch.empty(T, dtype=torch.float32, device="cuda")
+                if T == TRAIN_ROWS else None)
+        err = check_close(f"rmsnorm T={T}", rms_norm_2d(x, w, rstd=rstd),
                           rms_norm_ref(x, w), BF16_TOL)
+        if rstd is not None:
+            want = torch.rsqrt(x.float().square().mean(-1) + 1e-6)
+            err = max(err, check_close(f"rmsnorm rstd T={T}", rstd, want,
+                                       FP32_TOL))
         out.append({
-            "shape": f"({T}, {D}) bf16", "main": T == MAX_ACTIVE,
-            "max_abs_err": err, "tol": BF16_TOL,
-            "kernel_ms": time_ms(lambda: rms_norm_2d(x, w)),
+            "shape": f"({T}, {D}) bf16" + (" rstd" if rstd is not None
+                                           else ""),
+            "main": T == MAX_ACTIVE, "max_abs_err": err,
+            "tol": BF16_TOL if rstd is None else
+            {"y": BF16_TOL, "rstd": FP32_TOL},
+            "kernel_ms": time_ms(lambda: rms_norm_2d(x, w, rstd=rstd)),
             "plain_ms": time_ms(lambda: rms_norm_ref(x, w)),
             "library_ms": time_ms(lambda: torch.nn.functional.rms_norm(
                 x, (D,), w, eps=1e-6)),
-            "bound_ms": (T * D * 4 + D * 2) / bw * 1e3, "bound_by": "bytes"})
+            "bound_ms": (T * D * 4 + D * 2 + (T * 4 if rstd is not None
+                                              else 0)) / bw * 1e3,
+            "bound_by": "bytes"})
     return out
 
 
@@ -250,41 +262,76 @@ def _attended_pairs(S: int, causal: bool, window: int) -> int:
     return n
 
 
+def _plain_lse(q, k, *, causal, window, softcap):
+    """The log-sum-exp of each row's scores as the kernel defines them:
+    float32 dot products times the scale, capped, masked -> (B, H, S)."""
+    from repro_torch.layers.attention import NEG_INF, _mask, _softcap
+
+    S, H, hd = q.shape[1:]
+    kk = k.float().repeat_interleave(H // k.shape[2], dim=2)
+    s = _softcap(torch.einsum("bshd,bthd->bhst", q.float(), kk)
+                 * hd ** -0.5, softcap)
+    pos = torch.arange(S, device=q.device)
+    s = torch.where(_mask(pos, pos, causal=causal, window=window), s,
+                    NEG_INF)
+    return torch.logsumexp(s, dim=-1)
+
+
 def _flash_cases(gen, bw, flops):
     from repro_torch.kernels.flash_attention.kernel import \
         flash_attention_bshd
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     H, K, hd = 32, 8, 128
+    B_train = TRAIN_BATCH // TRAIN_MICRO
     out = []
-    # S = MAX_LEN is the main path's (padded) prefill length; 300 is ragged
-    for S, window, softcap in ((128, 0, 0.0), (MAX_LEN, 0, 0.0),
-                               (300, 0, 0.0), (512, 0, 0.0),
-                               (512, 64, 30.0)):
-        q, k, v = (torch.randn(1, S, n, hd, generator=gen, device="cuda"
+    # S = MAX_LEN is the serve path's (padded) prefill length, 300 is
+    # ragged; the train path calls it a microbatch at a time with the LSE
+    # (B_train, TRAIN_SEQ), here also with a window and a softcap
+    for B, S, window, softcap in ((1, 128, 0, 0.0), (1, MAX_LEN, 0, 0.0),
+                                  (1, 300, 0, 0.0), (1, 512, 0, 0.0),
+                                  (1, 512, 64, 30.0),
+                                  (B_train, TRAIN_SEQ, 0, 0.0),
+                                  (B_train, TRAIN_SEQ, 512, 30.0)):
+        q, k, v = (torch.randn(B, S, n, hd, generator=gen, device="cuda"
                                ).to(torch.bfloat16) for n in (H, K, K))
         kw = dict(causal=True, window=window, softcap=softcap)
-        err = check_close(f"flash S={S} window={window} softcap={softcap}",
-                          flash_attention_bshd(q, k, v, **kw),
-                          flash_attention_ref(q, k, v, **kw), BF16_TOL)
+        train = S == TRAIN_SEQ
+        label = f"flash B={B} S={S} window={window} softcap={softcap}"
+        if train:
+            o, lse = flash_attention_bshd(q, k, v, lse=True, **kw)
+            err = max(check_close(label, o, flash_attention_ref(q, k, v, **kw),
+                                  BF16_TOL),
+                      check_close(label + " lse", lse,
+                                  _plain_lse(q, k, **kw), FP32_TOL))
+            del o, lse
+        else:
+            err = check_close(label, flash_attention_bshd(q, k, v, **kw),
+                              flash_attention_ref(q, k, v, **kw), BF16_TOL)
+        kw_t = dict(iters=3, reps=3) if train else {}
         library_ms = None
         if not window and not softcap:
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
             library_ms = time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True))
-        op_s = 4 * H * hd * _attended_pairs(S, True, window) / flops
-        byte_s = 2 * (2 * S * H * hd + 2 * S * K * hd) / bw
+                    qt, kt, vt, is_causal=True, enable_gqa=True), **kw_t)
+        op_s = 4 * B * H * hd * _attended_pairs(S, True, window) / flops
+        byte_s = (2 * B * (2 * S * H * hd + 2 * S * K * hd)
+                  + (B * H * S * 4 if train else 0)) / bw
         out.append({
-            "shape": f"q (1, {S}, {H}, {hd}) kv (1, {S}, {K}, {hd}) bf16 "
-                     f"causal window={window} softcap={softcap}",
+            "shape": f"q ({B}, {S}, {H}, {hd}) kv ({B}, {S}, {K}, {hd}) "
+                     f"bf16 causal window={window} softcap={softcap}"
+                     + (" lse" if train else ""),
             "main": S == MAX_LEN and not window, "max_abs_err": err,
-            "tol": BF16_TOL,
+            "tol": {"o": BF16_TOL, "lse": FP32_TOL} if train else BF16_TOL,
             "kernel_ms": time_ms(
-                lambda: flash_attention_bshd(q, k, v, **kw)),
-            "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, **kw)),
+                lambda: flash_attention_bshd(q, k, v, lse=train, **kw),
+                **kw_t),
+            "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, **kw),
+                                **kw_t),
             "library_ms": library_ms, "bound_ms": max(op_s, byte_s) * 1e3,
             "bound_by": "operations" if op_s >= byte_s else "bytes"})
+        del q, k, v
     return out
 
 
@@ -379,13 +426,22 @@ def _codec_cases(gen, bw):
             raise AssertionError(f"ckpt dequantize {label}: differs from "
                                  "the plain version")
         n, nb = x.numel(), q.shape[0]
+
+        def library():
+            # one call: int8 times float32 promotes to float32, one IEEE
+            # multiply an element (the view and the slice are free)
+            return torch.mul(q, sc[:, None]).view(-1)[:n].view(shape)
+
+        if not torch.equal(y.view(torch.int32),
+                           library().view(torch.int32)):
+            raise AssertionError(f"ckpt dequantize {label}: differs from "
+                                 "torch.mul(q, scales[:, None])")
         main = shape == (51200, 4096) and dtype == torch.float32
         common = {"shape": label, "main": main, "max_abs_err": 0.0,
-                  "tol": "byte-identical", "library_ms": None,
-                  "bound_by": "bytes"}
+                  "tol": "byte-identical", "bound_by": "bytes"}
         kw = dict(iters=3, reps=5)
         quant.append({
-            **common,
+            **common, "library_ms": None,
             "kernel_ms": time_ms(lambda: quantize_blocks(x), **kw),
             "plain_ms": time_ms(lambda: quantize_ref(x), **kw),
             "bound_ms": (n * x.element_size() + n + nb * 4) / bw * 1e3})
@@ -394,6 +450,7 @@ def _codec_cases(gen, bw):
             "kernel_ms": time_ms(lambda: dequantize_blocks(q, sc, shape),
                                  **kw),
             "plain_ms": time_ms(lambda: dequantize_ref(q, sc, shape), **kw),
+            "library_ms": time_ms(library, **kw),
             "bound_ms": (n + nb * 4 + n * 4) / bw * 1e3})
         del x, q, sc, qr, sr, y
     return quant, dequant
@@ -417,7 +474,7 @@ def _rmsnorm_bwd_cases(gen, bw):
                                                     rms_norm_2d_bwd)
     from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
 
-    R, D = TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ, 4096   # a microbatch
+    R, D = TRAIN_ROWS, 4096                               # a microbatch
     out = []
     for dtype in (torch.bfloat16, torch.float32):
         x, g = (torch.randn(R, D, generator=gen, device="cuda").to(dtype)
@@ -767,7 +824,8 @@ def _ckpt_root() -> Path:
 def _protected_run(state, data, step_fn, ckpt_dir, *, steps, fail_at,
                    **config):
     """``run_with_recovery`` through the facade with a fail-stop at
-    ``fail_at``; returns (state, info, facade, train-step calls)."""
+    ``fail_at``; returns (state, info, facade, train-step calls, the
+    metrics of every step of every attempt, in order)."""
     from repro_torch.core import (Dependability, DependabilityConfig,
                                   FaultInjector, run_with_recovery)
 
@@ -779,21 +837,29 @@ def _protected_run(state, data, step_fn, ckpt_dir, *, steps, fail_at,
     injector = FaultInjector()
     injector.schedule_failstop(fail_at)
     calls = [0]
+    metrics = []
 
     def counted(st, batch):
         calls[0] += 1
         return step_fn(st, batch)
 
     try:
-        out, info = run_with_recovery(dep, counted, state, data, steps,
-                                      fault_injector=injector)
+        out, info = run_with_recovery(
+            dep, counted, state, data, steps, fault_injector=injector,
+            on_metrics=lambda step, rec: metrics.append(rec))
         torch.cuda.synchronize()
     finally:
         dep.stop()
     if info["status"] != "done" or info["restarts"] != 1:
         raise AssertionError(f"protected run: {info['status']}, "
                              f"{info['restarts']} restarts")
-    return out, info, dep, calls[0]
+    # the history keeps the last attempt's steps only: every step's
+    # metrics come through on_metrics, one record a train-step call
+    losses = [m["loss"] for m in metrics]
+    if len(losses) != calls[0] or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"protected run: {calls[0]} train-step calls, "
+                             f"losses {losses}")
+    return out, info, dep, calls[0], metrics
 
 
 def phase_train_tiny(seed: int):
@@ -826,7 +892,7 @@ def phase_train_tiny(seed: int):
                                  f" vs CPU {losses['cpu']}")
     tmp = tempfile.mkdtemp(dir=_ckpt_root())
     try:
-        out, info, _, _ = _protected_run(
+        out, info, _, _, _ = _protected_run(
             _tree_to(cpu_state, "cuda"), make_pipeline(cfg, 32, 4, seed=seed),
             step_fn, tmp, steps=steps, fail_at=TRAIN_FAIL, async_save=True)
     finally:
@@ -917,7 +983,7 @@ def phase_train(seed: int):
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        out, info, dep, calls = _protected_run(
+        out, info, dep, calls, metrics = _protected_run(
             state, data, step_fn, tmp, steps=TRAIN_STEPS,
             fail_at=TRAIN_FAIL, async_save=True, device_codec=True)
         wall = time.perf_counter() - t0
@@ -931,16 +997,15 @@ def phase_train(seed: int):
                                    if k != "paged_attention") <= 0:
             raise AssertionError(f"train: launches {launches}, the path "
                                  f"implies {want}")
-        losses = [h["loss"] for h in info["history"] if "loss" in h]
-        if not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"train: non-finite losses {losses}")
         if int(out["step"]) != TRAIN_STEPS:
             raise AssertionError(f"train: ended at step {int(out['step'])}")
         emit({"phase": "train", "check": "protected run",
               "status": info["status"], "restarts": info["restarts"],
               "events": [h["event"] for h in info["history"]
                          if "event" in h],
-              "train_step_calls": calls, "losses": losses, "wall_s": wall,
+              "train_step_calls": calls,
+              "steps_losses": [(m["step"], m["loss"]) for m in metrics],
+              "wall_s": wall,
               "saves": [{"step": st.step, "bytes": st.bytes_written,
                          "snapshot_s": st.snapshot_seconds,
                          "write_s": st.write_seconds}
@@ -978,7 +1043,7 @@ def main(argv=None) -> int:
 
     name, smi, bw, flops = phase_card()
     phase_build()
-    cases = phase_kernels(args.seed, bw, flops, FP32_PEAKS[part_of(name)])
+    cases = phase_kernels(args.seed, bw, flops, FP32_PEAKS[peaks(name)[0]])
     torch.cuda.empty_cache()
     phase_tiny(args.seed)
     serve = phase_serve(args.seed)
