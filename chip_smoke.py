@@ -45,10 +45,38 @@ ends the run with a non-zero exit code and no result line:
                  (launch counters zeroed just before it and held to the
                  path after it), each save's bytes and seconds and the
                  restore's seconds.  The checkpoints go to a temporary
-                 directory under ``build/`` that is removed afterwards.
+                 directory under ``build/`` that is removed afterwards;
+9. ``train-tiny-sdc`` — tiny granite in float32 with raw delta saves, the
+                 scrubber over every leaf and a bit-flip scheduled in a
+                 named leaf: the scrubber names exactly that leaf, one
+                 rollback, the final state bit-equal to an uninterrupted
+                 card run, the losses equal to the same run's on the CPU;
+10. ``train-sdc`` — granite-3-8b at full width (4 layers) through the
+                 facade with delta saves and the int8 device codec, the
+                 scrubber and a bit-flip in an exponent bit of
+                 ``params.blocks.l0.mlp.w_in`` at step 7: the leaf named,
+                 one restart, a finite loss every step call, launch
+                 counters held to the path, each save's dirty/total
+                 blocks, hash ms, snapshot s and write s; then a frozen
+                 state (k blocks of one leaf changed on the card) gives a
+                 delta save of exactly k dirty blocks whose restore
+                 through the chain is bit-equal to a full save's;
+11. ``train-abft`` — granite-3-8b at full width, 2 layers, S = 2048, one
+                 sequence: 3 steps with ``impl="abft"`` against 3 plain
+                 steps from the same state (losses within bf16
+                 tolerance), no detection on clean steps, two identical
+                 ABFT steps bit-equal, launches held to the path.
 
-Then the kernels summary (one JSON object), the ``nvidia-smi`` line, and
-the last line ``{"ok": true, "device": {...}}``.
+The kernel phase also holds block_hash bit-equal to its plain version
+(the embed leaf, every element size, a ragged leaf, one grouped launch
+over the full-width train state) and abft_matmul to its float32 plain
+version at one microbatch's ``w_in`` and its two backward contractions,
+with the verifier's checks (a single error corrected, a checksum hit
+leaving the data intact, two errors detected and not corrected).
+
+Then the kernels summary (one JSON object, launches by path: serve,
+train, sdc, abft), the ``nvidia-smi`` line, and the last line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -114,6 +142,10 @@ KERNELS = {
                       "src/repro/kernels/ckpt_codec/kernel.py:53"),
     "ckpt_dequantize": ("csrc/ckpt_codec.cu",
                         "src/repro/kernels/ckpt_codec/kernel.py:83"),
+    "block_hash": ("csrc/block_hash.cu",
+                   "src/repro/kernels/block_hash/kernel.py:59"),
+    "abft_matmul": ("csrc/abft_matmul.cu",
+                    "src/repro/kernels/abft_matmul/kernel.py:36"),
 }
 
 
@@ -576,6 +608,182 @@ def _flash_bwd_cases(gen, bw, flops, fp32_flops):
     return out
 
 
+def _hash_check(label, leaves, block):
+    """One grouped launch over ``leaves``, bit-equal to the plain version
+    leaf by leaf."""
+    from repro_torch.kernels.block_hash.kernel import hash_leaves
+    from repro_torch.kernels.block_hash.ref import block_hashes_ref
+
+    h, spans = hash_leaves(leaves, block)
+    for x, (start, n) in zip(leaves, spans):
+        if not torch.equal(h[start:start + n], block_hashes_ref(x, block)):
+            raise AssertionError(f"block_hash {label}: a {x.dtype} leaf of "
+                                 f"{tuple(x.shape)} differs from the plain "
+                                 f"version at block size {block}")
+
+
+def _block_hash_cases(gen, bw, seed):
+    """The embed leaf (main), leaves of every element size, a ragged leaf
+    at two block sizes, and one grouped launch over the full-width train
+    state (4 layers), each bit-equal to the plain version."""
+    from repro_torch.kernels.block_hash.kernel import hash_leaves
+    from repro_torch.kernels.block_hash.ref import block_hashes_ref
+    from repro_torch.models import get_config
+    from repro_torch.train import init_state
+    from repro_torch.tree import leaves as tree_leaves
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    cases = [("embed (51200, 4096) fp32", [randn(51200, 4096)], 65536),
+             ("(4096, 4096) bf16", [randn(4096, 4096).to(torch.bfloat16)],
+              65536),
+             ("(1048593,) int8", [(randn(1 << 20 | 17) * 50).to(torch.int8)],
+              65536),
+             ("(300001,) int64", [(randn(300001) * 1e9).to(torch.int64)],
+              65536),
+             ("(300001,) fp64 (8-byte split)",
+              [randn(300001).to(torch.float64)], 65536),
+             ("(4095, 4097) fp32 ragged, block 256", [randn(4095, 4097)],
+              256),
+             ("(4095, 4097) fp32 ragged, block 65536", [randn(4095, 4097)],
+              65536)]
+    out = []
+    for label, leaves, block in cases:
+        _hash_check(label, leaves, block)
+        n_bytes = sum(x.numel() * x.element_size() for x in leaves)
+        n_blocks = sum(-(-x.numel() // block) for x in leaves)
+        out.append({
+            "shape": label, "main": label.startswith("embed"),
+            "max_abs_err": 0.0, "tol": "bit-equal",
+            "kernel_ms": time_ms(lambda: hash_leaves(leaves, block),
+                                 iters=5, reps=5),
+            "plain_ms": time_ms(lambda: [block_hashes_ref(x, block)
+                                         for x in leaves], iters=2, reps=3),
+            "library_ms": None,
+            "bound_ms": (n_bytes + 4 * n_blocks) / bw * 1e3,
+            "bound_by": "bytes"})
+        del leaves
+    torch.cuda.empty_cache()
+    # the grouped launch of a save or a scrub: every leaf of the state
+    cfg = dataclasses.replace(get_config("granite-3-8b"),
+                              num_layers=TRAIN_LAYERS)
+    state = tree_leaves(init_state(cfg, seed=seed, device="cuda"))
+    before = hash_leaves.launches
+    _hash_check("full-width train state", state, 65536)
+    if hash_leaves.launches != before + 1:
+        raise AssertionError("the train state took more than one launch")
+    n_bytes = sum(x.numel() * x.element_size() for x in state)
+    n_blocks = sum(-(-x.numel() // 65536) for x in state)
+    out.append({
+        "shape": f"train state, {len(state)} leaves, {n_bytes} bytes, "
+                 f"{n_blocks} blocks", "main": False, "max_abs_err": 0.0,
+        "tol": "bit-equal",
+        "kernel_ms": time_ms(lambda: hash_leaves(state, 65536), iters=2,
+                             reps=3),
+        "plain_ms": None, "library_ms": None,
+        "bound_ms": (n_bytes + 4 * n_blocks) / bw * 1e3,
+        "bound_by": "bytes"})
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _abft_checks(label, a, b, c_full):
+    """The verifier on the kernel's product: clean is clean; one data
+    element is located and corrected (every other element untouched, the
+    corrected one within the residual tolerance); a checksum hit leaves
+    the data intact; two errors are detected and not corrected."""
+    from repro_torch.kernels.abft_matmul.ops import (abft_matmul,
+                                                     verify_and_correct)
+
+    M, N = a.shape[0], b.shape[1]
+    clean, rep = abft_matmul(a, b)
+    if bool(rep["detected"]):
+        raise AssertionError(f"abft {label}: a clean product was flagged "
+                             f"({int(rep['bad_rows'])} rows, "
+                             f"{int(rep['bad_cols'])} columns)")
+    if not torch.equal(clean, c_full[:-1, :-1]):
+        raise AssertionError(f"abft {label}: two launches differ")
+    delta = 100.0 * clean.abs().max().item()
+    i, j = M // 3, N // 2
+    c, rep = abft_matmul(a, b, inject=(i, j, delta))
+    if not (bool(rep["detected"]) and bool(rep["corrected"])
+            and (int(rep["row"]), int(rep["col"])) == (i, j)):
+        got = {k: v.item() for k, v in rep.items()}
+        raise AssertionError(f"abft {label}: a data error at {(i, j)} was "
+                             f"not located: {got}")
+    diff = (c - clean).abs()
+    tol = 1e-5 + 1e-4 * (clean[i].abs().sum() + c_full[i, -1].abs()
+                         + clean[:, j].abs().sum() + c_full[-1, j].abs())
+    if diff[i, j] > tol or diff.sum() != diff[i, j]:
+        raise AssertionError(f"abft {label}: the corrected C differs from "
+                             f"the clean C beyond the element's tolerance")
+    for hit in ((M, j, delta), (i, N, delta)):
+        c, rep = abft_matmul(a, b, inject=hit)
+        if not (bool(rep["detected"]) and bool(rep["corrected"])
+                and torch.equal(c, clean)):
+            raise AssertionError(f"abft {label}: a checksum hit at "
+                                 f"{hit[:2]} touched the data")
+    two = c_full.clone()
+    two[i, j] += delta
+    two[(i + 7) % M, (j + 11) % N] -= delta
+    _, rep = verify_and_correct(two)
+    if not bool(rep["detected"]) or bool(rep["corrected"]):
+        raise AssertionError(f"abft {label}: two errors were not detected "
+                             "as uncorrectable")
+    return diff.max().item()
+
+
+def _abft_cases(gen, bw, fp32_flops):
+    """One microbatch's MLP ``w_in`` (x @ w, M = 2048 tokens, K = 4096,
+    N = 12800, bf16 operands) and its two backward contractions, dx = g @
+    w^T and dw = x^T @ g with a float32 g, read through transposed views:
+    C against the plain version (float32 matmul of the extended operands)
+    and the library call (one ``torch.matmul`` of the same extended
+    operands, TF32 off), then the verifier's checks."""
+    from repro_torch.kernels.abft_matmul.kernel import abft_matmul_ext
+    from repro_torch.kernels.abft_matmul.ref import (abft_matmul_ref,
+                                                     checksums, encode_ref)
+
+    T, D, F = TRAIN_SEQ, 4096, 12800
+    x = torch.randn(T, D, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(D, F, generator=gen, device="cuda")
+         * D ** -0.5).to(torch.bfloat16)
+    g = torch.randn(T, F, generator=gen, device="cuda") * 1e-3
+    out = []
+    for label, a, b in (("x @ w_in (2048, 4096) x (4096, 12800) bf16", x, w),
+                        ("g @ w_in^T (2048, 12800) f32 x (12800, 4096) "
+                         "bf16 col-major", g, w.t()),
+                        ("x^T @ g (4096, 2048) bf16 col-major x "
+                         "(2048, 12800) f32", x.t(), g)):
+        a_sum, b_sum = checksums(a, b)
+        c_full = abft_matmul_ext(a, a_sum, b, b_sum)
+        err = check_grad(f"abft {label}", c_full, abft_matmul_ref(a, b),
+                         GRAD_TOL[torch.float32])
+        corr_err = _abft_checks(label, a, b, c_full)
+        a_ext, b_ext = encode_ref(a, b)
+        M, K = a.shape
+        N = b.shape[1]
+        op_s = 2 * (M + 1) * (N + 1) * K / fp32_flops
+        byte_s = ((M + 1) * K * a.element_size() + K * (N + 1)
+                  * b.element_size() + (M + 1) * (N + 1) * 4) / bw
+        kw = dict(iters=3, reps=3)
+        out.append({
+            "shape": label, "main": a is x, "max_abs_err": err,
+            "tol": GRAD_TOL[torch.float32],
+            "corrected_element_err": corr_err,
+            "kernel_ms": time_ms(lambda: abft_matmul_ext(a, a_sum, b, b_sum),
+                                 **kw),
+            "plain_ms": time_ms(lambda: abft_matmul_ref(a, b), **kw),
+            "library_ms": time_ms(lambda: torch.matmul(a_ext, b_ext), **kw),
+            "bound_ms": max(op_s, byte_s) * 1e3,
+            "bound_by": "operations" if op_s >= byte_s else "bytes"})
+        del c_full, a_ext, b_ext
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels(seed: int, bw: float, flops: float, fp32_flops: float):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -587,7 +795,9 @@ def phase_kernels(seed: int, bw: float, flops: float, fp32_flops: float):
                "rmsnorm_bwd": _rmsnorm_bwd_cases(gen, bw),
                "flash_attention_bwd": _flash_bwd_cases(gen, bw, flops,
                                                        fp32_flops),
-               "ckpt_quantize": quant, "ckpt_dequantize": dequant}
+               "ckpt_quantize": quant, "ckpt_dequantize": dequant,
+               "block_hash": _block_hash_cases(gen, bw, seed),
+               "abft_matmul": _abft_cases(gen, bw, fp32_flops)}
     for name, cases in results.items():
         for case in cases:
             emit({"phase": "kernel", "name": name, **case})
@@ -689,6 +899,8 @@ def _tree_to(tree, device):
 
 
 def _counters():
+    from repro_torch.kernels.abft_matmul.kernel import abft_matmul_ext
+    from repro_torch.kernels.block_hash.kernel import hash_leaves
     from repro_torch.kernels.ckpt_codec.kernel import (dequantize_blocks,
                                                        quantize_blocks)
     from repro_torch.kernels.flash_attention.kernel import (
@@ -703,7 +915,8 @@ def _counters():
             "rmsnorm_bwd": rms_norm_2d_bwd,
             "flash_attention_bwd": flash_attention_bshd_bwd,
             "ckpt_quantize": quantize_blocks,
-            "ckpt_dequantize": dequantize_blocks}
+            "ckpt_dequantize": dequantize_blocks,
+            "block_hash": hash_leaves, "abft_matmul": abft_matmul_ext}
 
 
 def phase_serve(seed: int):
@@ -821,11 +1034,12 @@ def _ckpt_root() -> Path:
     return root
 
 
-def _protected_run(state, data, step_fn, ckpt_dir, *, steps, fail_at,
-                   **config):
+def _protected_run(state, data, step_fn, ckpt_dir, *, steps, fail_at=None,
+                   bitflip=None, **config):
     """``run_with_recovery`` through the facade with a fail-stop at
-    ``fail_at``; returns (state, info, facade, train-step calls, the
-    metrics of every step of every attempt, in order)."""
+    ``fail_at`` or a scheduled ``bitflip`` (step, leaf, bit); returns
+    (state, info, facade, train-step calls, the metrics of every step of
+    every attempt, in order)."""
     from repro_torch.core import (Dependability, DependabilityConfig,
                                   FaultInjector, run_with_recovery)
 
@@ -835,7 +1049,10 @@ def _protected_run(state, data, step_fn, ckpt_dir, *, steps, fail_at,
     dep.register_local_state(data)
     dep.register_global_state(state)
     injector = FaultInjector()
-    injector.schedule_failstop(fail_at)
+    if fail_at is not None:
+        injector.schedule_failstop(fail_at)
+    if bitflip is not None:
+        injector.schedule_bitflip(*bitflip)
     calls = [0]
     metrics = []
 
@@ -850,7 +1067,8 @@ def _protected_run(state, data, step_fn, ckpt_dir, *, steps, fail_at,
         torch.cuda.synchronize()
     finally:
         dep.stop()
-    if info["status"] != "done" or info["restarts"] != 1:
+    faults = (fail_at is not None) + (bitflip is not None)
+    if info["status"] != "done" or info["restarts"] != faults:
         raise AssertionError(f"protected run: {info['status']}, "
                              f"{info['restarts']} restarts")
     # the history keeps the last attempt's steps only: every step's
@@ -990,11 +1208,11 @@ def phase_train(seed: int):
         launches = {k: fn.launches for k, fn in counters.items()}
         saves, restores = len(dep.save_history), len(dep.restore_seconds)
         want = {**_train_launches(L, TRAIN_MICRO, calls),
-                "paged_attention": 0,
+                "paged_attention": 0, "block_hash": 0, "abft_matmul": 0,
                 "ckpt_quantize": eligible * saves,
                 "ckpt_dequantize": eligible * restores}
-        if launches != want or min(v for k, v in launches.items()
-                                   if k != "paged_attention") <= 0:
+        if launches != want or min(launches[k] for k in want
+                                   if want[k]) <= 0:
             raise AssertionError(f"train: launches {launches}, the path "
                                  f"implies {want}")
         if int(out["step"]) != TRAIN_STEPS:
@@ -1019,6 +1237,286 @@ def phase_train(seed: int):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
+    return launches
+
+
+SDC_STEPS = 8
+SDC_FLIP_STEP = 7          # after the save at step 6: a rollback to it
+SDC_LEAF = "params.blocks.l0.mlp.w_in"
+
+
+def _sdc_config(**extra):
+    return dict(delta_checkpoint=True, full_every=3, keep=10, scrub=True,
+                scrub_fraction=1.0, **extra)
+
+
+def phase_train_tiny_sdc(seed: int):
+    """Tiny granite in float32 on the card with raw delta saves, the
+    scrubber over every leaf and a bit-flip in ``SDC_LEAF``: the scrubber
+    names exactly that leaf, one rollback, the final state bit-equal to an
+    uninterrupted card run, and the losses of every train-step call equal
+    to the same protected run's on the CPU (plain versions) to the
+    train-tiny phase's tolerance."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import get_config
+    from repro_torch.train import init_state, make_train_step
+
+    cfg = dataclasses.replace(get_config("granite-3-8b", tiny=True),
+                              dtype=torch.float32)
+    cpu_state = init_state(cfg, seed=seed, device="cpu")
+    step_fn = make_train_step(cfg, total_steps=SDC_STEPS, warmup_steps=1)
+    flip = (SDC_FLIP_STEP, SDC_LEAF, 30)
+    runs = {}
+    for device, bitflip in (("cpu", flip), ("cuda", flip), ("cuda", None)):
+        tmp = tempfile.mkdtemp(dir=_ckpt_root())
+        try:
+            runs[device, bitflip is not None] = _protected_run(
+                _tree_to(cpu_state, device),
+                make_pipeline(cfg, 32, 4, seed=seed), step_fn, tmp,
+                steps=SDC_STEPS, bitflip=bitflip,
+                **_sdc_config(delta_block=256))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    out, info, dep, calls, metrics = runs["cuda", True]
+    events = [h["event"] for h in info["history"] if "event" in h]
+    if events != [f"corruption:scrub:{SDC_LEAF}"] or info["restarts"] != 1:
+        raise AssertionError(f"tiny SDC: events {events}, "
+                             f"{info['restarts']} restarts")
+    clean = runs["cuda", False]
+    if clean[1]["restarts"] or not _tree_equal(out, clean[0]):
+        raise AssertionError("tiny SDC: the recovered state differs from "
+                             "the uninterrupted card run's")
+    card = [m["loss"] for m in metrics]
+    cpu = [m["loss"] for m in runs["cpu", True][4]]
+    if len(card) != len(cpu) or not all(
+            abs(a - b) <= 1e-4 * max(1.0, abs(b)) for a, b in zip(card, cpu)):
+        raise AssertionError(f"tiny SDC: card losses {card} vs CPU {cpu}")
+    emit({"phase": "train-tiny-sdc", "arch": cfg.name, "dtype": "float32",
+          "steps": SDC_STEPS, "bitflip": list(flip), "events": events,
+          "restarts": info["restarts"], "recovered_bit_equal": True,
+          "saves": [(st.step, st.kind, st.dirty_blocks, st.total_blocks)
+                    for st in dep.save_history],
+          "card_losses": card, "cpu_losses": cpu,
+          "max_loss_diff": max(abs(a - b) for a, b in zip(card, cpu))})
+
+
+def _manifest_counts(ckpt_dir, step):
+    """(device-encoded shards, delta shards) in ``step``'s manifest."""
+    with open(Path(ckpt_dir) / f"step_{step:08d}" / "manifest_h0.json") as f:
+        shards = [sh for e in json.load(f)["arrays"].values()
+                  for sh in e["shards"]]
+    return (sum(1 for sh in shards if "codec" in sh),
+            sum(1 for sh in shards if "delta" in sh))
+
+
+def phase_train_sdc(seed: int):
+    """granite-3-8b at full width (TRAIN_LAYERS layers) through the facade
+    with delta saves and the device codec, the scrubber over every leaf,
+    and a bit-flip in an exponent bit of ``SDC_LEAF`` at step
+    ``SDC_FLIP_STEP``: the main path of the block_hash kernel.  Then a
+    frozen-state check: k blocks of one leaf change on the card, a delta
+    save writes exactly those, and a restore through the chain is
+    bit-equal to a full save of the same state with the same codec."""
+    from repro_torch.core import CheckpointManager
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import get_config
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.tree import flatten_named, leaves
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"),
+                              num_layers=TRAIN_LAYERS)
+    L = cfg.num_layers
+    tmp = tempfile.mkdtemp(dir=_ckpt_root())
+    try:
+        state = init_state(cfg, seed=seed, device="cuda")
+        n_leaves = len(leaves(state))
+        step_fn = make_train_step(cfg, microbatches=TRAIN_MICRO,
+                                  total_steps=SDC_STEPS)
+        data = make_pipeline(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+        # an exponent bit of the first element of w_in (float32: bit 30)
+        flip = (SDC_FLIP_STEP, SDC_LEAF, 30)
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, info, dep, calls, metrics = _protected_run(
+            state, data, step_fn, tmp, steps=SDC_STEPS, bitflip=flip,
+            **_sdc_config(device_codec=True, async_save=True))
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        events = [h["event"] for h in info["history"] if "event" in h]
+        if events != [f"corruption:scrub:{SDC_LEAF}"] or \
+                info["restarts"] != 1 or int(out["step"]) != SDC_STEPS:
+            raise AssertionError(f"SDC run: events {events}, "
+                                 f"{info['restarts']} restarts, ended at "
+                                 f"step {int(out['step'])}")
+        saves = dep.save_history
+        restored = [int(h["step"]) for h in info["history"]
+                    if "loss" in h][0] - 1
+        quant = sum(_manifest_counts(tmp, st.step)[0] for st in saves)
+        coded, deltas = _manifest_counts(tmp, restored)
+        scrub = dep.scrubber
+        # one grouped launch a scrub record (each completed step), a save,
+        # and a verification of a recorded window: at the top of every
+        # superstep but the first of each attempt, and where it tripped
+        records = scrub.leaves_scrubbed // n_leaves
+        verifies = calls - (info["restarts"] + 1) + len(events)
+        want = {**_train_launches(L, TRAIN_MICRO, calls),
+                "paged_attention": 0, "abft_matmul": 0,
+                "ckpt_quantize": quant, "ckpt_dequantize": coded - deltas,
+                "block_hash": records + verifies + len(saves)}
+        if launches != want or min(launches[k] for k in want
+                                   if want[k]) <= 0:
+            raise AssertionError(f"SDC run: launches {launches}, the path "
+                                 f"implies {want}")
+        emit({"phase": "train-sdc", "check": "protected run",
+              "arch": cfg.name, "layers": L, "bitflip": list(flip),
+              "status": info["status"], "restarts": info["restarts"],
+              "events": events, "restored_step": restored,
+              "train_step_calls": calls,
+              "steps_losses": [(m["step"], m["loss"]) for m in metrics],
+              "wall_s": wall, "scrub_fraction": 1.0,
+              "scrub_records": records, "scrub_verifies": verifies,
+              "saves": [{"step": st.step, "kind": st.kind,
+                         "dirty_blocks": st.dirty_blocks,
+                         "total_blocks": st.total_blocks,
+                         "hash_ms": st.hash_seconds * 1e3,
+                         "bytes": st.bytes_written,
+                         "snapshot_s": st.snapshot_seconds,
+                         "write_s": st.write_seconds} for st in saves],
+              "restore_s": dep.restore_seconds, "launches": launches,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        # the scrub's cost a step: record + verify of every leaf
+        from repro_torch.sdc import checksums
+        flat = leaves(out)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            checksums(flat)
+        checksum_ms = (time.perf_counter() - t0) / 3 * 1e3
+        del state, flat
+        torch.cuda.empty_cache()
+
+        # frozen state: k dirty blocks of one leaf, one delta save
+        name = "params.embed.tok"
+        named = dict(flatten_named(out))
+        tok = named[name].clone()
+        nb = -(-tok.numel() // 65536)
+        blocks = sorted({0, nb // 2, nb - 1})
+        k = len(blocks)
+        for b in blocks:
+            tok.view(-1)[b * 65536 + 17] += 1.0
+        frozen = {**out, "params": {**out["params"],
+                                    "embed": {"tok": tok}}}
+        ddir, fdir = Path(tmp) / "delta", Path(tmp) / "full"
+        mgr = CheckpointManager(str(ddir), delta=True, device_codec=True,
+                                full_every=100)
+        first = mgr.save(1, out)
+        second = mgr.save(2, frozen)
+        if (first.kind, second.kind) != ("full", "delta") or \
+                second.dirty_blocks != k:
+            raise AssertionError(f"frozen state: saves {first} then "
+                                 f"{second}, {k} blocks changed")
+        del out
+        t0 = time.perf_counter()
+        got, _ = mgr.restore(step=2, like=frozen)
+        chain_s = time.perf_counter() - t0
+        mgr.close()
+        full = CheckpointManager(str(fdir), device_codec=True)
+        full_save = full.save(2, frozen)
+        want_state, _ = full.restore(step=2, like=frozen)
+        full.close()
+        if not _tree_equal(got, want_state):
+            raise AssertionError("frozen state: the restore through the "
+                                 "delta chain differs from a full save's")
+        emit({"phase": "train-sdc", "check": "frozen state",
+              "leaf": name, "changed_blocks": blocks,
+              "dirty_blocks": second.dirty_blocks,
+              "total_blocks": second.total_blocks,
+              "delta_bytes": second.bytes_written,
+              "delta_snapshot_s": second.snapshot_seconds,
+              "delta_hash_ms": second.hash_seconds * 1e3,
+              "full_bytes": full_save.bytes_written,
+              "full_snapshot_s": full_save.snapshot_seconds,
+              "chain_restore_s": chain_s, "restore_bit_equal": True,
+              "checksum_all_leaves_ms": checksum_ms})
+        del got, want_state, frozen, tok, named
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return launches
+
+
+ABFT_LAYERS = 2
+ABFT_STEPS = 3
+
+
+def phase_train_abft(seed: int):
+    """granite-3-8b at full width, ABFT_LAYERS layers, S = TRAIN_SEQ, one
+    sequence: ABFT_STEPS steps with ``impl="abft"`` from the state the
+    plain steps start from (the main path of the abft_matmul kernel).
+    Each loss within bf16 tolerance of the plain step's, no detection on
+    clean steps, two identical ABFT steps bit-equal, launches held to the
+    path (per layer and step 7 projections: forward, recomputation and
+    two backward contractions)."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels.abft_matmul.ops import (detections,
+                                                     reset_detections)
+    from repro_torch.models import get_config
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.train.step import metrics_to_host
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"),
+                              num_layers=ABFT_LAYERS)
+    L = cfg.num_layers
+    state = init_state(cfg, seed=seed, device="cuda")
+    data = make_pipeline(cfg, TRAIN_SEQ, 1, seed=seed)
+    batches = [data.peek_batch(i) for i in range(ABFT_STEPS)]
+    runs = {}
+    for impl in (None, "abft"):
+        step_fn = make_train_step(cfg, total_steps=ABFT_STEPS, impl=impl)
+        if impl == "abft":
+            counters = _counters()
+            for fn in counters.values():
+                fn.launches = 0
+            reset_detections()
+        st, losses, ms = state, [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = step_fn(st, b)
+            losses.append(metrics_to_host(m)["loss"])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        again, m2 = step_fn(state, batches[0])      # the first step again
+        first, _ = step_fn(state, batches[0])
+        runs[impl] = (losses, ms, metrics_to_host(m2)["loss"],
+                      _tree_equal(again, first))
+        del st, again, first
+    launches = {k: fn.launches for k, fn in counters.items()}
+    calls = ABFT_STEPS + 2
+    want = {**_train_launches(L, 1, calls), "paged_attention": 0,
+            "ckpt_quantize": 0, "ckpt_dequantize": 0, "block_hash": 0,
+            "abft_matmul": calls * L * 7 * 4}
+    if launches != want:
+        raise AssertionError(f"ABFT steps: launches {launches}, the path "
+                             f"implies {want}")
+    plain, abft = runs[None], runs["abft"]
+    for a, b in zip(abft[0], plain[0]):
+        if not abs(a - b) <= BF16_TOL * max(1.0, abs(b)):
+            raise AssertionError(f"ABFT losses {abft[0]} vs plain "
+                                 f"{plain[0]}")
+    if not (abft[3] and abft[2] == abft[0][0]):
+        raise AssertionError("two identical ABFT steps differ")
+    found = detections("cuda")
+    if found:
+        raise AssertionError(f"ABFT flagged {found} products of clean steps")
+    emit({"phase": "train-abft", "arch": cfg.name, "layers": L,
+          "seq": TRAIN_SEQ, "batch": 1, "abft_losses": abft[0],
+          "plain_losses": plain[0], "abft_step_ms": abft[1],
+          "plain_step_ms": plain[1], "detections": found,
+          "identical_steps_bit_equal": True, "launches": launches})
+    del state
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1050,12 +1548,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_train_tiny(args.seed)
     train = phase_train(args.seed)
+    phase_train_tiny_sdc(args.seed)
+    sdc = phase_train_sdc(args.seed)
+    abft = phase_train_abft(args.seed)
 
     summary = []
     for kname, case_list in cases.items():
         main_case = next(c for c in case_list if c["main"])
         source, replaces = KERNELS[kname]
-        by_path = {"serve": serve.get(kname, 0), "train": train[kname]}
+        by_path = {"serve": serve.get(kname, 0),
+                   "train": train.get(kname, 0), "sdc": sdc[kname],
+                   "abft": abft[kname]}
         summary.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/{source}", "replaces": replaces,

@@ -19,9 +19,9 @@ Typical BSP loop (see core/coordinator.py for the full runner)::
         if dep.should_checkpoint(step):
             dep.save(step, state)
 
-Not in the port yet, and refused rather than ignored: delta checkpoints
-and the tier-2 scrubber (ROADMAP item 5), telemetry (``attach_obs``,
-item 8), restores onto other shardings (item 10).
+Not in the port yet, and refused rather than ignored: telemetry
+(``attach_obs``, ROADMAP item 8), restores onto other shardings
+(item 10).
 """
 from __future__ import annotations
 
@@ -34,6 +34,7 @@ from repro_torch.core.failures import CorruptionDetected, StragglerWatchdog
 from repro_torch.core.heartbeat import HeartbeatEmitter, HeartbeatMonitor
 from repro_torch.core.policy import CheckpointPolicy, SystemModel
 from repro_torch.core.signals import TerminationSignal
+from repro_torch.sdc.scrubber import StateScrubber
 from repro_torch.sdc.sentinel import LossSentinel
 
 
@@ -52,16 +53,28 @@ class DependabilityConfig:
     - ``fsync``: "batch" (default), "per_file" or "none".
     - ``async_save``: hand serialization to a writer thread; only the
       device->host snapshot stays on the BSP critical path.
-    - ``delta_checkpoint``: not in the port yet (ROADMAP item 5).
+    - ``delta_checkpoint``: incremental saves: per-block hashes computed
+      on the card (block_hash kernel) pick out the blocks that changed
+      since the last committed checkpoint; only those cross to the host
+      and hit disk.  ``delta_block`` elements a block; ``full_every``
+      bounds the reference chain with periodic full saves.  The policy
+      tracks the cost of each save kind, so the Young/Daly interval sizes
+      to the amortized cost.
 
     Interruption detection:
     - ``heartbeat``: host 0 runs the UDP monitor; other hosts MUST set
       ``monitor_addr`` to host 0's advertised ``(ip, port)``.
 
     Silent-data-corruption detection:
+    - ``scrub``: the tier-2 StateScrubber: each superstep checksums a
+      rotating ``scrub_fraction`` of the state leaves and re-verifies
+      them before the next update; a mismatch raises CorruptionDetected
+      naming the leaf.  Checkpoints taken while scrubbing is clean are
+      recorded as verified and preferred by rollback.
     - ``sentinel``: the tier-3 end-to-end guard — non-finite loss/grad-norm
       and loss > ``sentinel_spike_factor`` x a running EMA.
-    - ``scrub``: the tier-2 scrubber; not in the port yet (ROADMAP item 5).
+    - tier 1 (ABFT matmuls) is opted into per model with ``impl="abft"``
+      in make_train_step, not here.
     - ``policy_formula``: Young/Daly bracket convention, "paper"
       (mu - D + R, the paper's printed eq. 1) or "standard" (mu - D - R).
     """
@@ -73,7 +86,9 @@ class DependabilityConfig:
     device_codec: bool = False                # quantize before the copy
     io_threads: int = 0                       # shard I/O pool size (0=auto)
     fsync: str = "batch"                      # "batch" | "per_file" | "none"
-    delta_checkpoint: bool = False            # ROADMAP item 5
+    delta_checkpoint: bool = False            # write only dirty blocks
+    delta_block: int = 65536                  # elements per delta block
+    full_every: int = 8                       # full save every N saves
     keep: int = 3
     verify_crc: bool = True
     heartbeat: bool = False
@@ -85,7 +100,8 @@ class DependabilityConfig:
     straggler_factor: float = 3.0
     system: SystemModel = dataclasses.field(default_factory=SystemModel)
     policy_formula: str = "paper"             # Young/Daly bracket convention
-    scrub: bool = False                       # ROADMAP item 5
+    scrub: bool = False                       # tier-2 SDC: state scrubber
+    scrub_fraction: float = 0.25              # leaves checksummed per step
     sentinel: bool = False                    # tier-3 SDC: loss sentinel
     sentinel_spike_factor: float = 10.0
     sentinel_warmup: int = 5
@@ -94,14 +110,6 @@ class DependabilityConfig:
 class Dependability:
     def __init__(self, config: DependabilityConfig, host_id: int = 0,
                  num_hosts: int = 1):
-        if config.delta_checkpoint:
-            raise NotImplementedError(
-                "delta_checkpoint waits for the block_hash slice of the "
-                "port (ROADMAP item 5)")
-        if config.scrub:
-            raise NotImplementedError(
-                "scrub (SDC tier 2) waits for the block_hash slice of the "
-                "port (ROADMAP item 5)")
         self.config = config
         self.host_id = host_id
         self.num_hosts = num_hosts
@@ -109,15 +117,21 @@ class Dependability:
             config.checkpoint_dir, host_id=host_id, num_hosts=num_hosts,
             codec=config.codec, device_codec=config.device_codec,
             io_threads=config.io_threads, fsync=config.fsync,
-            verify_crc=config.verify_crc, keep=config.keep)
+            verify_crc=config.verify_crc, keep=config.keep,
+            delta=config.delta_checkpoint, delta_block=config.delta_block,
+            full_every=config.full_every)
         self.policy = CheckpointPolicy(
             mode=config.policy_mode, every_n=config.every_n,
             system=config.system, formula=config.policy_formula)
         self.stragglers = StragglerWatchdog(factor=config.straggler_factor)
+        self.scrubber: Optional[StateScrubber] = (
+            StateScrubber(fraction=config.scrub_fraction)
+            if config.scrub else None)
         self.sentinel: Optional[LossSentinel] = (
             LossSentinel(spike_factor=config.sentinel_spike_factor,
                          warmup=config.sentinel_warmup)
             if config.sentinel else None)
+        self.verified_steps: set = set()      # saved while scrub-clean
         self.last_restore_skipped: list = []
         self.signals: Optional[TerminationSignal] = None
         self.monitor: Optional[HeartbeatMonitor] = None
@@ -194,8 +208,33 @@ class Dependability:
         return False
 
     # ------------------------------------------------------------------
-    # SDC detection (the sentinel; the scrubber is refused at __init__)
+    # SDC detection (no-ops unless scrub/sentinel are enabled)
     # ------------------------------------------------------------------
+    def scrub(self, state, step: int) -> list:
+        """Tier-2 scrub pass: checksum the next rotating subset of state
+        leaves.  Call right after ``train_step`` produces the state;
+        returns the leaf names covered this step."""
+        if self.scrubber is None:
+            return []
+        return self.scrubber.record(state, step)
+
+    def verify_state(self, state, step: int) -> None:
+        """Re-verify the leaves the last ``scrub`` recorded: nothing
+        legitimate changes the state in between (call at the top of the
+        superstep, before ``train_step`` consumes it).  Raises
+        CorruptionDetected naming the corrupted leaves on a mismatch."""
+        if self.scrubber is None:
+            return
+        bad = self.scrubber.verify(state)
+        if bad:
+            raise CorruptionDetected(step, "scrub", ",".join(bad))
+
+    def reset_sdc(self) -> None:
+        """Call after a rollback: the restored state is a different set of
+        buffers than the recorded scrub window."""
+        if self.scrubber is not None:
+            self.scrubber.reset()
+
     def check_metrics(self, step: int, metrics: Dict) -> None:
         """Tier-3 sentinel over one superstep's metrics; raises
         CorruptionDetected when the loss looks corrupted."""
@@ -236,9 +275,16 @@ class Dependability:
         stats = self.manager.save(step, state, local, local_shards=shards,
                                   blocking=blocking)
         cost = time.perf_counter() - t0  # on-critical-path cost
-        self.policy.observe_checkpoint(cost)
+        # delta mode: each save kind keeps its own cost, so the policy
+        # amortizes cheap deltas against the periodic full saves
+        self.policy.observe_checkpoint(
+            cost, kind=stats.kind if self.config.delta_checkpoint else None)
         self.policy.record_checkpoint(step)
         self.save_history.append(stats)
+        if self.scrubber is not None:
+            # scrubbing was clean up to this step, else CorruptionDetected
+            # would have unwound the loop before the save
+            self.verified_steps.add(step)
         return stats
 
     def restore_latest(self, like=None, shardings=None,
@@ -246,8 +292,9 @@ class Dependability:
         """Returns (state, step) and reloads the registered local state.
 
         With ``step=None`` this walks back through the retained history on
-        a corrupt checkpoint (CRC mismatch etc.) instead of failing; any
-        skipped steps land in ``self.last_restore_skipped``.  ``exclude``:
+        a corrupt checkpoint (CRC mismatch etc.) instead of failing, and
+        prefers scrub-verified steps when scrubbing is on; any skipped
+        steps land in ``self.last_restore_skipped``.  ``exclude``:
         steps not to consider.  Restored leaves land on the devices of
         ``like``'s tensors (default: the registered global template)."""
         if shardings is not None:
@@ -266,7 +313,10 @@ class Dependability:
         else:
             have = [s for s in self.manager.all_steps()
                     if s not in set(exclude or ())]
-            candidates = sorted(have, reverse=True)
+            verified = sorted(self.verified_steps.intersection(have),
+                              reverse=True)
+            candidates = verified + sorted(set(have) - self.verified_steps,
+                                           reverse=True)
             if wants_shards:
                 (state, local, shard_dicts, got_step,
                  skipped) = self.manager.restore_latest(

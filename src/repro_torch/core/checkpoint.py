@@ -40,9 +40,30 @@ Async mode: ``save(..., blocking=False)`` snapshots to host memory and
 hands serialization to a writer thread (double-buffered: a new save
 drains the previous one; ``wait()`` re-raises writer errors).
 
-Delta checkpoints (dirty blocks by on-device hashes) wait for the next
-slice of the port (ROADMAP item 5), as do restores onto other shardings
-(item 10).
+Incremental ("delta") mode (``delta=True``):
+
+Each leaf is split into fixed-size blocks of ``delta_block`` elements
+whose mod-2^32 position-weighted word hashes are computed on the card by
+the block_hash kernel (every leaf of the save in one launch, one copy of
+the hash vectors to the host; the same reduction the SDC scrubber uses for
+leaf checksums).  A save writes only the blocks whose hash changed since
+the last committed checkpoint, gathered on the card (and, with
+``device_codec``, quantized there): clean blocks become manifest
+references into the parent step's files, forming a bounded-depth chain
+(``full_every`` forces a periodic full save; a restore resets the base,
+so the save after a rollback is always full).  ``delta_block`` must be a
+multiple of the int8 codec's 256-element block so a standalone encode of
+the dirty blocks is bit-identical to the matching slice of a full-save
+encode: delta restores are bit-exact against a full-save oracle for
+every codec config.  Each shard records the lineage id (``sid``) of the
+save that wrote it and a delta shard the ids of its parents, so a step
+number regenerated after a walk-back never resolves a stale chain.
+``_gc`` is chain-aware: a parent step survives ``keep`` while any
+retained child references it; a corrupt parent invalidates every child
+that references it.  The manifest is the reference's, so a chain written
+by either package restores in the other.  A delta leaf is assembled from
+its chain on the host (an int8 one decoded there), as the reference does.
+Restores onto other shardings wait for ROADMAP item 10.
 """
 from __future__ import annotations
 
@@ -53,20 +74,28 @@ import re
 import shutil
 import threading
 import time
+import uuid
 from typing import Any, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.codec import CODECS, Codec, DeviceCodec
+from repro_torch.core.codec import (CODECS, Codec, DeviceCodec,
+                                    validate_delta_block)
 from repro_torch.core.io_engine import (ShardIOEngine, crc32_array,
                                         fsync_path, pid_alive, read_json,
                                         write_json, write_npy)
+from repro_torch.kernels.block_hash.ops import host_block_hashes
+from repro_torch.kernels.block_hash.ref import block_hashes_np
 from repro_torch.tree import flatten_named, unflatten
 
 _STEP_RE = re.compile(r"^step_(\d{8})$")
 _STAGING_RE = re.compile(r"^step_(\d{8})\.tmp\.(\d+)$")
 _LOCAL_SHARD_RE = re.compile(r"^local_s(\d{5})\.json$")
+
+# leaves below this many elements are always saved in full (the codecs'
+# floor: hashing and packing would cost more than the bytes saved)
+_DELTA_MIN_ELEMS = 1024
 
 # tensor dtype <-> the numpy dtype name the manifest records
 _TORCH_DTYPES = {
@@ -102,6 +131,38 @@ def _from_numpy(a: np.ndarray, dtype_name: str, device) -> torch.Tensor:
     return torch.from_numpy(c).to(device)
 
 
+def _numel(value) -> int:
+    return (value.numel() if isinstance(value, torch.Tensor)
+            else int(np.asarray(value).size))
+
+
+def _gather_blocks(data, idx: np.ndarray, block: int):
+    """Blocks ``idx`` (ascending) of the flattened leaf, concatenated flat,
+    the ragged last block zero-padded to ``block`` elements.  A tensor is
+    gathered on its own device, so only the dirty bytes cross to the
+    host."""
+    if isinstance(data, torch.Tensor):
+        flat = data.detach().reshape(-1)
+        n = flat.numel()
+        nfull = n // block
+        full, tail = idx[idx < nfull], idx[idx >= nfull]
+        parts = []
+        if full.size:
+            sel = torch.from_numpy(full.astype(np.int64)).to(flat.device)
+            parts.append(flat[:nfull * block].view(nfull, block)
+                         .index_select(0, sel).reshape(-1))
+        if tail.size:
+            last = flat.new_zeros(block)
+            last[:n - nfull * block] = flat[nfull * block:]
+            parts.append(last)
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+    flat = np.ascontiguousarray(data).reshape(-1)
+    pad = (-flat.size) % block
+    if pad:
+        flat = np.pad(flat, (0, pad))
+    return np.ascontiguousarray(flat.reshape(-1, block)[idx].reshape(-1))
+
+
 class _Encoded:
     """A verified int8 payload (q blocks followed by fp32 scales) kept
     encoded so that it is decoded on its target device."""
@@ -112,17 +173,28 @@ class _Encoded:
 
 
 class SaveStats:
-    def __init__(self, step, bytes_written, snapshot_s, write_s, blocking):
+    def __init__(self, step, bytes_written, snapshot_s, write_s, blocking,
+                 kind="full", dirty_blocks=0, total_blocks=0,
+                 hash_s=0.0):
         self.step = step
         self.bytes_written = bytes_written
         self.snapshot_seconds = snapshot_s
         self.write_seconds = write_s
         self.blocking = blocking
+        self.kind = kind                      # "full" | "delta"
+        self.dirty_blocks = dirty_blocks      # blocks written (delta mode)
+        self.total_blocks = total_blocks      # blocks tracked (delta mode)
+        self.hash_seconds = hash_s            # block hashing, in snapshot
 
     def __repr__(self):
+        extra = ""
+        if self.total_blocks:
+            extra = (f", kind={self.kind}, blocks={self.dirty_blocks}/"
+                     f"{self.total_blocks}")
         return (f"SaveStats(step={self.step}, MB={self.bytes_written/1e6:.1f},"
                 f" snapshot={self.snapshot_seconds:.3f}s,"
-                f" write={self.write_seconds:.3f}s, blocking={self.blocking})")
+                f" write={self.write_seconds:.3f}s, blocking={self.blocking}"
+                f"{extra})")
 
 
 class CheckpointManager:
@@ -136,11 +208,8 @@ class CheckpointManager:
                  codec: Optional[str] = None, device_codec: bool = False,
                  io_threads: int = 0, fsync: str = "batch",
                  verify_crc: bool = True, keep: int = 3,
-                 delta: bool = False):
-        if delta:
-            raise NotImplementedError(
-                "delta checkpoints wait for the block_hash slice of the "
-                "port (ROADMAP item 5)")
+                 delta: bool = False, delta_block: int = 65536,
+                 full_every: int = 8):
         self.directory = directory
         self.host_id = host_id
         self.num_hosts = num_hosts
@@ -156,6 +225,19 @@ class CheckpointManager:
         self._engine = ShardIOEngine(threads=io_threads, fsync_mode=fsync)
         self.verify_crc = verify_crc
         self.keep = keep
+        self.delta = bool(delta)
+        self.delta_block = (validate_delta_block(delta_block) if delta
+                            else int(delta_block))
+        if delta and full_every < 1:
+            raise ValueError(f"full_every must be >= 1, got {full_every}")
+        self.full_every = int(full_every)
+        # per-shard base of the last committed save: fname -> {step, hashes,
+        # block_steps, step_sids, spans, dtype, size}.  In memory only: a
+        # restarted manager saves one full checkpoint first.  ``step_sids``
+        # maps each referenced step to the lineage id its shards were
+        # saved under, which restore verifies.
+        self._delta_base: Dict[str, Dict[str, Any]] = {}
+        self._chain_len = 0           # delta saves since the last full
         self._my_staging: Set[str] = set()
         os.makedirs(directory, exist_ok=True)
         self._writer: Optional[threading.Thread] = None
@@ -217,54 +299,149 @@ class CheckpointManager:
             shutil.rmtree(path, ignore_errors=True)
 
     def _dcodec_ok(self, data) -> bool:
+        """Would a full save device-encode this leaf?  A delta save encodes
+        its gathered dirty blocks iff the full save would have (decided on
+        the original leaf), or the decoded values would diverge from the
+        full-save oracle."""
         return (self._dcodec is not None and isinstance(data, torch.Tensor)
                 and data.is_floating_point() and data.numel() >= 1024)
 
-    def _host_codec_ok(self, data: np.ndarray) -> bool:
+    def _host_codec_ok(self, data) -> bool:
+        """The same for the host codec in the writer pool (numpy leaves,
+        and tensors without the device codec)."""
         if self.codec is None:
             return False
-        return data.dtype in (np.float32, np.float64) and data.size >= 1024
+        return (_dtype_name(data) in ("float32", "float64")
+                and _numel(data) >= 1024)
 
-    def _snapshot(self, named) -> Tuple[List[Dict[str, Any]],
-                                        Dict[str, Any]]:
+    def _append_payload(self, item, smeta, payload, pending,
+                        dcodec_ok: bool, host_codec_ok: bool) -> None:
+        """Route one payload (a whole leaf or its gathered dirty blocks)
+        into the write plan: encode on the device, or hand to the host
+        (tensors are copied after every kernel of the save is enqueued)."""
+        if dcodec_ok and isinstance(payload, torch.Tensor):
+            q, s = self._dcodec.encode(payload)
+            smeta["codec"] = {"name": self.codec_name,
+                              **DeviceCodec.block_meta(tuple(payload.shape))}
+            item["kind"] = "parts"
+            pending.append((item, "parts", (q, s)))
+            return
+        item["kind"] = "host"
+        item["codec_ok"] = host_codec_ok
+        if isinstance(payload, torch.Tensor):
+            pending.append((item, "data", payload))
+        else:
+            item["data"] = np.asarray(payload)
+
+    def _snapshot(self, named, step: int, kind: str, sid: str):
         """Device -> host: the only cost on the BSP critical path in async
         mode.  With device_codec, eligible leaves are quantized on their
         device first (every kernel is enqueued before the first copy), so
-        only int8 + scales cross the link.
+        only int8 + scales cross the link.  In delta mode every leaf's
+        block hashes come first (one kernel launch and one copy of the
+        hash vectors), and only dirty blocks are gathered and copied.
 
-        Returns (shard_plan, manifest_arrays); each plan item owns its
-        manifest shard-meta dict (the writer adds codec/crc info)."""
-        plan: List[Dict[str, Any]] = []
+        Returns (shard_plan, manifest_arrays, pending_base, dirty, total,
+        hash_s); each plan item owns its manifest shard-meta dict (the
+        writer adds codec/crc info) and ``pending_base`` is the delta base
+        to commit once the write lands on disk."""
         manifest_arrays: Dict[str, Any] = {}
-        pending: List[Tuple[Dict[str, Any], Any]] = []
+        rows: List[Dict[str, Any]] = []
         for name, value in named:
             shape = list(value.shape) if hasattr(value, "shape") else []
             fname = f"{name}.s{self.host_id}_0.npy"
-            smeta: Dict[str, Any] = {"file": fname,
-                                     "spans": [[0, d] for d in shape]}
-            manifest_arrays[name] = {"shape": shape,
-                                     "dtype": _dtype_name(value),
+            spans = [[0, d] for d in shape]
+            smeta: Dict[str, Any] = {"file": fname, "spans": spans}
+            if self.delta:
+                smeta["sid"] = sid       # lineage id delta children pin
+            dtype = _dtype_name(value)
+            manifest_arrays[name] = {"shape": shape, "dtype": dtype,
                                      "shards": [smeta]}
+            row = {"fname": fname, "meta": smeta, "spans": spans,
+                   "data": value, "dtype": dtype}
+            if self.delta and _numel(value) >= _DELTA_MIN_ELEMS:
+                if isinstance(value, torch.Tensor):
+                    row["hash_me"] = True
+                else:
+                    row["hashes"] = block_hashes_np(np.asarray(value),
+                                                    self.delta_block)
+            rows.append(row)
+        t0 = time.perf_counter()
+        pend = [r for r in rows if r.pop("hash_me", False)]
+        if pend:
+            for r, h in zip(pend, host_block_hashes(
+                    [r["data"] for r in pend], self.delta_block)):
+                r["hashes"] = h
+        hash_s = time.perf_counter() - t0
+
+        plan: List[Dict[str, Any]] = []
+        pending_base: Dict[str, Dict[str, Any]] = {}
+        dirty_total = blocks_total = 0
+        pending: List[Tuple[Dict[str, Any], str, Any]] = []
+        for row in rows:
+            fname, smeta, data = row["fname"], row["meta"], row["data"]
             item: Dict[str, Any] = {"fname": fname, "meta": smeta}
-            if self._dcodec_ok(value):
-                q, s = self._dcodec.encode(value)
-                smeta["codec"] = {"name": self.codec_name,
-                                  **DeviceCodec.block_meta(tuple(shape))}
-                item["kind"] = "parts"
-                pending.append((item, (q, s)))
-            else:
-                item["kind"] = "host"
-                pending.append((item, value))
+            base = self._delta_base.get(fname)
+            h = row.get("hashes")
+            size = _numel(data)
+            if h is not None:
+                pending_base[fname] = {
+                    "step": step, "hashes": h, "spans": row["spans"],
+                    "dtype": row["dtype"], "size": size,
+                    "block_steps": np.full(h.size, step, np.int64),
+                    "step_sids": {step: sid}}
+                blocks_total += h.size
+            use_delta = (kind == "delta" and h is not None
+                         and base is not None
+                         and base["spans"] == row["spans"]
+                         and base["dtype"] == row["dtype"]
+                         and base["size"] == size)
+            if use_delta:
+                dirty = np.nonzero(h != base["hashes"])[0]
+                if dirty.size == h.size:
+                    use_delta = False       # fully dirty: plain full shard
+            if not use_delta:
+                if h is not None:
+                    dirty_total += h.size
+                self._append_payload(item, smeta, data, pending,
+                                     dcodec_ok=self._dcodec_ok(data),
+                                     host_codec_ok=self._host_codec_ok(data))
+                plan.append(item)
+                continue
+            dirty_total += int(dirty.size)
+            block_steps = base["block_steps"].copy()
+            block_steps[dirty] = step
+            clean = np.nonzero(h == base["hashes"])[0]
+            parents: Dict[int, List[int]] = {}
+            for b in clean:
+                parents.setdefault(int(base["block_steps"][b]),
+                                   []).append(int(b))
+            pending_base[fname]["block_steps"] = block_steps
+            pending_base[fname]["step_sids"] = {
+                step: sid, **{s: base["step_sids"][s] for s in parents}}
+            smeta["delta"] = {
+                "block": self.delta_block, "nblocks": int(h.size),
+                "size": size,
+                "local": [int(b) for b in dirty],
+                "parents": {str(s): bs for s, bs in sorted(parents.items())},
+                "parent_sids": {str(s): base["step_sids"][s]
+                                for s in parents},
+            }
+            if dirty.size == 0:
+                smeta["file"] = None     # nothing local: pure reference
+                continue
+            gathered = _gather_blocks(data, dirty, self.delta_block)
+            self._append_payload(item, smeta, gathered, pending,
+                                 dcodec_ok=self._dcodec_ok(data),
+                                 host_codec_ok=self._host_codec_ok(data))
             plan.append(item)
-        for item, value in pending:
-            if item["kind"] == "parts":
+        for item, key, value in pending:
+            if key == "parts":
                 item["parts"] = [_to_numpy(t) for t in value]
             else:
-                data = (_to_numpy(value) if isinstance(value, torch.Tensor)
-                        else np.asarray(value))
-                item["data"] = data
-                item["codec_ok"] = self._host_codec_ok(data)
-        return plan, manifest_arrays
+                item["data"] = _to_numpy(value)
+        return (plan, manifest_arrays, pending_base, dirty_total,
+                blocks_total, hash_s)
 
     def _write_shard(self, staging: str, item: Dict[str, Any]) -> Tuple[str, int]:
         """One writer-pool job: (host-)encode + stream one shard to disk."""
@@ -290,8 +467,17 @@ class CheckpointManager:
         ``local_s<k>.json``."""
         self.wait()  # double-buffer: drain previous async write
         t0 = time.perf_counter()
+        kind = "full"
+        if (self.delta and self._delta_base
+                and self._chain_len + 1 < self.full_every):
+            kind = "delta"
+        # a fresh lineage id a save: a walk-back + resume can regenerate a
+        # step NUMBER with other content; delta children pin the id so a
+        # restore refuses to mix generations
+        sid = uuid.uuid4().hex[:16]
         named = flatten_named(state)
-        shard_plan, manifest_arrays = self._snapshot(named)
+        (shard_plan, manifest_arrays, pending_base, dirty, total,
+         hash_s) = self._snapshot(named, step, kind, sid)
         snapshot_s = time.perf_counter() - t0
 
         def write():
@@ -307,7 +493,7 @@ class CheckpointManager:
                     "step": step,
                     "num_hosts": self.num_hosts,
                     "codec": self.codec_name,
-                    "kind": "full",
+                    "kind": kind,
                     "arrays": manifest_arrays,
                 }
                 if local_shards is not None:
@@ -343,13 +529,21 @@ class CheckpointManager:
             except BaseException:
                 self._unregister_staging(staging)
                 raise
+            # the write landed: commit the delta base (a failed write never
+            # becomes a parent)
+            if self.delta:
+                self._delta_base.update(pending_base)
+                self._chain_len = 0 if kind == "full" else self._chain_len + 1
             return total_b, time.perf_counter() - t1
 
+        extra = dict(kind=kind, dirty_blocks=dirty, total_blocks=total,
+                     hash_s=hash_s)
         if blocking:
             total_b, write_s = write()
-            return SaveStats(step, total_b, snapshot_s, write_s, True)
+            return SaveStats(step, total_b, snapshot_s, write_s, True,
+                             **extra)
 
-        stats = SaveStats(step, 0, snapshot_s, 0.0, False)
+        stats = SaveStats(step, 0, snapshot_s, 0.0, False, **extra)
 
         def run():
             try:
@@ -379,12 +573,39 @@ class CheckpointManager:
             self._unregister_staging(path)
         self._engine.close()
 
+    def _parent_steps(self, step: int) -> Set[int]:
+        """Steps referenced by ``step``'s delta shards (direct parents).
+        Raises on an unreadable manifest: callers deciding what to delete
+        must treat that conservatively, not as 'no parents'."""
+        out: Set[int] = set()
+        for entry in self._load_manifests(step).values():
+            for sh in entry["shards"]:
+                d = sh.get("delta")
+                if d:
+                    out.update(int(s) for s in d["parents"])
+        return out
+
     def _gc(self) -> None:
-        """Prune beyond ``keep`` (full saves reference no parent)."""
+        """Prune beyond ``keep``, chain-aware: a step survives while any
+        retained delta checkpoint (transitively) references it.  If a
+        retained manifest cannot be read, delete nothing this round:
+        keeping too much is the safe failure, never too little."""
         steps = self.all_steps()
         if self.keep:
-            for s in steps[:-self.keep]:
-                shutil.rmtree(self._final(s), ignore_errors=True)
+            keep_set: Optional[Set[int]] = set(steps[-self.keep:])
+            frontier = list(keep_set)
+            try:
+                while frontier:
+                    for p in self._parent_steps(frontier.pop()):
+                        if p not in keep_set:
+                            keep_set.add(p)
+                            frontier.append(p)
+            except (OSError, ValueError, json.JSONDecodeError):
+                keep_set = None
+            if keep_set is not None:
+                for s in steps:
+                    if s not in keep_set:
+                        shutil.rmtree(self._final(s), ignore_errors=True)
         self._sweep_stale_staging()
 
     # ------------------------------------------------------------------
@@ -467,9 +688,6 @@ class CheckpointManager:
                         want: str, keep_encoded: bool = False):
         """np.load + CRC verify + codec decode of one shard file (with
         ``keep_encoded``, an int8 payload comes back as ``_Encoded``)."""
-        if sh.get("delta"):
-            raise IOError(f"shard {sh.get('file')} is a delta save: delta "
-                          "restores wait for ROADMAP item 5")
         path = os.path.join(final, sh["file"])
         try:
             payload = np.load(path)
@@ -489,23 +707,146 @@ class CheckpointManager:
             return payload             # raw 2-byte void, viewed on load
         return payload.astype(np.dtype(want), copy=False)
 
+    def _load_plain(self, final: str, sh: Dict[str, Any],
+                    want: str) -> np.ndarray:
+        """One shard file decoded to the leaf's dtype (bfloat16 as raw
+        2-byte void; an int8 payload decoded and rounded to it)."""
+        payload = self._decode_payload(final, sh, want)
+        if want != "bfloat16":
+            return payload
+        if payload.dtype.kind == "f":      # decoded int8 payload
+            payload = torch.from_numpy(np.ascontiguousarray(
+                payload, np.float32)).to(torch.bfloat16).view(
+                    torch.int16).numpy()
+        return payload.view(np.dtype("V2"))
+
+    def _find_shard(self, step: int, name: str, spans,
+                    man_cache: Dict[int, Dict],
+                    want_sid: Optional[str] = None) -> Dict[str, Any]:
+        """The shard entry for (name, spans) in ``step``'s manifests: the
+        delta chain's parent lookup.  Raises IOError when the parent step
+        or its shard is gone (the child is invalidated), or when
+        ``want_sid`` does not match the shard's lineage id: the parent step
+        number was regenerated after a walk-back + resume and holds
+        another trajectory, which every per-file CRC would pass."""
+        if step not in man_cache:
+            if not os.path.isdir(self._final(step)):
+                raise IOError(f"delta parent step {step} is missing")
+            man_cache[step] = self._load_manifests(step)
+        entry = man_cache[step].get(name)
+        if entry is None:
+            raise IOError(f"delta parent step {step} has no leaf {name!r}")
+        for sh in entry["shards"]:
+            if sh["spans"] == spans:
+                if want_sid is not None and sh.get("sid") != want_sid:
+                    raise IOError(
+                        f"delta parent step {step} was regenerated "
+                        f"(lineage {sh.get('sid')} != referenced "
+                        f"{want_sid}): stale chain invalidated")
+                return sh
+        raise IOError(f"delta parent step {step} has no shard of {name!r} "
+                      f"with spans {spans}")
+
+    def _fill_blocks(self, step: int, name: str, spans, block: int,
+                     needed: Set[int], out: np.ndarray, want: str,
+                     man_cache: Dict[int, Dict], depth: int = 0,
+                     want_sid: Optional[str] = None) -> None:
+        """Copy the requested delta blocks of shard (name, spans) at
+        ``step`` into ``out`` (flat, nblocks * block elements), resolving
+        parent references recursively.  Any missing or corrupt link, or a
+        parent whose lineage id shows it was regenerated, raises IOError:
+        the whole chain is invalidated."""
+        if depth > 64:
+            raise IOError(f"delta chain deeper than 64 at step {step} "
+                          f"({name!r}): corrupt parent links")
+        final = self._final(step)
+        sh = self._find_shard(step, name, spans, man_cache, want_sid)
+        d = sh.get("delta")
+        if d is None:               # a full shard terminates the chain
+            flat = self._load_plain(final, sh, want).reshape(-1)
+            for b in needed:
+                seg = flat[b * block:(b + 1) * block]
+                if seg.size == 0:
+                    raise IOError(f"delta block {b} of {name!r} out of "
+                                  f"range in full shard at step {step}")
+                out[b * block:b * block + seg.size] = seg
+            return
+        if d["block"] != block:
+            raise IOError(f"delta block size changed mid-chain for "
+                          f"{name!r} at step {step}")
+        pos = {int(b): j for j, b in enumerate(d["local"])}
+        here = [b for b in needed if b in pos]
+        if here:
+            if sh.get("file") is None:
+                raise IOError(f"delta shard of {name!r} at step {step} "
+                              "lists local blocks but has no file")
+            flat = self._load_plain(final, sh, want).reshape(-1)
+            if flat.size < len(pos) * block:
+                raise IOError(f"delta shard of {name!r} at step {step} "
+                              f"truncated: {flat.size} < {len(pos) * block}")
+            for b in here:
+                j = pos[b]
+                out[b * block:(b + 1) * block] = \
+                    flat[j * block:(j + 1) * block]
+        rest = needed.difference(here)
+        if not rest:
+            return
+        pmap: Dict[int, int] = {}
+        for ps, bs in d["parents"].items():
+            for b in bs:
+                pmap[int(b)] = int(ps)
+        sids = d.get("parent_sids", {})
+        byp: Dict[int, Set[int]] = {}
+        for b in rest:
+            if b not in pmap:
+                raise IOError(f"delta block {b} of {name!r} unresolved at "
+                              f"step {step}: corrupt manifest")
+            byp.setdefault(pmap[b], set()).add(b)
+        for s, bs in sorted(byp.items()):
+            self._fill_blocks(s, name, spans, block, bs, out, want,
+                              man_cache, depth + 1,
+                              want_sid=sids.get(str(s)))
+
+    def _assemble_delta(self, step: int, name: str, entry: Dict[str, Any],
+                        sh: Dict[str, Any],
+                        man_cache: Dict[int, Dict]) -> np.ndarray:
+        d = sh["delta"]
+        block, nb, size = d["block"], d["nblocks"], d["size"]
+        want = entry["dtype"]
+        out = np.zeros(nb * block, dtype=(np.dtype("V2")
+                                          if want == "bfloat16"
+                                          else np.dtype(want)))
+        self._fill_blocks(step, name, sh["spans"], block, set(range(nb)),
+                          out, want, man_cache)
+        return out[:size]
+
+    def _load_shard(self, step: int, name: str, entry: Dict[str, Any],
+                    sh: Dict[str, Any],
+                    man_cache: Dict[int, Dict]) -> np.ndarray:
+        if "delta" in sh:
+            return self._assemble_delta(step, name, entry, sh, man_cache)
+        return self._decode_payload(self._final(step), sh, entry["dtype"])
+
     def _read_leaf(self, step: int, name: str, entry: Dict[str, Any], *,
-                   keep_encoded: bool = False, parallel: bool = True):
-        """Reassemble one leaf from its shard spans (numpy), or return the
-        leaf's single int8 payload encoded when ``keep_encoded``."""
+                   keep_encoded: bool = False, parallel: bool = True,
+                   man_cache: Optional[Dict[int, Dict]] = None):
+        """Reassemble one leaf from its shard spans (numpy; a delta shard
+        through its chain), or return the leaf's single int8 payload
+        encoded when ``keep_encoded``."""
+        man_cache = {} if man_cache is None else man_cache
         shape = tuple(entry["shape"])
         want = entry["dtype"]
         shards = self._check_tiling(name, shape, entry["shards"])
-        final = self._final(step)
-        if keep_encoded and len(shards) == 1 and "codec" in shards[0]:
-            return self._decode_payload(final, shards[0], want,
+        if (keep_encoded and len(shards) == 1 and "codec" in shards[0]
+                and "delta" not in shards[0]):
+            return self._decode_payload(self._final(step), shards[0], want,
                                         keep_encoded=True)
         if parallel and len(shards) > 1:
             payloads = self._engine.read_many(
-                [functools.partial(self._decode_payload, final, sh, want)
-                 for sh in shards])
+                [functools.partial(self._load_shard, step, name, entry, sh,
+                                   man_cache) for sh in shards])
         else:
-            payloads = [self._decode_payload(final, sh, want)
+            payloads = [self._load_shard(step, name, entry, sh, man_cache)
                         for sh in shards]
         out: Optional[np.ndarray] = None
         for sh, payload in zip(shards, payloads):
@@ -543,11 +884,15 @@ class CheckpointManager:
         ``like``: template tree defining the structure; each restored leaf
         lands on the device of its template tensor (numpy where the
         template leaf is not a tensor).  With ``like=None`` the tree is
-        rebuilt from the dotted names, as CPU tensors."""
+        rebuilt from the dotted names, as CPU tensors.  Restoring resets
+        the delta base: the next ``save`` is a full checkpoint."""
         if shardings is not None:
             raise NotImplementedError(
                 "restore onto shardings waits for the elastic-mesh slice "
                 "of the port (ROADMAP item 10)")
+        # join (without consuming its error) an in-flight async writer
+        # first: its completion updates the delta base, which must not
+        # outlive the reset below
         if self._writer is not None:
             self._writer.join()
             self._writer = None
@@ -568,10 +913,11 @@ class CheckpointManager:
             devices = [leaf.device if isinstance(leaf, torch.Tensor)
                        else None for _, leaf in named]
         keep = self._dcodec is not None
+        man_cache: Dict[int, Dict] = {step: merged}
         fns = [functools.partial(self._read_leaf, step, n, merged[n],
                                  keep_encoded=keep and d is not None,
-                                 parallel=False) for n, d in
-               zip(names, devices)]
+                                 parallel=False, man_cache=man_cache)
+               for n, d in zip(names, devices)]
         raws = self._engine.read_many(fns)
         leaves = [self._to_leaf(r, merged[n], d)
                   for r, n, d in zip(raws, names, devices)]
@@ -589,6 +935,10 @@ class CheckpointManager:
         lp = os.path.join(self._final(step), f"local_h{self.host_id}.json")
         if os.path.exists(lp):
             local = read_json(lp)
+        # a restore is a rollback: the next save must not reference steps
+        # from before it as delta parents
+        self._delta_base = {}
+        self._chain_len = 0
         return state, local
 
     def restore_local_shards(self, step: int) -> List[Dict]:

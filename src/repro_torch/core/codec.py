@@ -31,6 +31,18 @@ from repro_torch.kernels.ckpt_codec.ops import (block_meta, dequantize,
 BLOCK = 256
 
 
+def validate_delta_block(block: int) -> int:
+    """Delta-checkpoint block sizes must be positive multiples of the int8
+    codec's block: a standalone encode of a run of dirty blocks is then
+    bit-identical to the matching slice of a full-save encode (scales are
+    per 256-element block, and block boundaries line up)."""
+    block = int(block)
+    if block <= 0 or block % BLOCK:
+        raise ValueError(f"delta_block must be a positive multiple of "
+                         f"{BLOCK} (the int8 codec block), got {block}")
+    return block
+
+
 class Codec:
     name = "base"
 

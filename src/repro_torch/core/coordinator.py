@@ -5,9 +5,19 @@ reference's ``core/coordinator.py``).
 preservation at step boundaries.  ``run_with_recovery`` wraps it with
 fail-stop and silent-data-corruption recovery: a (simulated or real)
 failure triggers restore from the last committed checkpoint and
-continuation; a CorruptionDetected from the loss sentinel triggers
-rollback to an earlier checkpoint.  Every rollback/restart is an event in
-the returned history.
+continuation; a CorruptionDetected from an SDC tier (the scrubber or
+the loss sentinel) triggers rollback to the newest checksum-verified
+checkpoint.  Every
+rollback/restart is an event in the returned history.
+
+SDC hooks inside each superstep (no-ops unless enabled):
+  - ``fault_injector.apply_sdc`` at the top: scheduled bit-flips strike
+    the state at rest, inside the scrubber's record -> verify window;
+  - ``dep.verify_state`` right after: re-checksums the leaves the previous
+    superstep's scrub recorded;
+  - ``dep.scrub`` after the step: checksums the next rotating subset of
+    the fresh state;
+  - ``dep.check_metrics``: the tier-3 loss sentinel.
 """
 from __future__ import annotations
 
@@ -28,8 +38,8 @@ def run_bsp(dep: Dependability, train_step: Callable, state, data,
 
     Returns (state, status, history); status in {"done", "interrupted"}
     (an interruption takes a final save first).  May raise
-    SimulatedFailure (injected fail-stop) or CorruptionDetected (the
-    sentinel tripped) — run_with_recovery handles both.  The telemetry
+    SimulatedFailure (injected fail-stop) or CorruptionDetected (an SDC
+    tier tripped) — run_with_recovery handles both.  The telemetry
     plane's stop and proactive-save hooks wait for ROADMAP items 8 and
     10."""
     history: List[Dict] = []
@@ -42,6 +52,11 @@ def run_bsp(dep: Dependability, train_step: Callable, state, data,
             dep.manager.wait()
             return state, "interrupted", history
 
+        if fault_injector is not None:
+            # SDC strikes the at-rest state inside the record->verify window
+            state = fault_injector.apply_sdc(step + 1, state)
+        dep.verify_state(state, step + 1)      # may raise CorruptionDetected
+
         batch = data.next_batch()
         t0 = time.perf_counter()
         if fault_injector is not None:
@@ -52,6 +67,7 @@ def run_bsp(dep: Dependability, train_step: Callable, state, data,
         dt = time.perf_counter() - t0
         step += 1
 
+        dep.scrub(state, step)                 # record the next scrub window
         straggler = dep.observe_step(dt, step)
         rec = {"step": step, "seconds": dt, "straggler": straggler,
                **metrics}
@@ -76,8 +92,9 @@ def run_with_recovery(dep: Dependability, train_step: Callable, state, data,
 
     ``like`` describes the state tree for restore and where its leaves go
     (defaults to the registered global template).  Corruption rollback
-    restores the newest checkpoint saved before the trip that has not
-    already failed to get past it."""
+    restores the newest checksum-verified checkpoint that has not already
+    failed to get past it (walking back past any whose CRCs no longer
+    verify)."""
     restarts = 0
     all_history: List[Dict] = []
     state0 = state                           # scratch-restart fallback
@@ -133,3 +150,4 @@ def run_with_recovery(dep: Dependability, train_step: Callable, state, data,
                 if local0 is not None:
                     dep._local_provider.load_state_dict(local0)
                 last_corrupt_restore = None
+            dep.reset_sdc()

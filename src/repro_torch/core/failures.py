@@ -1,19 +1,21 @@
-"""Fault injection (fail-stop, straggle, the serving events) and the
-straggler watchdog.
+"""Fault injection (fail-stop, straggle, bit-flips, the serving events)
+and the straggler watchdog.
 
 ``FaultInjector`` carries the training and serving events of the
 reference's injector.  Training: a scheduled fail-stop raises
 ``SimulatedFailure`` at a step boundary (the process "dies"); the harness
 then restarts from the last checkpoint exactly like a scheduler would
-relaunch the job; a straggle sleeps inside the superstep.  Serving: a
-scheduled replica kill raises ``SimulatedFailure`` the first time the
-replica is dispatched to at or past its step, a scheduled replica SDC
-raises ``CorruptionDetected`` (the engine takes the sentinel path), and a
-latency spike sleeps before the replica's work.  Scheduled bit-flips
-(``schedule_bitflip``/``apply_sdc``) wait for the SDC slice of the port
-(ROADMAP item 5).
+relaunch the job; a straggle sleeps inside the superstep; a scheduled
+bit-flip (``schedule_bitflip``, applied by ``apply_sdc``) flips one bit
+inside a named state leaf, and the run goes on with a wrong answer until
+an SDC tier notices.  Serving: a scheduled replica kill raises
+``SimulatedFailure`` the first time the replica is dispatched to at or
+past its step, a scheduled replica SDC raises ``CorruptionDetected`` (the
+engine takes the sentinel path), and a latency spike sleeps before the
+replica's work.
 
-``CorruptionDetected`` is the signal the SDC tiers raise.
+``CorruptionDetected`` is the signal the SDC tiers raise; the recovery
+loop treats it as a failure whose cure is rollback.
 
 ``StragglerWatchdog`` tracks step durations and flags steps slower than
 ``factor`` x the running median.
@@ -25,6 +27,9 @@ import time
 from collections import deque
 from typing import Deque, Dict, List, Tuple
 
+import numpy as np
+import torch
+
 
 class SimulatedFailure(RuntimeError):
     def __init__(self, step: int, host_id: int = 0, kind: str = "fail-stop"):
@@ -35,8 +40,10 @@ class SimulatedFailure(RuntimeError):
 
 
 class CorruptionDetected(RuntimeError):
-    """An SDC tier found corrupted state/output (serving: the decode
-    sentinel, or an injected replica SDC).  ``detail`` is the reason."""
+    """An SDC tier found corrupted state/output.  ``kind``: "scrub" (tier
+    2, ``detail`` names the corrupted leaves), "sentinel" (tier 3,
+    ``detail`` is the trip reason); serving raises it from the decode
+    sentinel or an injected replica SDC."""
 
     def __init__(self, step: int, kind: str, detail: str = ""):
         super().__init__(f"corruption detected at step {step} "
@@ -44,6 +51,27 @@ class CorruptionDetected(RuntimeError):
         self.step = step
         self.kind = kind
         self.detail = detail
+
+
+def flip_bit(leaf, bit: int):
+    """A copy of ``leaf`` with absolute ``bit`` of its buffer flipped
+    (``bit // 8`` is the byte offset in ``reshape(-1)`` order, the bit
+    little-endian within the byte), on the leaf's device; a numpy leaf
+    gives a numpy copy."""
+    if isinstance(leaf, torch.Tensor):
+        out = leaf.detach().clone().contiguous()
+        flat = out.reshape(-1).view(torch.uint8)     # aliases out
+        if not 0 <= bit < flat.numel() * 8:
+            raise IndexError(f"bit {bit} out of range for "
+                             f"{flat.numel()}-byte leaf")
+        flat[bit // 8] ^= 1 << (bit % 8)
+        return out
+    arr = np.array(leaf)                     # writable, contiguous copy
+    flat = arr.reshape(-1).view(np.uint8)    # aliases arr's buffer
+    if not 0 <= bit < flat.size * 8:
+        raise IndexError(f"bit {bit} out of range for {flat.size}-byte leaf")
+    flat[bit // 8] ^= np.uint8(1 << (bit % 8))
+    return arr
 
 
 class FaultInjector:
@@ -60,6 +88,7 @@ class FaultInjector:
         self._next_eid = 0
         self.triggered: List[int] = []
         self.replica_kills: List[Tuple[int, int]] = []   # (step, replica)
+        self.sdc_injected: List[Tuple[int, str, int]] = []  # (step, leaf, bit)
         # telemetry: fired injections land on the bus as ground truth to
         # hold the detectors' events against (injected vs detected)
         self.obs = obs
@@ -106,6 +135,12 @@ class FaultInjector:
 
     def schedule_straggle(self, step: int, extra_seconds: float) -> int:
         return self._add("straggle", step, extra=float(extra_seconds))
+
+    def schedule_bitflip(self, step: int, leaf: str, bit: int) -> int:
+        """Flip ``bit`` of state leaf ``leaf`` (dotted name, the checkpoint
+        manifest's: e.g. "params.blocks.l0.mlp.w_in") just before
+        superstep ``step`` executes."""
+        return self._add("bitflip", step, leaf=leaf, bit=int(bit))
 
     def schedule_replica_kill(self, step: int, replica_id: int = 0) -> int:
         """Kill serving replica ``replica_id`` at engine step ``step``:
@@ -169,6 +204,30 @@ class FaultInjector:
                 self.triggered.append(step)
                 self._emit("failstop", step=step, host=ev["host"])
                 raise SimulatedFailure(step, ev["host"])
+
+    def apply_sdc(self, step: int, state):
+        """``state`` with any bit-flips scheduled for ``step`` applied (the
+        identity when none are due).  Unlike ``check`` this corrupts
+        silently: nothing raises."""
+        flips = [ev for ev in self._match("bitflip") if ev["step"] == step]
+        if not flips:
+            return state
+        from repro_torch.tree import flatten_named, unflatten
+
+        named = flatten_named(state)
+        names = [n for n, _ in named]
+        leaves = [v for _, v in named]
+        for ev in flips:
+            del self._events[ev["id"]]
+            leaf_name, bit = ev["leaf"], ev["bit"]
+            if leaf_name not in names:
+                raise KeyError(f"no state leaf {leaf_name!r}; have "
+                               f"{names[:8]}...")
+            i = names.index(leaf_name)
+            leaves[i] = flip_bit(leaves[i], bit)
+            self.sdc_injected.append((step, leaf_name, bit))
+            self._emit("bitflip", step=step, leaf=leaf_name, bit=bit)
+        return unflatten(state, leaves)
 
 
 class StragglerWatchdog:

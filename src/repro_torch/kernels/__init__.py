@@ -12,5 +12,8 @@ Kernels on the serving path (slice 1): rmsnorm, flash_attention,
 paged_attention.  On the training path (slice 2): rmsnorm and
 flash_attention with their backward kernels (run as autograd Functions
 when a gradient is needed), and ckpt_codec (int8 checkpoint quantize and
-dequantize).  ``build`` compiles and loads the CUDA sources.
+dequantize).  On the SDC-protected training path (slice 3): block_hash
+(scrub checksums and delta dirty blocks, every leaf in one launch) and
+abft_matmul (checksum-extended float32 matmul, SDC tier 1).  ``build``
+compiles and loads the CUDA sources.
 """

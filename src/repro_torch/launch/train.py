@@ -6,17 +6,26 @@
         --policy every_n --async-save --inject-failure 6
 
 Wires the DeLIA stack around the BSP training loop: checkpoint policy
-(Young/Daly or fixed), sync/async checkpoints (+ optional int8 codec),
-termination-signal detection,
-optional UDP heartbeats, straggler watchdog, the loss sentinel, and
-automatic restore-on-restart.  ``--inject-failure N`` simulates a
-fail-stop at step N and recovers.  The model runs on the card unless
-``--device cpu``.
+(Young/Daly or fixed), sync/async checkpoints (+ optional int8 codec,
+delta saves of the blocks that changed), termination-signal detection,
+optional UDP heartbeats, straggler watchdog, and automatic
+restore-on-restart.  ``--inject-failure N`` simulates a fail-stop at step
+N and recovers.  The model runs on the card unless ``--device cpu``.
+
+SDC guard: ``--scrub``/``--sentinel`` turn on the tier-2/3 detectors,
+``--abft`` routes the projection matmuls through the checksummed kernel
+(tier 1), and ``--inject-bitflip STEP:LEAF:BIT`` flips one state bit
+mid-run to watch detection and rollback:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \
+        --steps 12 --policy every_n --every-n 2 --delta-checkpoint \
+        --full-every 3 --scrub --scrub-fraction 1.0 \
+        --inject-bitflip 5:params.embed.tok:30 --ckpt-dir /tmp/ckpt
 
 The reference's flags that the port does not carry yet raise
-``NotImplementedError`` naming their ROADMAP item: ``--delta-checkpoint``
-and ``--scrub``/``--inject-bitflip`` (item 5), ``--abft`` (item 7), the
-telemetry flags (item 8), ``--data-par``/``--model-par`` > 1 (item 10).
+``NotImplementedError`` naming their ROADMAP item: the telemetry flags
+and ``--policy risk_adjusted`` (item 8), ``--data-par``/``--model-par``
+> 1 (item 10).
 """
 from __future__ import annotations
 
@@ -52,10 +61,6 @@ def build(args):
 def _refuse(args) -> None:
     """The reference's options this slice of the port does not carry."""
     missing = [
-        (args.delta_checkpoint, "--delta-checkpoint", 5),
-        (args.scrub, "--scrub", 5),
-        (bool(args.inject_bitflip), "--inject-bitflip", 5),
-        (args.abft, "--abft", 7),
         (bool(args.telemetry_dir), "--telemetry-dir", 8),
         (bool(args.metrics_snapshot), "--metrics-snapshot", 8),
         (args.telemetry_plane, "--telemetry-plane", 8),
@@ -94,18 +99,27 @@ def main(argv=None) -> int:
     ap.add_argument("--num-nodes", type=int, default=1)
     ap.add_argument("--async-save", action="store_true")
     ap.add_argument("--codec", default=None, choices=[None, "int8"])
-    ap.add_argument("--delta-checkpoint", action="store_true")
-    ap.add_argument("--delta-block", type=int, default=65536)
-    ap.add_argument("--full-every", type=int, default=8)
+    ap.add_argument("--delta-checkpoint", action="store_true",
+                    help="incremental saves: write only blocks whose "
+                         "on-device hash changed since the last checkpoint")
+    ap.add_argument("--delta-block", type=int, default=65536,
+                    help="elements per delta block (multiple of 256)")
+    ap.add_argument("--full-every", type=int, default=8,
+                    help="force a full save every N checkpoints "
+                         "(bounds the delta reference-chain depth)")
     ap.add_argument("--heartbeat", action="store_true")
     ap.add_argument("--inject-failure", type=int, default=0,
                     help="simulate a fail-stop at this step")
-    ap.add_argument("--scrub", action="store_true")
+    ap.add_argument("--scrub", action="store_true",
+                    help="tier-2 SDC: rotating state-checksum scrubber")
     ap.add_argument("--scrub-fraction", type=float, default=0.25)
     ap.add_argument("--sentinel", action="store_true",
                     help="tier-3 SDC: non-finite/loss-spike sentinel")
-    ap.add_argument("--abft", action="store_true")
-    ap.add_argument("--inject-bitflip", default="")
+    ap.add_argument("--abft", action="store_true",
+                    help="tier-1 SDC: checksummed projection matmuls")
+    ap.add_argument("--inject-bitflip", default="",
+                    help="STEP:LEAF:BIT, e.g. 50:params.embed.tok:30 — "
+                         "flip one state bit mid-run (SDC fault model)")
     ap.add_argument("--telemetry-dir", default="")
     ap.add_argument("--metrics-snapshot", default="")
     ap.add_argument("--telemetry-plane", action="store_true")
@@ -125,7 +139,12 @@ def main(argv=None) -> int:
         every_n=args.every_n,
         async_save=args.async_save,
         codec=args.codec,
+        delta_checkpoint=args.delta_checkpoint,
+        delta_block=args.delta_block,
+        full_every=args.full_every,
         heartbeat=args.heartbeat,
+        scrub=args.scrub,
+        scrub_fraction=args.scrub_fraction,
         sentinel=args.sentinel,
         system=SystemModel(node_mtbf_seconds=args.node_mtbf_hours * 3600,
                            num_nodes=args.num_nodes),
@@ -133,7 +152,8 @@ def main(argv=None) -> int:
     dep.register_local_state(data)
 
     step_fn = make_train_step(cfg, microbatches=args.microbatches,
-                              total_steps=args.steps)
+                              total_steps=args.steps,
+                              impl=("abft" if args.abft else None))
     state = init_state(cfg, seed=args.seed, device=device)
     template = state
     if dep.manager.latest_step() is not None:
@@ -145,6 +165,10 @@ def main(argv=None) -> int:
     if args.inject_failure:
         injector = FaultInjector()
         injector.schedule_failstop(args.inject_failure)
+    if args.inject_bitflip:
+        step_s, leaf, bit_s = args.inject_bitflip.split(":")
+        injector = injector or FaultInjector()
+        injector.schedule_bitflip(int(step_s), leaf, int(bit_s))
 
     def on_metrics(step, rec):
         if step % 10 == 0 or step == args.steps:
@@ -159,8 +183,12 @@ def main(argv=None) -> int:
         fault_injector=injector, like=template, on_metrics=on_metrics)
     wall = time.perf_counter() - t0
 
+    n_saves = len(dep.save_history)
+    n_delta = sum(1 for s in dep.save_history if s.kind == "delta")
+    delta_info = (f" ({n_saves - n_delta} full + {n_delta} delta)"
+                  if args.delta_checkpoint else "")
     print(f"[train] {info['status']} in {wall:.1f}s; restarts="
-          f"{info['restarts']}; checkpoints={len(dep.save_history)}; "
+          f"{info['restarts']}; checkpoints={n_saves}{delta_info}; "
           f"young-daly interval={dep.policy.interval_steps()} steps")
     events = [h["event"] for h in info["history"] if "event" in h]
     if events:

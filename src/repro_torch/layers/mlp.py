@@ -1,8 +1,8 @@
-"""Gated / plain MLP blocks (the ABFT projection path waits for the SDC
-tier-1 slice)."""
+"""Gated / plain MLP blocks; ``impl="abft"`` routes the projections
+through the checksummed matmul (SDC tier 1)."""
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -26,13 +26,25 @@ def mlp_init(normal: Callable, d_model: int, d_ff: int,
     return p
 
 
+def dot(x: torch.Tensor, w: torch.Tensor,
+        impl: Optional[str] = None) -> torch.Tensor:
+    """``x @ w``, or with ``impl="abft"`` its checksummed twin: a single
+    corrupted output element is located and corrected in place, at float32
+    compute cost, and the result comes back in x's dtype."""
+    if impl == "abft":
+        from repro_torch.kernels.abft_matmul.ops import abft_dot
+
+        return abft_dot(x, w)
+    return x @ w
+
+
 def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
-              act: str) -> torch.Tensor:
+              act: str, impl: Optional[str] = None) -> torch.Tensor:
     """Weights arrive in the compute dtype (cast once at load)."""
     fn = _act(act)
-    h = x @ params["w_in"]
+    h = dot(x, params["w_in"], impl)
     if act in ("silu", "gelu"):
-        h = fn(x @ params["w_gate"]) * h
+        h = fn(dot(x, params["w_gate"], impl)) * h
     else:
         h = fn(h)
-    return h @ params["w_out"]
+    return dot(h, params["w_out"], impl)

@@ -10,7 +10,10 @@ Modes of ``forward``:
                      weights, blocks stacked as the reference stacks them
                      for ``scan``), cast to the compute dtype inside the
                      autograd graph on every call; each block is
-                     recomputed in the backward.
+                     recomputed in the backward.  ``impl="abft"`` routes
+                     the q/k/v/o and MLP projections through the
+                     checksummed matmul (SDC tier 1); the attention core
+                     stays on the flash kernel.
   ``prefill``      — logits for every position; with ``cache`` (a fresh
                      row from ``init_cache``) the row's k/v/pos are filled
                      in place.
@@ -36,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
-from repro_torch.layers.mlp import mlp_apply, mlp_init
+from repro_torch.layers.mlp import dot, mlp_apply, mlp_init
 from repro_torch.layers.norms import rms_norm
 from repro_torch.layers.rope import apply_rope, make_positions
 from repro_torch.models.base import BIDIR, FULL, LOCAL, ModelConfig
@@ -231,9 +234,11 @@ def _fill_cache(entry: Dict[str, torch.Tensor], k: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def _project(h: torch.Tensor, w: torch.Tensor,
-             bias: Optional[torch.Tensor]) -> torch.Tensor:
+             bias: Optional[torch.Tensor],
+             impl: Optional[str] = None) -> torch.Tensor:
     d, nh, hd = w.shape
-    y = (h @ w.reshape(d, nh * hd)).reshape(h.shape[:-1] + (nh, hd))
+    y = dot(h, w.reshape(d, nh * hd), impl)
+    y = y.reshape(h.shape[:-1] + (nh, hd))
     if bias is not None:
         y = y + bias
     return y
@@ -241,16 +246,17 @@ def _project(h: torch.Tensor, w: torch.Tensor,
 
 def _attn_apply(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig,
                 positions: torch.Tensor, *, entry=None, n_valid: int = 0,
-                pages=None, layer: int = 0, paged=None) -> torch.Tensor:
+                pages=None, layer: int = 0, paged=None,
+                impl: Optional[str] = None) -> torch.Tensor:
     a = p["attn"]
     B, S, _ = x.shape
     scale = cfg.query_scale or None
     window = cfg.window if kind == LOCAL else 0
 
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    q = _project(h, a["wq"], a.get("bq"))
-    k = _project(h, a["wk"], a.get("bk"))
-    v = _project(h, a["wv"], a.get("bv"))
+    q = _project(h, a["wq"], a.get("bq"), impl)
+    k = _project(h, a["wk"], a.get("bk"), impl)
+    v = _project(h, a["wv"], a.get("bv"), impl)
     if kind != BIDIR or cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -273,12 +279,12 @@ def _attn_apply(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig,
             _fill_cache(entry, k, v, n_valid)
 
     H, hd, d = a["wo"].shape
-    o = o.reshape(B, S, H * hd) @ a["wo"].reshape(H * hd, d)
+    o = dot(o.reshape(B, S, H * hd), a["wo"].reshape(H * hd, d), impl)
     if cfg.sandwich_norm:
         o = rms_norm(o, p["ln1_post"], cfg.norm_eps)
     x = x + o
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    m = mlp_apply(p["mlp"], h2, cfg.mlp_act)
+    m = mlp_apply(p["mlp"], h2, cfg.mlp_act, impl)
     if cfg.sandwich_norm:
         m = rms_norm(m, p["ln2_post"], cfg.norm_eps)
     return x + m
@@ -328,14 +334,15 @@ def _train_weights(cfg: ModelConfig,
     return top, layers
 
 
-def _train_block(x, layers, kinds, cfg, positions):
+def _train_block(x, layers, kinds, cfg, positions, impl):
     for p, kind in zip(layers, kinds):
-        x = _attn_apply(p, x, kind, cfg, positions)
+        x = _attn_apply(p, x, kind, cfg, positions, impl=impl)
     return x
 
 
 def _forward_train(cfg: ModelConfig, params: Params,
-                   batch: Dict[str, Any]) -> torch.Tensor:
+                   batch: Dict[str, Any],
+                   impl: Optional[str] = None) -> torch.Tensor:
     top, layers = _train_weights(cfg, params)
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -350,12 +357,12 @@ def _forward_train(cfg: ModelConfig, params: Params,
     # scan body): only each block's input is kept for the backward
     for g in range(0, cfg.num_layers, P_):
         x = checkpoint(_train_block, x, layers[g:g + P_], kinds[g:g + P_],
-                       cfg, positions, use_reentrant=False)
+                       cfg, positions, impl, use_reentrant=False)
     return _logits_out(cfg, top, x)
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
-            mode: str = "prefill", cache=None):
+            mode: str = "prefill", cache=None, impl: Optional[str] = None):
     """Returns (logits, cache); the cache is updated in place.
 
     batch: ``tokens`` (B, S).  ``train`` takes the train state's
@@ -364,10 +371,12 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     which causal attention keeps out of every real position) and only
     those enter the cache.  ``paged_decode`` carries ``lengths`` (R,)
     int32, each row's query position, and ``page_tables`` (R, MPR)
-    int32."""
+    int32.  ``impl="abft"`` (train mode) checksums the projections."""
     _check_kinds(cfg)
     if mode == "train":
-        return _forward_train(cfg, params, batch), None
+        return _forward_train(cfg, params, batch, impl), None
+    if impl is not None:
+        raise ValueError(f"impl={impl!r} applies to train mode only")
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = params["embed"]["tok"][tokens.long()]

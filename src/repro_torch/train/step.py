@@ -8,7 +8,7 @@ same state and batch give the same bits, which fail-stop recovery needs
 (a recovered run equals an uninterrupted one)."""
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,11 +25,13 @@ from repro_torch.tree import leaves, unflatten
 AUX_WEIGHT = 0.01
 
 
-def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
+def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
+            impl: Optional[str] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Causal-LM cross entropy over the padded vocab (padded logits masked
-    to ``NEG_INF``), in float32."""
-    logits, _ = forward(cfg, params, batch, mode="train")
+    to ``NEG_INF``), in float32.  ``impl="abft"``: checksummed
+    projections (SDC tier 1)."""
+    logits, _ = forward(cfg, params, batch, mode="train", impl=impl)
     logits = logits.to(torch.float32)
     v, vp = cfg.vocab_size, cfg.padded_vocab
     if vp > v:
@@ -46,18 +48,21 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]
 def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
                     warmup_steps: int = 100, total_steps: int = 10_000,
                     weight_decay: float = 0.1, clip_norm: float = 1.0,
-                    microbatches: int = 1) -> Callable:
+                    microbatches: int = 1,
+                    impl: Optional[str] = None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch``: ``tokens`` and ``targets`` (B, S), tensors or numpy arrays
     on any device (moved to the state's).  With ``microbatches`` > 1 the
     batch is split along B, the microbatch gradients are summed in order
-    and scaled by ``1 / microbatches``.  The step is functional: it
-    returns a new state and leaves the given one intact."""
+    and scaled by ``1 / microbatches``.  ``impl="abft"`` runs the
+    projection matmuls, forward and backward, through the checksummed
+    kernel.  The step is functional: it returns a new state and leaves
+    the given one intact."""
     lr_fn = cosine_schedule(peak_lr, warmup_steps, total_steps)
 
     def grads_of(params, live, batch):
-        loss, metrics = loss_fn(cfg, params, batch)
+        loss, metrics = loss_fn(cfg, params, batch, impl)
         grads = torch.autograd.grad(loss, live)
         return (loss.detach(), {k: m.detach() for k, m in metrics.items()},
                 list(grads))

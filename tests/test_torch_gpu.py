@@ -12,8 +12,10 @@ Gradients (the backward kernels against autograd of the plain versions)
 are held to 1e-4 (float32) and 2e-2 (bfloat16) of the largest magnitude
 of the plain gradient: they are sums over thousands of terms taken in
 another order, and in bfloat16 the plain version rounds its intermediate
-gradients where the kernels keep float32.  The checkpoint codec is held
-byte for byte.
+gradients where the kernels keep float32.  The checkpoint codec and the
+block hash are held byte for byte; the ABFT matmul (true float32 on the
+CUDA cores) to 1e-4 of the largest magnitude of its float32 plain
+version, bit-equal from call to call.
 """
 import dataclasses
 
@@ -21,6 +23,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.abft_matmul.kernel import abft_matmul_ext
+from repro_torch.kernels.abft_matmul.ops import abft_dot, abft_matmul
+from repro_torch.kernels.abft_matmul.ref import abft_matmul_ref, checksums
+from repro_torch.kernels.block_hash.kernel import hash_leaves
+from repro_torch.kernels.block_hash.ref import block_hashes_ref
 from repro_torch.kernels.ckpt_codec.kernel import (dequantize_blocks,
                                                    quantize_blocks)
 from repro_torch.kernels.ckpt_codec.ref import dequantize_ref, quantize_ref
@@ -328,3 +335,107 @@ def test_autograd_functions_route_to_the_kernels(cuda, dtype):
             flash_attention_bshd_bwd.launches) == \
         (counts[0] + 1, counts[1] + 1)
     assert q.grad is not None and kv.grad is not None
+
+
+HASH_DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.int8,
+               torch.uint8, torch.int32, torch.int64, torch.float64,
+               torch.bool]
+
+
+@pytest.mark.parametrize("block", [7, 256, 65536])
+@pytest.mark.parametrize("n", [1, 255, 4097, 70001])
+def test_block_hash_kernel_is_bit_equal(cuda, n, block):
+    """Every dtype in one grouped launch, with a transposed and an offset
+    view, against the plain version on the card and on the CPU."""
+    rng = np.random.default_rng(n)
+    base = torch.from_numpy(rng.standard_normal(n) * 1000).to(cuda)
+    leaves = [(base > 0) if dt == torch.bool else base.to(dt)
+              for dt in HASH_DTYPES]
+    leaves += [base.reshape(-1, 1).expand(-1, 2).t(), base[1:]]
+    before = hash_leaves.launches
+    h, spans = hash_leaves(leaves, block)
+    assert hash_leaves.launches == before + 1
+    for x, (start, count) in zip(leaves, spans):
+        want = block_hashes_ref(x, block)
+        assert torch.equal(h[start:start + count], want), (x.dtype, block)
+        assert torch.equal(want.cpu(), block_hashes_ref(x.cpu(), block))
+
+
+def test_block_hash_many_leaves_take_several_launches(cuda):
+    """More leaves than one launch's table holds: one launch per 120,
+    every leaf bit-equal; checksums on the card equal the CPU's."""
+    from repro_torch.sdc import checksums
+
+    rng = np.random.default_rng(7)
+    leaves = [_randn(rng, (int(n),), torch.float32, cuda)
+              for n in rng.integers(1, 3000, 250)]
+    before = hash_leaves.launches
+    h, spans = hash_leaves(leaves, 256)
+    assert hash_leaves.launches == before + 3
+    for x, (start, count) in zip(leaves, spans):
+        assert torch.equal(h[start:start + count], block_hashes_ref(x, 256))
+    assert checksums(leaves) == checksums([x.cpu() for x in leaves])
+
+
+def test_scrubber_on_the_card_names_a_flipped_leaf(cuda):
+    from repro_torch.core import FaultInjector
+    from repro_torch.sdc import StateScrubber
+
+    rng = np.random.default_rng(1)
+    state = {"a": _randn(rng, (300, 70), torch.float32, cuda),
+             "b": {"c": _randn(rng, (5000,), torch.bfloat16, cuda)},
+             "step": torch.zeros((), dtype=torch.int32, device=cuda)}
+    scrub = StateScrubber(fraction=1.0)
+    scrub.record(state, 1)
+    assert scrub.verify(state) == []
+    inj = FaultInjector()
+    inj.schedule_bitflip(2, "b.c", 1234)
+    bad = inj.apply_sdc(2, state)
+    assert bad["b"]["c"].device == state["b"]["c"].device
+    assert scrub.verify(bad) == ["b.c"]
+
+
+@pytest.mark.parametrize("M,K,N", [(5, 7, 3), (130, 200, 72),
+                                   (257, 129, 300)])
+@pytest.mark.parametrize("a_dtype,b_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("a_t,b_t", [(False, False), (True, True)])
+def test_abft_kernel_matches_plain(cuda, M, K, N, a_dtype, b_dtype, a_t,
+                                   b_t):
+    rng = np.random.default_rng(M + K + N)
+    a = _randn(rng, (K, M) if a_t else (M, K), a_dtype, cuda)
+    b = _randn(rng, (N, K) if b_t else (K, N), b_dtype, cuda)
+    a, b = (a.t() if a_t else a), (b.t() if b_t else b)   # in-place views
+    a_sum, b_sum = checksums(a, b)
+    c = abft_matmul_ext(a, a_sum, b, b_sum)
+    _close_grad(c, abft_matmul_ref(a, b), 1e-4)
+    assert torch.equal(c, abft_matmul_ext(a, a_sum, b, b_sum))
+
+
+def test_abft_on_the_card_corrects_a_single_error(cuda):
+    rng = np.random.default_rng(2)
+    a = _randn(rng, (200, 300), torch.float32, cuda)
+    b = _randn(rng, (300, 150), torch.float32, cuda)
+    clean, rep = abft_matmul(a, b)
+    assert not bool(rep["detected"])
+    c, rep = abft_matmul(a, b, inject=(17, 99, 40.0))
+    assert bool(rep["detected"]) and bool(rep["corrected"])
+    assert (int(rep["row"]), int(rep["col"])) == (17, 99)
+    _close_grad(c, clean, 1e-5)
+    c, rep = abft_matmul(a, b, inject=(200, 3, 40.0))     # checksum row
+    assert bool(rep["corrected"]) and torch.equal(c, clean)
+
+
+def test_abft_dot_routes_both_contractions_to_the_kernel(cuda):
+    rng = np.random.default_rng(3)
+    x = _randn(rng, (2, 64, 128), torch.bfloat16, cuda).requires_grad_()
+    w = _randn(rng, (128, 96), torch.bfloat16, cuda).requires_grad_()
+    before = abft_matmul_ext.launches
+    y = abft_dot(x, w)
+    y.float().square().sum().backward()
+    assert abft_matmul_ext.launches == before + 3
+    xf, wf = (t.detach().float().requires_grad_() for t in (x, w))
+    (xf @ wf).square().sum().backward()
+    _close_grad(x.grad, xf.grad, 2e-2)
+    _close_grad(w.grad, wf.grad, 2e-2)

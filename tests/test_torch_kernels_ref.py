@@ -10,7 +10,9 @@ gradients of the plain RMSNorm and attention (what the backward kernels
 are held to on the card) match ``jax.grad`` of the reference's within
 1e-4 of their largest magnitude in float32 (sums over many terms, taken
 in another order).  The plain int8 codec gives the bytes of the
-reference's jnp codec reference.
+reference's jnp codec reference; the plain block hash's word view is the
+reference's ``words_view``, and the plain ABFT encode, extended product
+and residuals match the reference's jnp oracle within 2e-5.
 """
 import jax
 import jax.numpy as jnp
@@ -19,6 +21,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.abft_matmul.ref import abft_matmul_ref as jax_abft_ref
+from repro.kernels.abft_matmul.ref import encode_ref as jax_encode_ref
+from repro.kernels.abft_matmul.ref import residuals_ref as jax_residuals_ref
+from repro.kernels.block_hash.ops import words_view as jax_words_view
 from repro.kernels.ckpt_codec.ref import dequantize_ref as jax_dequantize_ref
 from repro.kernels.ckpt_codec.ref import quantize_ref as jax_quantize_ref
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
@@ -27,6 +33,9 @@ from repro.kernels.paged_attention.ops import \
     paged_decode_attention as jax_paged
 from repro.kernels.rmsnorm.ops import rms_norm as jax_rms_norm
 from repro.kernels.rmsnorm.ref import rms_norm_ref as jax_rms_norm_ref
+from repro_torch.kernels.abft_matmul.ref import (abft_matmul_ref,
+                                                 encode_ref, residuals_ref)
+from repro_torch.kernels.block_hash.ref import words_per_element, words_view
 from repro_torch.kernels.ckpt_codec.ref import dequantize_ref, quantize_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -216,3 +225,35 @@ def test_codec_plain_matches_jax_ref(n, dtype):
                             (n,))
     assert np.array_equal(y.numpy().view(np.int32),
                           np.asarray(jy, np.float32).view(np.int32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16", "int8",
+                                   "uint8", "int32"])
+def test_block_hash_words_match_jax(dtype):
+    rng = np.random.default_rng(2)
+    a = rng.standard_normal(777) * 100
+    a = (a.astype(ml_dtypes.bfloat16) if dtype == "bfloat16"
+         else a.astype(dtype))
+    t = (torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+         if dtype == "bfloat16" else torch.from_numpy(a.copy()))
+    got = words_view(t).numpy()
+    want = np.asarray(jax_words_view(jnp.asarray(a))).view(np.uint32)
+    assert np.array_equal(got, want.astype(np.int64))
+    assert words_per_element(t.dtype) == 1
+    assert words_per_element(torch.float64) == 2
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 16, 8), (33, 70, 21)])
+def test_abft_plain_matches_jax_ref(M, K, N):
+    rng = np.random.default_rng(M)
+    a = rng.standard_normal((M, K)).astype(np.float32)
+    b = rng.standard_normal((K, N)).astype(np.float32)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    for got, want in zip(encode_ref(ta, tb),
+                         jax_encode_ref(jnp.asarray(a), jnp.asarray(b))):
+        _close(got, want, 2e-5)
+    full = abft_matmul_ref(ta, tb)
+    _close(full, jax_abft_ref(jnp.asarray(a), jnp.asarray(b)), 2e-5)
+    for got, want in zip(residuals_ref(full),
+                         jax_residuals_ref(jnp.asarray(full.numpy()))):
+        _close(got, want, 2e-4)

@@ -168,10 +168,8 @@ def test_sentinel_rolls_back_a_nonfinite_step(tmp_path):
 
 
 def test_unported_options_are_refused(tmp_path):
-    for kw, item in ((dict(delta_checkpoint=True), "item 5"),
-                     (dict(scrub=True), "item 5")):
-        with pytest.raises(NotImplementedError, match=item):
-            _dep(tmp_path, **kw)
+    # delta saves and the scrubber are ported: the facade takes them
+    _dep(tmp_path, delta_checkpoint=True, scrub=True).stop()
     dep = _dep(tmp_path)
     with pytest.raises(NotImplementedError, match="item 8"):
         dep.attach_obs(object())
@@ -212,11 +210,15 @@ def test_cli_recovers_from_an_injected_failure(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--scrub"], "item 5"), (["--delta-checkpoint"], "item 5"),
-    (["--inject-bitflip", "3:params.embed.tok:1"], "item 5"),
-    (["--abft"], "item 7"), (["--telemetry-plane"], "item 8"),
+    (["--telemetry-dir", "t"], "item 8"),
+    (["--metrics-snapshot", "m.json"], "item 8"),
+    (["--proactive-checkpoint"], "item 8"),
+    (["--policy", "risk_adjusted"], "item 8"),
+    (["--telemetry-plane"], "item 8"),
     (["--data-par", "2"], "item 10")])
 def test_cli_refuses_unported_flags(tmp_path, flag, item):
+    """The reference's flags this port does not carry yet (the SDC flags
+    are ported: tests/test_torch_sdc.py drives them)."""
     out = _cli(flag, tmp_path)
     assert out.returncode != 0
     assert "NotImplementedError" in out.stderr and item in out.stderr
