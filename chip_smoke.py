@@ -107,6 +107,11 @@ BF16_TOL = 2e-2                  # tests/test_kernels.py's bf16 tolerance
 FP32_TOL = 1e-4                  # float32 outputs (RMSNorm rstd, flash LSE)
 # gradients: of the largest magnitude of the plain version's gradient
 GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# the ABFT product: each element within 32 float32 ulps of its absolute
+# mass (|A_ext| @ |B_ext|), which a float32 sum's rounding error scales
+# with.  A TF32 product, an output through bf16 or a dropped K tile lands
+# 10-1000x above it (checked every run, below).
+ABFT_TOL = 32 * 2.0 ** -24
 # the train phase: full width, depth cut to 4 layers (40 layers of float32
 # weights and AdamW moments, 16 B a parameter, do not fit 80 GB)
 TRAIN_LAYERS = 4
@@ -735,16 +740,26 @@ def _abft_checks(label, a, b, c_full):
     return diff.max().item()
 
 
+def _mass_ratio(got, want, mass) -> float:
+    """max |got - want| / mass over the extended product."""
+    return ((got - want).abs() / mass).max().item()
+
+
 def _abft_cases(gen, bw, fp32_flops):
     """One microbatch's MLP ``w_in`` (x @ w, M = 2048 tokens, K = 4096,
     N = 12800, bf16 operands) and its two backward contractions, dx = g @
     w^T and dw = x^T @ g with a float32 g, read through transposed views:
-    C against the plain version (float32 matmul of the extended operands)
-    and the library call (one ``torch.matmul`` of the same extended
-    operands, TF32 off), then the verifier's checks."""
+    every element of C (data, checksum row and column) within ABFT_TOL of
+    its absolute mass of the plain version (float32 matmul of the extended
+    operands), and three wrong products outside it: TF32 (in the checksum
+    row and column even where bf16 operands make the data exact), the
+    plain C through bf16, and the product without its last 32 K terms.
+    Then the library call (one ``torch.matmul`` of the same extended
+    operands, TF32 off) and the verifier's checks."""
     from repro_torch.kernels.abft_matmul.kernel import abft_matmul_ext
     from repro_torch.kernels.abft_matmul.ref import (abft_matmul_ref,
-                                                     checksums, encode_ref)
+                                                     checksums, encode_ref,
+                                                     product_mass)
 
     T, D, F = TRAIN_SEQ, 4096, 12800
     x = torch.randn(T, D, generator=gen, device="cuda").to(torch.bfloat16)
@@ -759,19 +774,40 @@ def _abft_cases(gen, bw, fp32_flops):
                          "(2048, 12800) f32", x.t(), g)):
         a_sum, b_sum = checksums(a, b)
         c_full = abft_matmul_ext(a, a_sum, b, b_sum)
-        err = check_grad(f"abft {label}", c_full, abft_matmul_ref(a, b),
-                         GRAD_TOL[torch.float32])
-        corr_err = _abft_checks(label, a, b, c_full)
+        want = abft_matmul_ref(a, b)
+        mass = product_mass(a, b)
+        if not torch.isfinite(c_full).all() or c_full.shape != want.shape:
+            raise AssertionError(f"abft {label}: shape "
+                                 f"{tuple(c_full.shape)} or non-finite")
+        ratio = _mass_ratio(c_full, want, mass)
+        if not ratio <= ABFT_TOL:
+            raise AssertionError(f"abft {label}: an element is "
+                                 f"{ratio:.3g} of its mass off the plain "
+                                 f"version, beyond {ABFT_TOL:.3g}")
+        err = (c_full - want).abs().max().item()
         a_ext, b_ext = encode_ref(a, b)
         M, K = a.shape
         N = b.shape[1]
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf32 = a_ext @ b_ext
+        torch.backends.cuda.matmul.allow_tf32 = False
+        wrong = {"tf32": tf32,
+                 "bf16_output": want.to(torch.bfloat16).float(),
+                 "last_32_k_dropped": a_ext[:, :K - 32] @ b_ext[:K - 32]}
+        controls = {k: _mass_ratio(v, want, mass) for k, v in wrong.items()}
+        del tf32, wrong
+        if not min(controls.values()) > ABFT_TOL:
+            raise AssertionError(f"abft {label}: a wrong product passes "
+                                 f"the check: {controls}")
+        corr_err = _abft_checks(label, a, b, c_full)
         op_s = 2 * (M + 1) * (N + 1) * K / fp32_flops
         byte_s = ((M + 1) * K * a.element_size() + K * (N + 1)
                   * b.element_size() + (M + 1) * (N + 1) * 4) / bw
         kw = dict(iters=3, reps=3)
         out.append({
             "shape": label, "main": a is x, "max_abs_err": err,
-            "tol": GRAD_TOL[torch.float32],
+            "max_err_of_mass": ratio, "tol_of_mass": ABFT_TOL,
+            "wrong_products_err_of_mass": controls,
             "corrected_element_err": corr_err,
             "kernel_ms": time_ms(lambda: abft_matmul_ext(a, a_sum, b, b_sum),
                                  **kw),
@@ -779,7 +815,7 @@ def _abft_cases(gen, bw, fp32_flops):
             "library_ms": time_ms(lambda: torch.matmul(a_ext, b_ext), **kw),
             "bound_ms": max(op_s, byte_s) * 1e3,
             "bound_by": "operations" if op_s >= byte_s else "bytes"})
-        del c_full, a_ext, b_ext
+        del c_full, want, mass, a_ext, b_ext
         torch.cuda.empty_cache()
     return out
 
@@ -1301,12 +1337,15 @@ def phase_train_tiny_sdc(seed: int):
 
 
 def _manifest_counts(ckpt_dir, step):
-    """(device-encoded shards, delta shards) in ``step``'s manifest."""
+    """(device-encoded shards, leaves a restore decodes on the card) of
+    ``step``'s manifest: a delta shard of a floating leaf is assembled from
+    its coded chain and decoded once, as a coded full shard is."""
     with open(Path(ckpt_dir) / f"step_{step:08d}" / "manifest_h0.json") as f:
-        shards = [sh for e in json.load(f)["arrays"].values()
-                  for sh in e["shards"]]
-    return (sum(1 for sh in shards if "codec" in sh),
-            sum(1 for sh in shards if "delta" in sh))
+        entries = list(json.load(f)["arrays"].values())
+    shards = [(e["dtype"], sh) for e in entries for sh in e["shards"]]
+    return (sum(1 for _, sh in shards if "codec" in sh),
+            sum(1 for dt, sh in shards if "codec" in sh or (
+                "delta" in sh and dt in ("float32", "bfloat16"))))
 
 
 def phase_train_sdc(seed: int):
@@ -1355,7 +1394,7 @@ def phase_train_sdc(seed: int):
         restored = [int(h["step"]) for h in info["history"]
                     if "loss" in h][0] - 1
         quant = sum(_manifest_counts(tmp, st.step)[0] for st in saves)
-        coded, deltas = _manifest_counts(tmp, restored)
+        decoded = _manifest_counts(tmp, restored)[1]
         scrub = dep.scrubber
         # one grouped launch a scrub record (each completed step), a save,
         # and a verification of a recorded window: at the top of every
@@ -1364,7 +1403,7 @@ def phase_train_sdc(seed: int):
         verifies = calls - (info["restarts"] + 1) + len(events)
         want = {**_train_launches(L, TRAIN_MICRO, calls),
                 "paged_attention": 0, "abft_matmul": 0,
-                "ckpt_quantize": quant, "ckpt_dequantize": coded - deltas,
+                "ckpt_quantize": quant, "ckpt_dequantize": decoded,
                 "block_hash": records + verifies + len(saves)}
         if launches != want or min(launches[k] for k in want
                                    if want[k]) <= 0:
@@ -1418,10 +1457,17 @@ def phase_train_sdc(seed: int):
             raise AssertionError(f"frozen state: saves {first} then "
                                  f"{second}, {k} blocks changed")
         del out
+        deq = counters["ckpt_dequantize"]
+        deq.launches = 0
         t0 = time.perf_counter()
         got, _ = mgr.restore(step=2, like=frozen)
         chain_s = time.perf_counter() - t0
+        chain_decodes = deq.launches
         mgr.close()
+        if chain_decodes != _manifest_counts(ddir, 2)[1]:
+            raise AssertionError(
+                f"frozen state: {chain_decodes} dequantize launches in the "
+                f"chain restore, {_manifest_counts(ddir, 2)[1]} coded leaves")
         full = CheckpointManager(str(fdir), device_codec=True)
         full_save = full.save(2, frozen)
         want_state, _ = full.restore(step=2, like=frozen)
@@ -1438,7 +1484,9 @@ def phase_train_sdc(seed: int):
               "delta_hash_ms": second.hash_seconds * 1e3,
               "full_bytes": full_save.bytes_written,
               "full_snapshot_s": full_save.snapshot_seconds,
-              "chain_restore_s": chain_s, "restore_bit_equal": True,
+              "chain_restore_s": chain_s,
+              "chain_dequantize_launches": chain_decodes,
+              "restore_bit_equal": True,
               "checksum_all_leaves_ms": checksum_ms})
         del got, want_state, frozen, tok, named
     finally:
@@ -1451,14 +1499,60 @@ ABFT_LAYERS = 2
 ABFT_STEPS = 3
 
 
+def _abft_grad_check(cfg, params, batch):
+    """Each leaf's gradient of one batch's loss with the ABFT projections
+    (bf16 model) against the plain bf16 model's: relative L2 distance at
+    most twice the plain gradient's own distance from the float32 model's.
+    A wrong dx or dw contraction lands near 1."""
+    import numpy as np
+
+    from repro_torch.device import deterministic_algorithms
+    from repro_torch.train.step import loss_fn
+    from repro_torch.tree import flatten_named, leaves, unflatten
+
+    dev = leaves(params)[0].device
+    batch = {k: torch.from_numpy(np.array(v)).to(dev)
+             for k, v in batch.items()}
+    grads = {}
+    for key, c, impl in (("plain", cfg, None), ("abft", cfg, "abft"),
+                         ("float32", dataclasses.replace(
+                             cfg, dtype=torch.float32), None)):
+        with deterministic_algorithms(dev):
+            live = [p.detach().requires_grad_(True)
+                    for p in leaves(params)]
+            loss, _ = loss_fn(c, unflatten(params, live), batch, impl)
+            grads[key] = [t.detach() for t in torch.autograd.grad(loss,
+                                                                   live)]
+        del live, loss
+    names = [n for n, _ in flatten_named(params)]
+    out = {}
+    for i, name in enumerate(names):
+        ab, pl, f32 = (grads[k][i].double()
+                       for k in ("abft", "plain", "float32"))
+        got = ((ab - pl).norm() / pl.norm()).item()
+        noise = ((pl - f32).norm() / f32.norm()).item()
+        out[name] = {"abft_vs_plain": got, "plain_vs_float32": noise}
+        if not (math.isfinite(got) and got <= 2 * noise):
+            raise AssertionError(f"ABFT gradient of {name}: {got:.3g} off "
+                                 f"the plain one, the bf16 noise is "
+                                 f"{noise:.3g}")
+    del grads
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_train_abft(seed: int):
     """granite-3-8b at full width, ABFT_LAYERS layers, S = TRAIN_SEQ, one
     sequence: ABFT_STEPS steps with ``impl="abft"`` from the state the
     plain steps start from (the main path of the abft_matmul kernel).
-    Each loss within bf16 tolerance of the plain step's, no detection on
-    clean steps, two identical ABFT steps bit-equal, launches held to the
-    path (per layer and step 7 projections: forward, recomputation and
-    two backward contractions)."""
+    First the backward: every leaf's gradient of the first batch through
+    the ABFT projections against the plain bf16 step's, within twice the
+    plain step's own distance from a float32 model's gradient (the bf16
+    noise, measured here).  Then each loss within bf16 tolerance of the
+    plain step's, no detection on clean steps, two identical ABFT steps
+    bit-equal, launches held to the path (per layer and step 7
+    projections: forward, recomputation and two backward
+    contractions)."""
     from repro_torch.data import make_pipeline
     from repro_torch.kernels.abft_matmul.ops import (detections,
                                                      reset_detections)
@@ -1472,6 +1566,12 @@ def phase_train_abft(seed: int):
     state = init_state(cfg, seed=seed, device="cuda")
     data = make_pipeline(cfg, TRAIN_SEQ, 1, seed=seed)
     batches = [data.peek_batch(i) for i in range(ABFT_STEPS)]
+    reset_detections()
+    grad_check = _abft_grad_check(cfg, state["params"], batches[0])
+    found = detections("cuda")
+    if found:
+        raise AssertionError(f"ABFT flagged {found} products of a clean "
+                             "backward")
     runs = {}
     for impl in (None, "abft"):
         step_fn = make_train_step(cfg, total_steps=ABFT_STEPS, impl=impl)
@@ -1514,7 +1614,8 @@ def phase_train_abft(seed: int):
           "seq": TRAIN_SEQ, "batch": 1, "abft_losses": abft[0],
           "plain_losses": plain[0], "abft_step_ms": abft[1],
           "plain_step_ms": plain[1], "detections": found,
-          "identical_steps_bit_equal": True, "launches": launches})
+          "identical_steps_bit_equal": True, "launches": launches,
+          "grads": grad_check})
     del state
     torch.cuda.empty_cache()
     return launches

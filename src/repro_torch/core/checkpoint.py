@@ -62,8 +62,10 @@ number regenerated after a walk-back never resolves a stale chain.
 retained child references it; a corrupt parent invalidates every child
 that references it.  The manifest is the reference's, so a chain written
 by either package restores in the other.  A delta leaf is assembled from
-its chain on the host (an int8 one decoded there), as the reference does.
-Restores onto other shardings wait for ROADMAP item 10.
+its chain on the host; with ``device_codec`` an int8-coded chain is
+assembled still encoded (int8 blocks and fp32 scales in the order a full
+save writes them) and decoded once on the target device, as a full
+restore is.  Restores onto other shardings wait for ROADMAP item 10.
 """
 from __future__ import annotations
 
@@ -164,12 +166,20 @@ def _gather_blocks(data, idx: np.ndarray, block: int):
 
 
 class _Encoded:
-    """A verified int8 payload (q blocks followed by fp32 scales) kept
-    encoded so that it is decoded on its target device."""
+    """A verified int8 leaf kept encoded so that it is decoded on its
+    target device: ``q`` the bytes of its int8 blocks, ``scales`` the bytes
+    of their fp32 scales, ``meta`` the codec's manifest entry."""
 
-    def __init__(self, payload: np.ndarray, meta: Dict[str, Any]):
-        self.payload = payload
+    def __init__(self, q: np.ndarray, scales: np.ndarray,
+                 meta: Dict[str, Any]):
+        self.q = q
+        self.scales = scales
         self.meta = meta
+
+
+class _NotEncoded(Exception):
+    """A link of a delta chain is not int8-coded: the chain cannot be
+    assembled encoded."""
 
 
 class SaveStats:
@@ -701,7 +711,9 @@ class CheckpointManager:
                 raise IOError(f"CRC mismatch in {path}")
         if "codec" in sh:
             if keep_encoded:
-                return _Encoded(payload, sh["codec"])
+                nb = int(sh["codec"]["blocks"])
+                return _Encoded(payload[:nb * 256], payload[nb * 256:],
+                                sh["codec"])
             payload = CODECS[sh["codec"]["name"]].decode(payload, sh["codec"])
         if want == "bfloat16":
             return payload             # raw 2-byte void, viewed on load
@@ -747,29 +759,46 @@ class CheckpointManager:
         raise IOError(f"delta parent step {step} has no shard of {name!r} "
                       f"with spans {spans}")
 
+    def _block_parts(self, final: str, sh: Dict[str, Any], want: str,
+                     encoded: bool) -> List[np.ndarray]:
+        """One shard file as the flat arrays ``_fill_blocks`` copies blocks
+        of: its values; or, ``encoded``, the bytes of its int8 blocks and
+        of their fp32 scales (raises _NotEncoded on a shard without the
+        int8 codec)."""
+        if not encoded:
+            return [self._load_plain(final, sh, want).reshape(-1)]
+        if sh.get("codec", {}).get("name") != "int8":
+            raise _NotEncoded(sh["file"])
+        raw = self._decode_payload(final, sh, want, keep_encoded=True)
+        return [raw.q, raw.scales]
+
     def _fill_blocks(self, step: int, name: str, spans, block: int,
-                     needed: Set[int], out: np.ndarray, want: str,
+                     needed: Set[int], outs: List[np.ndarray],
+                     units: List[int], want: str,
                      man_cache: Dict[int, Dict], depth: int = 0,
                      want_sid: Optional[str] = None) -> None:
         """Copy the requested delta blocks of shard (name, spans) at
-        ``step`` into ``out`` (flat, nblocks * block elements), resolving
-        parent references recursively.  Any missing or corrupt link, or a
-        parent whose lineage id shows it was regenerated, raises IOError:
-        the whole chain is invalidated."""
+        ``step`` into ``outs`` (flat arrays holding ``unit`` elements a
+        delta block: the values, or the int8 blocks' and scales' bytes),
+        resolving parent references recursively.  Any missing or corrupt
+        link, or a parent whose lineage id shows it was regenerated, raises
+        IOError: the whole chain is invalidated."""
         if depth > 64:
             raise IOError(f"delta chain deeper than 64 at step {step} "
                           f"({name!r}): corrupt parent links")
         final = self._final(step)
         sh = self._find_shard(step, name, spans, man_cache, want_sid)
         d = sh.get("delta")
+        encoded = len(outs) == 2        # [int8 block bytes, scale bytes]
         if d is None:               # a full shard terminates the chain
-            flat = self._load_plain(final, sh, want).reshape(-1)
+            srcs = self._block_parts(final, sh, want, encoded)
             for b in needed:
-                seg = flat[b * block:(b + 1) * block]
-                if seg.size == 0:
-                    raise IOError(f"delta block {b} of {name!r} out of "
-                                  f"range in full shard at step {step}")
-                out[b * block:b * block + seg.size] = seg
+                for out, src, u in zip(outs, srcs, units):
+                    seg = src[b * u:(b + 1) * u]
+                    if seg.size == 0:
+                        raise IOError(f"delta block {b} of {name!r} out of "
+                                      f"range in full shard at step {step}")
+                    out[b * u:b * u + seg.size] = seg
             return
         if d["block"] != block:
             raise IOError(f"delta block size changed mid-chain for "
@@ -780,14 +809,15 @@ class CheckpointManager:
             if sh.get("file") is None:
                 raise IOError(f"delta shard of {name!r} at step {step} "
                               "lists local blocks but has no file")
-            flat = self._load_plain(final, sh, want).reshape(-1)
-            if flat.size < len(pos) * block:
-                raise IOError(f"delta shard of {name!r} at step {step} "
-                              f"truncated: {flat.size} < {len(pos) * block}")
+            srcs = self._block_parts(final, sh, want, encoded)
+            for src, u in zip(srcs, units):
+                if src.size < len(pos) * u:
+                    raise IOError(f"delta shard of {name!r} at step {step} "
+                                  f"truncated: {src.size} < {len(pos) * u}")
             for b in here:
                 j = pos[b]
-                out[b * block:(b + 1) * block] = \
-                    flat[j * block:(j + 1) * block]
+                for out, src, u in zip(outs, srcs, units):
+                    out[b * u:(b + 1) * u] = src[j * u:(j + 1) * u]
         rest = needed.difference(here)
         if not rest:
             return
@@ -803,22 +833,37 @@ class CheckpointManager:
                               f"step {step}: corrupt manifest")
             byp.setdefault(pmap[b], set()).add(b)
         for s, bs in sorted(byp.items()):
-            self._fill_blocks(s, name, spans, block, bs, out, want,
+            self._fill_blocks(s, name, spans, block, bs, outs, units, want,
                               man_cache, depth + 1,
                               want_sid=sids.get(str(s)))
 
     def _assemble_delta(self, step: int, name: str, entry: Dict[str, Any],
-                        sh: Dict[str, Any],
-                        man_cache: Dict[int, Dict]) -> np.ndarray:
+                        sh: Dict[str, Any], man_cache: Dict[int, Dict],
+                        encoded: bool = False):
+        """A delta shard's values through its chain; or, ``encoded``, its
+        int8 blocks and scales in a full save's order (every delta block
+        is a whole number of 256-element codec blocks), as ``_Encoded``."""
         d = sh["delta"]
         block, nb, size = d["block"], d["nblocks"], d["size"]
         want = entry["dtype"]
-        out = np.zeros(nb * block, dtype=(np.dtype("V2")
-                                          if want == "bfloat16"
-                                          else np.dtype(want)))
+        if encoded:
+            per = block // 256
+            outs = [np.zeros(nb * block, np.uint8),
+                    np.zeros(nb * per * 4, np.uint8)]
+            units = [block, per * 4]
+        else:
+            outs = [np.zeros(nb * block, dtype=(np.dtype("V2")
+                                                if want == "bfloat16"
+                                                else np.dtype(want)))]
+            units = [block]
         self._fill_blocks(step, name, sh["spans"], block, set(range(nb)),
-                          out, want, man_cache)
-        return out[:size]
+                          outs, units, want, man_cache)
+        if not encoded:
+            return outs[0][:size]
+        ncb = -(-size // 256)       # the full save's codec blocks
+        return _Encoded(outs[0][:ncb * 256], outs[1][:ncb * 4],
+                        {"shape": [b - a for a, b in sh["spans"]],
+                         "pad": ncb * 256 - size, "blocks": ncb})
 
     def _load_shard(self, step: int, name: str, entry: Dict[str, Any],
                     sh: Dict[str, Any],
@@ -837,10 +882,17 @@ class CheckpointManager:
         shape = tuple(entry["shape"])
         want = entry["dtype"]
         shards = self._check_tiling(name, shape, entry["shards"])
-        if (keep_encoded and len(shards) == 1 and "codec" in shards[0]
-                and "delta" not in shards[0]):
-            return self._decode_payload(self._final(step), shards[0], want,
-                                        keep_encoded=True)
+        if keep_encoded and len(shards) == 1:
+            sh = shards[0]
+            if "delta" in sh:
+                try:
+                    return self._assemble_delta(step, name, entry, sh,
+                                                man_cache, encoded=True)
+                except _NotEncoded:
+                    pass            # a raw link: assemble the values
+            elif "codec" in sh:
+                return self._decode_payload(self._final(step), sh, want,
+                                            keep_encoded=True)
         if parallel and len(shards) > 1:
             payloads = self._engine.read_many(
                 [functools.partial(self._load_shard, step, name, entry, sh,
@@ -867,9 +919,10 @@ class CheckpointManager:
         want = entry["dtype"]
         if isinstance(raw, _Encoded):
             nb = int(raw.meta["blocks"])
-            buf = torch.from_numpy(raw.payload).to(device or "cpu")
-            q = buf[:nb * 256].view(torch.int8).reshape(nb, 256)
-            scales = buf[nb * 256:].view(torch.float32)
+            q = torch.from_numpy(raw.q).to(device or "cpu").view(
+                torch.int8).reshape(nb, 256)
+            scales = torch.from_numpy(raw.scales).to(device or "cpu").view(
+                torch.float32)
             out = self._dcodec.decode(q, scales, tuple(raw.meta["shape"]))
             out = out.to(_FROM_NAME[want])
             return out if device is not None else _to_numpy(out)

@@ -40,6 +40,15 @@ def abft_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a_ext @ b_ext
 
 
+def product_mass(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|A_ext| @ |B_ext| (M+1, N+1) float32: each extended-product
+    element's absolute mass.  A float32 sum's rounding error scales with
+    it, not with the element (which cancellation can make small), so a
+    check of the product is held to a multiple of it."""
+    a_ext, b_ext = encode_ref(a, b)
+    return a_ext.abs() @ b_ext.abs()
+
+
 def residuals_ref(c_full: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Row/column checksum residuals of an extended product:

@@ -1,11 +1,11 @@
 """Public block-hash entry: arbitrary leaves -> per-block uint32 hashes
-(as int32 bits).  A CPU tensor takes the plain version, a CUDA tensor the
+on the host.  A CPU tensor takes the plain version, a CUDA tensor the
 kernel; anything else raises.
 
-``batched_block_hashes`` is the save and scrub path: every CUDA leaf of
-one device is hashed in ONE launch (the reference's single jitted
-dispatch), and ``host_block_hashes`` brings all of them to the host in
-ONE copy."""
+``host_block_hashes`` is the one entry, of delta saves and of the
+scrubber alike: every CUDA leaf of one device is hashed in ONE launch
+(the reference's single jitted dispatch of ``batched_block_hashes``) and
+the hashes come to the host in ONE copy."""
 from __future__ import annotations
 
 from typing import Dict, List, Sequence, Tuple
@@ -17,16 +17,7 @@ from repro_torch.kernels.block_hash.kernel import hash_leaves
 from repro_torch.kernels.block_hash.ref import (BLOCK_ELEMS,
                                                 block_hashes_ref)
 
-__all__ = ["BLOCK_ELEMS", "block_hashes", "batched_block_hashes",
-           "host_block_hashes"]
-
-
-def block_hashes(x: torch.Tensor,
-                 block_elems: int = BLOCK_ELEMS) -> torch.Tensor:
-    """x: any shape/dtype -> (NB,) int32 hash bits on x's device."""
-    if x.device.type == "cpu":
-        return block_hashes_ref(x, block_elems)
-    return hash_leaves([x], block_elems)[0]
+__all__ = ["BLOCK_ELEMS", "host_block_hashes"]
 
 
 def _hashed(leaves: Sequence[torch.Tensor], block_elems: int
@@ -48,18 +39,11 @@ def _hashed(leaves: Sequence[torch.Tensor], block_elems: int
     return out
 
 
-def batched_block_hashes(leaves: Sequence[torch.Tensor],
-                         block_elems: int = BLOCK_ELEMS
-                         ) -> List[torch.Tensor]:
-    """Block hashes of many leaves: one kernel launch per CUDA device for
-    all of that device's leaves, the plain version for CPU leaves."""
-    return [h[s:s + n] for h, s, n in _hashed(leaves, block_elems)]
-
-
 def host_block_hashes(leaves: Sequence[torch.Tensor],
                       block_elems: int = BLOCK_ELEMS) -> List[np.ndarray]:
-    """``batched_block_hashes`` brought to the host as uint32 numpy
-    arrays: one launch and one device-to-host copy per device."""
+    """Block hashes of many leaves as uint32 numpy arrays: the plain
+    version for CPU leaves; one kernel launch and one device-to-host copy
+    per CUDA device for all of that device's leaves."""
     host: Dict[int, np.ndarray] = {}
     out = []
     for h, s, n in _hashed(leaves, block_elems):

@@ -99,7 +99,3 @@ def block_hashes_np(arr: np.ndarray,
     # uint32 multiply/accumulate wraps mod 2^32 silently: exactly the hash
     return (w.reshape(-1, width) * weights).sum(axis=1, dtype=np.uint32)
 
-
-def checksum_np(arr: np.ndarray, block_elems: int = BLOCK_ELEMS) -> int:
-    """Whole-leaf checksum == uint32 sum of block_hashes_np."""
-    return int(block_hashes_np(arr, block_elems).sum(dtype=np.uint32))

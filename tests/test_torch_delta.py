@@ -154,12 +154,21 @@ def test_delta_chains_cross_restore_bit_exactly(tmp_path, mode):
             _assert_same(t_own, _torch(st))
 
 
-def test_device_codec_chain_matches_the_host_codec(tmp_path):
+def test_device_codec_chain_matches_the_host_codec(tmp_path, monkeypatch):
     """Dirty blocks quantized on the tensor's device restore through the
     chain to the bits of a full device-codec save of the same state, the
     float32 leaves to those of a full host-int8 save (``Int8BlockCodec``,
     the on-disk contract; the host codec leaves bfloat16 raw), and the
-    reference reads the port's chain to the same bits."""
+    reference reads the port's chain to the same bits.  Every coded leaf
+    of a chain is assembled encoded and decoded once by the device codec
+    (the dequantize kernel on the card), never by the host codec."""
+    from repro_torch.core.codec import DeviceCodec, Int8BlockCodec
+
+    decodes = []
+    dev_decode = DeviceCodec.decode
+    monkeypatch.setattr(DeviceCodec, "decode", lambda self, q, s, shape: (
+        decodes.append(tuple(shape)), dev_decode(self, q, s, shape))[1])
+    host_decode = Int8BlockCodec.decode
     states = _states()
     tdir = str(tmp_path / "torch")
     stats = _write(CheckpointManager, tdir, states, _torch,
@@ -174,8 +183,12 @@ def test_device_codec_chain_matches_the_host_codec(tmp_path):
         oracle = JaxManager(odir, codec="int8", fsync="none")
         oracle.save(s, _jax(st))
         oracle.close()
+        decodes.clear()
+        monkeypatch.setattr(Int8BlockCodec, "decode", None)
         got, _ = CheckpointManager(tdir, device_codec=True).restore(
             step=s, like=like)
+        monkeypatch.setattr(Int8BlockCodec, "decode", host_decode)
+        assert sorted(decodes) == [(40, 100), (3000,)], s
         _assert_same(got, CheckpointManager(fdir, device_codec=True)
                      .restore(step=s, like=like)[0])
         want, _ = JaxManager(odir, codec="int8").restore(step=s)

@@ -25,7 +25,8 @@ import torch
 
 from repro_torch.kernels.abft_matmul.kernel import abft_matmul_ext
 from repro_torch.kernels.abft_matmul.ops import abft_dot, abft_matmul
-from repro_torch.kernels.abft_matmul.ref import abft_matmul_ref, checksums
+from repro_torch.kernels.abft_matmul.ref import (abft_matmul_ref, checksums,
+                                                 encode_ref, product_mass)
 from repro_torch.kernels.block_hash.kernel import hash_leaves
 from repro_torch.kernels.block_hash.ref import block_hashes_ref
 from repro_torch.kernels.ckpt_codec.kernel import (dequantize_blocks,
@@ -395,6 +396,14 @@ def test_scrubber_on_the_card_names_a_flipped_leaf(cuda):
     assert scrub.verify(bad) == ["b.c"]
 
 
+# an ABFT product element within 32 float32 ulps of its absolute mass
+ABFT_TOL = 32 * 2.0 ** -24
+
+
+def _of_mass(got, want, a, b):
+    return ((got - want).abs() / product_mass(a, b)).max().item()
+
+
 @pytest.mark.parametrize("M,K,N", [(5, 7, 3), (130, 200, 72),
                                    (257, 129, 300)])
 @pytest.mark.parametrize("a_dtype,b_dtype", [
@@ -409,8 +418,24 @@ def test_abft_kernel_matches_plain(cuda, M, K, N, a_dtype, b_dtype, a_t,
     a, b = (a.t() if a_t else a), (b.t() if b_t else b)   # in-place views
     a_sum, b_sum = checksums(a, b)
     c = abft_matmul_ext(a, a_sum, b, b_sum)
-    _close_grad(c, abft_matmul_ref(a, b), 1e-4)
+    assert _of_mass(c, abft_matmul_ref(a, b), a, b) <= ABFT_TOL
     assert torch.equal(c, abft_matmul_ext(a, a_sum, b, b_sum))
+
+
+def test_abft_check_rejects_a_tf32_product(cuda):
+    """The bound above holds float32 accuracy: a TF32 product of the
+    same extended operands falls outside it."""
+    rng = np.random.default_rng(4)
+    a = _randn(rng, (257, 1024), torch.float32, cuda)
+    b = _randn(rng, (1024, 300), torch.float32, cuda)
+    a_ext, b_ext = encode_ref(a, b)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = a_ext @ b_ext
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert _of_mass(tf32, abft_matmul_ref(a, b), a, b) > ABFT_TOL
 
 
 def test_abft_on_the_card_corrects_a_single_error(cuda):

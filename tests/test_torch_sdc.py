@@ -44,12 +44,10 @@ from repro.train import make_train_step as jax_make_train_step
 from repro_torch.core import (Dependability, DependabilityConfig,
                               FaultInjector, run_with_recovery)
 from repro_torch.core.failures import flip_bit
-from repro_torch.kernels.block_hash.ops import (batched_block_hashes,
-                                                block_hashes,
-                                                host_block_hashes)
+from repro_torch.kernels.block_hash.ops import host_block_hashes
 from repro_torch.kernels.block_hash.ref import (block_hashes_np as
                                                 port_block_hashes_np)
-from repro_torch.kernels.block_hash.ref import checksum_ref
+from repro_torch.kernels.block_hash.ref import block_hashes_ref, checksum_ref
 from repro_torch.models import get_config, state_from_jax
 from repro_torch.sdc import StateScrubber, checksums, leaf_checksum
 from repro_torch.train import make_train_step
@@ -87,9 +85,10 @@ def _leaf(dtype, n, seed=0):
 def test_block_hashes_match_reference(dtype, n, block):
     a, t = _leaf(dtype, n)
     want = block_hashes_np(a, block)
-    got = block_hashes(t, block)
+    got = block_hashes_ref(t, block)
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy().view(np.uint32), want)
+    assert np.array_equal(host_block_hashes([t], block)[0], want)
     assert np.array_equal(port_block_hashes_np(a, block), want)
     if dtype in JAX_DTYPES:
         jh = jax_block_hashes(jnp.asarray(a), block, use_kernel=False)
@@ -103,8 +102,7 @@ def test_block_hashes_match_reference_kernel(dtype):
     a, t = _leaf(dtype, 3000)
     jh = jax_block_hashes(jnp.asarray(a), 1024, use_kernel=True,
                           interpret=True)
-    assert np.array_equal(block_hashes(t, 1024).numpy().view(np.uint32),
-                          np.asarray(jh))
+    assert np.array_equal(host_block_hashes([t], 1024)[0], np.asarray(jh))
 
 
 def test_batched_hashes_and_noncontiguous_leaves():
@@ -115,8 +113,6 @@ def test_batched_hashes_and_noncontiguous_leaves():
               torch.arange(5, dtype=torch.int64), torch.zeros(0)]
     want = [block_hashes_np(np.ascontiguousarray(x.numpy()), 256)
             for x in leaves]
-    for got, w in zip(batched_block_hashes(leaves, 256), want):
-        assert np.array_equal(got.numpy().view(np.uint32), w)
     for got, w in zip(host_block_hashes(leaves, 256), want):
         assert got.dtype == np.uint32 and np.array_equal(got, w)
 
@@ -129,7 +125,7 @@ def test_hashes_and_abft_refuse_other_devices():
 
     m = torch.device("meta")
     with pytest.raises(ValueError, match="CUDA"):
-        block_hashes(torch.empty(300, device=m))
+        host_block_hashes([torch.empty(300, device=m)])
     with pytest.raises(ValueError, match="CUDA"):
         abft_matmul(torch.empty(4, 8, device=m), torch.empty(8, 3, device=m))
 
