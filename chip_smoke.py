@@ -65,9 +65,29 @@ ends the run with a non-zero exit code and no result line:
                  sequence: 3 steps with ``impl="abft"`` against 3 plain
                  steps from the same state (losses within bf16
                  tolerance), no detection on clean steps, two identical
-                 ABFT steps bit-equal, launches held to the path.
+                 ABFT steps bit-equal, launches held to the path;
+12. ``tiny-ssm`` — tiny falcon-mamba in float32 served through
+                 ``ServeEngine``'s slot pool on the card (kernels) and on
+                 the CPU (plain versions): the greedy streams agree token
+                 for token; then on the card, prefill(p) followed by k
+                 decode steps gives the logits and state of prefill(p +
+                 generated) within 1e-4 of the largest magnitude;
+13. ``serve-ssm`` — falcon-mamba-7b at full width and depth (64 layers,
+                 bf16, random weights from ``--seed``; the granite weights
+                 are freed first) on 2 replicas of 4 slots sharing one set
+                 of weights, the serve phase's 8 prompts and 32 new
+                 tokens, fault-free and with replica 1 killed at engine
+                 step 5: nothing dropped, streams identical, the sentinel
+                 quiet fault-free (its entropy printed), launches held to
+                 the path (a scan a layer a prefill, 65 RMSNorms a model
+                 call, no attention); then ``steps-ssm``, one decode step
+                 over the 4 slots and one 200-token prefill, eager against
+                 device time.
 
-The kernel phase also holds block_hash bit-equal to its plain version
+The kernel phase also holds selective_scan to its plain version within
+1e-5 + 1e-5 |want| (tests/test_kernels.py) at the serve shape (B 1,
+S 256, Di 8192, N 16) with h0 zero and random, a ragged S, B 2 and N 4,
+and block_hash bit-equal to its plain version
 (the embed leaf, every element size, a ragged leaf, one grouped launch
 over the full-width train state) and abft_matmul to its float32 plain
 version at one microbatch's ``w_in`` and its two backward contractions,
@@ -75,13 +95,14 @@ with the verifier's checks (a single error corrected, a checksum hit
 leaving the data intact, two errors detected and not corrected).
 
 Then the kernels summary (one JSON object, launches by path: serve,
-train, sdc, abft), the ``nvidia-smi`` line, and the last line
+train, sdc, abft, serve_ssm), the ``nvidia-smi`` line, and the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -105,6 +126,8 @@ PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
 FP32_PEAKS = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100 SXM": 67e12}
 BF16_TOL = 2e-2                  # tests/test_kernels.py's bf16 tolerance
 FP32_TOL = 1e-4                  # float32 outputs (RMSNorm rstd, flash LSE)
+SCAN_TOL = 1e-5                  # tests/test_kernels.py's selective-scan tolerance
+SFU_PER_CLOCK = 16               # exponentials a clock on each SM (Hopper)
 # gradients: of the largest magnitude of the plain version's gradient
 GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # the ABFT product: each element within 32 float32 ulps of its absolute
@@ -151,6 +174,8 @@ KERNELS = {
                    "src/repro/kernels/block_hash/kernel.py:59"),
     "abft_matmul": ("csrc/abft_matmul.cu",
                     "src/repro/kernels/abft_matmul/kernel.py:36"),
+    "selective_scan": ("csrc/selective_scan.cu",
+                       "src/repro/kernels/selective_scan/kernel.py:52"),
 }
 
 
@@ -820,6 +845,76 @@ def _abft_cases(gen, bw, fp32_flops):
     return out
 
 
+def sfu_rate() -> float:
+    """Exponentials a second the card's special-function units can give:
+    SFU_PER_CLOCK on each SM at the SM's maximum clock (nvidia-smi)."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * SFU_PER_CLOCK * float(mhz) * 1e6
+
+
+def _scan_inputs(gen, B, S, Di, N, h0_zero):
+    """tests/test_kernels.py's draws: x, B, C ~ N(0, 1), dt =
+    softplus(N(0, 1)) / 10, A = -exp(N(0, 1) / 5), h0 ~ N(0, 1) / 10."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    x = randn(B, S, Di)
+    dt = torch.nn.functional.softplus(randn(B, S, Di)) * 0.1
+    bm, cm = randn(B, S, N), randn(B, S, N)
+    a = -torch.exp(randn(Di, N) * 0.2)
+    h0 = randn(B, Di, N) * 0.1
+    if h0_zero:
+        h0 = torch.zeros_like(h0)
+    return x, dt, bm, cm, a, h0
+
+
+def _scan_cases(gen, bw, fp32_flops, sfu):
+    from repro_torch.kernels.selective_scan.kernel import \
+        selective_scan_kernel
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+
+    out = []
+    # the serve path's prefill (B 1, S 256, falcon-mamba-7b's Di and N)
+    # with a fresh and a carried state, a ragged S, two rows, the tiny N
+    for B, S, Di, N, h0_zero in ((1, 256, 8192, 16, True),
+                                 (1, 256, 8192, 16, False),
+                                 (1, 200, 8192, 16, False),
+                                 (2, 256, 8192, 16, False),
+                                 (1, 256, 128, 4, False)):
+        args = _scan_inputs(gen, B, S, Di, N, h0_zero)
+        y, h = selective_scan_kernel(*args)
+        yr, hr = selective_scan_ref(*args)
+        label = f"selective_scan B={B} S={S} Di={Di} N={N}"
+        err = max(check_close(label + " y", y, yr, SCAN_TOL),
+                  check_close(label + " h_last", h, hr, SCAN_TOL))
+        io_bytes = 4 * (3 * B * S * Di + 2 * B * S * N + Di * N
+                        + 2 * B * Di * N)
+        exps = B * S * Di * N
+        # per (t, d, n): dt*A, the decay's multiply-add, dx*B, C*h summed;
+        # per (t, d): dt*x
+        flop = 6 * exps + B * S * Di
+        by_ops = max(exps / sfu, flop / fp32_flops)
+        by_bytes = io_bytes / bw
+        out.append({
+            "shape": f"B={B} S={S} Di={Di} N={N} fp32 h0="
+                     + ("0" if h0_zero else "random"),
+            "main": (B, S, Di, N, h0_zero) == (1, 256, 8192, 16, True),
+            "max_abs_err": err, "tol": SCAN_TOL,
+            "kernel_ms": time_ms(lambda: selective_scan_kernel(*args)),
+            "plain_ms": time_ms(lambda: selective_scan_ref(*args), iters=2,
+                                reps=3),
+            "library_ms": None,
+            "bound_ms": max(by_ops, by_bytes) * 1e3,
+            "bound_by": "operations" if by_ops > by_bytes else "bytes",
+            "bytes_ms": by_bytes * 1e3, "exp_ms": exps / sfu * 1e3,
+            "fp32_ms": flop / fp32_flops * 1e3})
+    return out
+
+
 def phase_kernels(seed: int, bw: float, flops: float, fp32_flops: float):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -833,7 +928,9 @@ def phase_kernels(seed: int, bw: float, flops: float, fp32_flops: float):
                                                        fp32_flops),
                "ckpt_quantize": quant, "ckpt_dequantize": dequant,
                "block_hash": _block_hash_cases(gen, bw, seed),
-               "abft_matmul": _abft_cases(gen, bw, fp32_flops)}
+               "abft_matmul": _abft_cases(gen, bw, fp32_flops),
+               "selective_scan": _scan_cases(gen, bw, fp32_flops,
+                                             sfu_rate())}
     for name, cases in results.items():
         for case in cases:
             emit({"phase": "kernel", "name": name, **case})
@@ -881,14 +978,22 @@ def _serve(cfg, params, prompts, gen_len, device, *, kill=False,
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         reps = list(eng.router.replicas.values())
-        for rep in reps:
-            ok, why = rep.pool.audit()
-            if not ok:
-                raise AssertionError(f"replica {rep.id} pool audit: {why}")
-        cons = eng.page_conservation()
-        if (cons["pages_free"] + cons["pages_held"] != cons["pages_total"]
-                or not cons["refs_ok"]):
-            raise AssertionError(f"page conservation broken: {cons}")
+        if eng.paged:
+            for rep in reps:
+                ok, why = rep.pool.audit()
+                if not ok:
+                    raise AssertionError(f"replica {rep.id} pool audit: "
+                                         f"{why}")
+            cons = eng.page_conservation()
+            if (cons["pages_free"] + cons["pages_held"]
+                    != cons["pages_total"] or not cons["refs_ok"]):
+                raise AssertionError(f"page conservation broken: {cons}")
+        else:
+            held = {rep.id: rep.pool.active_slots for rep in reps
+                    if rep.pool.free_count != rep.pool.num_slots}
+            if held:
+                raise AssertionError(f"slots still held after the run: "
+                                     f"{held}")
         failures = [e for e in eng.events if e["event"] == "replica_failed"]
         lat = eng.request_latencies()
         return {
@@ -898,7 +1003,10 @@ def _serve(cfg, params, prompts, gen_len, device, *, kill=False,
             "failures": failures, "wall": wall, "latencies": lat,
             "prefills": sum(r.prefills for r in reps),
             "decode_calls": sum(r.steps for r in reps),
-            "prefix_hits": sum(r.pool.prefix_hits for r in reps),
+            "prefix_hits": (sum(r.pool.prefix_hits for r in reps)
+                            if eng.paged else 0),
+            "entropy_ema": [r.sentinel.entropy_ema for r in reps
+                            if r.sentinel is not None],
         }
     finally:
         eng.shutdown()
@@ -945,6 +1053,8 @@ def _counters():
         paged_attention_rhd
     from repro_torch.kernels.rmsnorm.kernel import (rms_norm_2d,
                                                     rms_norm_2d_bwd)
+    from repro_torch.kernels.selective_scan.kernel import \
+        selective_scan_kernel
 
     return {"rmsnorm": rms_norm_2d, "flash_attention": flash_attention_bshd,
             "paged_attention": paged_attention_rhd,
@@ -952,7 +1062,8 @@ def _counters():
             "flash_attention_bwd": flash_attention_bshd_bwd,
             "ckpt_quantize": quantize_blocks,
             "ckpt_dequantize": dequantize_blocks,
-            "block_hash": hash_leaves, "abft_matmul": abft_matmul_ext}
+            "block_hash": hash_leaves, "abft_matmul": abft_matmul_ext,
+            "selective_scan": selective_scan_kernel}
 
 
 def phase_serve(seed: int):
@@ -965,7 +1076,8 @@ def phase_serve(seed: int):
     init_s = time.perf_counter() - t0
     prompts = _prompts(cfg.vocab_size, seed, PROMPT_LENS)
     counters = {k: fn for k, fn in _counters().items()
-                if k in ("rmsnorm", "flash_attention", "paged_attention")}
+                if k in ("rmsnorm", "flash_attention", "paged_attention",
+                         "selective_scan")}
     L = cfg.num_layers
     runs = {}
     for label, kill in (("fault_free", False), ("replica_kill", True)):
@@ -976,8 +1088,10 @@ def phase_serve(seed: int):
         want = {"rmsnorm": (2 * L + 1) * (res["prefills"]
                                           + res["decode_calls"]),
                 "flash_attention": L * res["prefills"],
-                "paged_attention": L * res["decode_calls"]}
-        if launches != want or min(launches.values()) <= 0:
+                "paged_attention": L * res["decode_calls"],
+                "selective_scan": 0}
+        if launches != want or min(v for k, v in launches.items()
+                                   if want[k]) <= 0:
             raise AssertionError(f"{label}: launches {launches}, the path "
                                  f"implies {want}")
         if res["dropped"] or None in res["streams"]:
@@ -1022,20 +1136,23 @@ def phase_serve(seed: int):
     return runs["fault_free"][1]
 
 
-def phase_steps(cfg, params, seed: int, calls: int = 10):
-    """Where a serve step's time goes: one decode step (``MAX_ACTIVE``
-    rows) and one padded prefill of a 200-token prompt
+def phase_steps(cfg, params, seed: int, calls: int = 10,
+                rows: int = MAX_ACTIVE, phase: str = "steps"):
+    """Where a serve step's time goes: one decode step (``rows`` rows) and
+    one prefill of a 200-token prompt, padded for an attention stack
     (``launch/profile_steps.serve_steps``), each run eagerly and ended by
     a synchronize as the engine runs it (host clock), and captured in a
     CUDA graph (device time alone).  The difference is the host's share:
     Python, dispatch and the launches the card waits for."""
     from repro_torch.launch.profile_steps import serve_steps
+    from repro_torch.serve.engine import _supports_paging
 
     steps = serve_steps(cfg, params, device="cuda", seed=seed,
-                        max_active=MAX_ACTIVE, page_size=PAGE_SIZE,
+                        max_active=rows, page_size=PAGE_SIZE,
                         max_len=MAX_LEN, prompt_len=200)
-    out = {"phase": "steps", "decode_rows": MAX_ACTIVE,
-           "prefill_tokens": 200, "prefill_padded_to": MAX_LEN}
+    out = {"phase": phase, "arch": cfg.name, "decode_rows": rows,
+           "prefill_tokens": 200,
+           "prefill_padded_to": MAX_LEN if _supports_paging(cfg) else 200}
     with torch.no_grad():
         for name, fn in steps.items():
             fn()
@@ -1050,6 +1167,165 @@ def phase_steps(cfg, params, seed: int, calls: int = 10):
                         f"{name}_device_ms": device,
                         f"{name}_host_share": 1.0 - device / eager})
     emit(out)
+
+
+SSM_SLOTS = 4
+
+
+def _ssm_consistency(cfg, params, prompt, stream, tol=FP32_TOL):
+    """prefill(prompt) then one decode step a generated token against the
+    row must give the logits (at every position) and the conv and scan
+    state of prefill(prompt + generated): the kernel's h_last and the
+    decode step held to each other.  Returns the largest error as a
+    fraction of the largest magnitude."""
+    from repro_torch.models import forward, init_cache
+
+    def prefill(tokens):
+        row = init_cache(cfg, 1, 0, "cuda")
+        logits, row = forward(cfg, params, {"tokens": torch.tensor(
+            [tokens], device="cuda")}, mode="prefill", cache=row)
+        return logits[0], row
+
+    with torch.no_grad():
+        got, row = prefill(prompt)
+        got = [got]
+        for tok in stream[:-1]:
+            logits, row = forward(cfg, params, {"tokens": torch.tensor(
+                [[tok]], device="cuda")}, mode="decode", cache=row)
+            got.append(logits[0])
+        want, want_row = prefill(list(prompt) + list(stream[:-1]))
+    worst = 0.0
+    pairs = [("logits", torch.cat(got), want)] + [
+        (f"layer {i} {n}", row["layers"][i][n], want_row["layers"][i][n])
+        for i in range(cfg.num_layers) for n in ("conv", "h")]
+    for name, a, b in pairs:
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        if not err <= tol * max(scale, 1e-30):
+            raise AssertionError(f"tiny-ssm consistency: {name} error "
+                                 f"{err:.3g} beyond {tol} of {scale:.3g}")
+        worst = max(worst, err / max(scale, 1e-30))
+    return worst
+
+
+def phase_tiny_ssm(seed: int):
+    """The Mamba serving path on the card against the plain versions on
+    the CPU: tiny falcon-mamba in float32 through the slot pool, one set
+    of weights on both; then prefill + decode against one long prefill."""
+    from repro_torch.models import get_config, init_params
+
+    scan = _counters()["selective_scan"]
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b", tiny=True),
+                              dtype=torch.float32)
+    cpu = init_params(cfg, seed=seed, device="cpu")
+    gpu = _tree_to(cpu, "cuda")
+    # the three lengths, and prompts of 1 and 2 tokens (the one-token
+    # prompt takes the single-step branch; 2 < W - 1 keeps zero padding
+    # in the conv state)
+    prompts = _prompts(cfg.vocab_size, seed, (16, 24, 32)) + [[7], [3, 9]]
+    kw = dict(replicas=1, max_len=48, slots=SSM_SLOTS)
+    want = _serve(cfg, cpu, prompts, 8, "cpu", **kw)
+    scan.launches = 0
+    got = _serve(cfg, gpu, prompts, 8, "cuda", **kw)
+    if got["streams"] != want["streams"] or None in got["streams"]:
+        raise AssertionError(f"tiny float32 Mamba streams differ between "
+                             f"the card and the CPU:\n{got['streams']}\n"
+                             f"{want['streams']}")
+    multi = sum(len(p) > 1 for p in prompts)
+    served = scan.launches
+    if served != cfg.num_layers * multi:
+        raise AssertionError(f"tiny-ssm: {served} scan launches for "
+                             f"{multi} multi-token prefills")
+    err = max(_ssm_consistency(cfg, gpu, prompts[i], got["streams"][i])
+              for i in (1, 2))
+    emit({"phase": "tiny-ssm", "requests": len(prompts),
+          "tokens": sum(len(s) for s in got["streams"]),
+          "streams_equal_cpu": True, "scan_launches": served,
+          "prefill_decode_vs_prefill_max_rel_err": err, "tol": FP32_TOL})
+
+
+def phase_serve_ssm(seed: int):
+    from repro_torch.models import get_config, init_params
+    from repro_torch.serve import pctl
+
+    cfg = get_config("falcon-mamba-7b")
+    resident = torch.cuda.memory_allocated() / 1e9
+    if resident > 2.0:
+        raise AssertionError(f"serve-ssm: {resident:.2f} GB still allocated "
+                             "before the Mamba weights (granite's not freed)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = _prompts(cfg.vocab_size, seed, PROMPT_LENS)
+    if min(len(p) for p in prompts) < 2:
+        raise AssertionError("every serve-ssm prompt should be scanned")
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("rmsnorm", "flash_attention", "paged_attention",
+                         "selective_scan")}
+    L = cfg.num_layers
+    ceiling = 0.98 * math.log(cfg.padded_vocab)
+    runs = {}
+    for label, kill in (("fault_free", False), ("replica_kill", True)):
+        for fn in counters.values():
+            fn.launches = 0
+        res = _serve(cfg, params, prompts, GEN, "cuda", kill=kill,
+                     slots=SSM_SLOTS)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        want = {"rmsnorm": (L + 1) * (res["prefills"] + res["decode_calls"]),
+                "flash_attention": 0, "paged_attention": 0,
+                "selective_scan": L * res["prefills"]}
+        if launches != want or min(launches["rmsnorm"],
+                                   launches["selective_scan"]) <= 0:
+            raise AssertionError(f"serve-ssm {label}: launches {launches}, "
+                                 f"the path implies {want}")
+        if res["dropped"] or None in res["streams"]:
+            raise AssertionError(f"serve-ssm {label}: dropped "
+                                 f"{res['dropped']}")
+        if kill and not res["failures"]:
+            raise AssertionError("the scheduled replica kill never fired")
+        if not kill and res["failures"]:
+            raise AssertionError(f"serve-ssm: the fault-free run failed a "
+                                 f"replica (decode sentinel or heartbeat): "
+                                 f"{res['failures']}")
+        ttft = [t for _, t, _ in res["latencies"]]
+        total = sorted(t for _, _, t in res["latencies"])
+        tokens = sum(len(s) for s in res["streams"])
+        emit({"phase": "serve-ssm", "run": label, "arch": cfg.name,
+              "layers": L, "d_model": cfg.d_model, "d_inner": cfg.d_inner,
+              "ssm_state": cfg.ssm_state,
+              "padded_vocab": cfg.padded_vocab, "dtype": str(cfg.dtype),
+              "replicas": 2, "slots": SSM_SLOTS, "requests": len(prompts),
+              "gen": GEN, "prompt_lens": [len(p) for p in prompts],
+              "tokens": tokens, "wall_s": res["wall"],
+              "tok_s": tokens / res["wall"],
+              "ttft_p50_ms": statistics.median(ttft) * 1e3,
+              "latency_p50_ms": statistics.median(total) * 1e3,
+              "latency_p99_ms": pctl(total, 0.99) * 1e3,
+              "replica_failures": len(res["failures"]),
+              "failure_reasons": [f["reason"] for f in res["failures"]],
+              "retried": res["retried"], "dropped": res["dropped"],
+              "prefills": res["prefills"],
+              "decode_calls": res["decode_calls"], "launches": launches,
+              "entropy_ema": res["entropy_ema"],
+              "sentinel_ceiling": ceiling,
+              "resident_gb_before_weights": resident,
+              "weights_init_s": init_s,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        runs[label] = (res, launches)
+    a, b = runs["fault_free"][0], runs["replica_kill"][0]
+    if a["streams"] != b["streams"]:
+        diff = [i for i, (x, y) in enumerate(zip(a["streams"], b["streams"]))
+                if x != y]
+        raise AssertionError(f"serve-ssm: streams after the replica kill "
+                             f"differ from the uninterrupted run for "
+                             f"requests {diff}")
+    emit({"phase": "serve-ssm", "token_identical_after_kill": True})
+    phase_steps(cfg, params, seed, rows=SSM_SLOTS, phase="steps-ssm")
+    del params
+    torch.cuda.empty_cache()
+    return runs["fault_free"][1]
 
 
 def _tree_equal(a, b) -> bool:
@@ -1168,7 +1444,8 @@ def _train_launches(L: int, microbatches: int, calls: int):
     return {"rmsnorm": calls * microbatches * (4 * L + 1),
             "rmsnorm_bwd": calls * microbatches * (2 * L + 1),
             "flash_attention": calls * microbatches * 2 * L,
-            "flash_attention_bwd": calls * microbatches * L}
+            "flash_attention_bwd": calls * microbatches * L,
+            "selective_scan": 0}
 
 
 def phase_train(seed: int):
@@ -1646,7 +1923,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     phase_tiny(args.seed)
     serve = phase_serve(args.seed)
+    # the serve engines hold reference cycles (the monitor's failure
+    # callback and the router): collect them so that granite's weights
+    # are freed before the Mamba phases
+    gc.collect()
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_tiny_ssm(args.seed)
+    serve_ssm = phase_serve_ssm(args.seed)
+    emit({"phase": "ssm-time", "seconds": time.perf_counter() - t0})
     phase_train_tiny(args.seed)
     train = phase_train(args.seed)
     phase_train_tiny_sdc(args.seed)
@@ -1659,7 +1944,8 @@ def main(argv=None) -> int:
         source, replaces = KERNELS[kname]
         by_path = {"serve": serve.get(kname, 0),
                    "train": train.get(kname, 0), "sdc": sdc[kname],
-                   "abft": abft[kname]}
+                   "abft": abft[kname],
+                   "serve_ssm": serve_ssm.get(kname, 0)}
         summary.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/{source}", "replaces": replaces,

@@ -1,6 +1,7 @@
 """Architecture configs.  Importing this package registers every
 architecture the port runs so far (the other families wait for their
 slices)."""
-from repro_torch.configs import gemma2_27b, granite_3_8b  # noqa: F401
+from repro_torch.configs import (falcon_mamba_7b, gemma2_27b,  # noqa: F401
+                                 granite_3_8b)
 
-ALL_ARCHS = ("gemma2-27b", "granite-3-8b")
+ALL_ARCHS = ("falcon-mamba-7b", "gemma2-27b", "granite-3-8b")

@@ -14,6 +14,7 @@ flash_attention with their backward kernels (run as autograd Functions
 when a gradient is needed), and ckpt_codec (int8 checkpoint quantize and
 dequantize).  On the SDC-protected training path (slice 3): block_hash
 (scrub checksums and delta dirty blocks, every leaf in one launch) and
-abft_matmul (checksum-extended float32 matmul, SDC tier 1).  ``build``
-compiles and loads the CUDA sources.
+abft_matmul (checksum-extended float32 matmul, SDC tier 1).  On the
+Mamba serving path (slice 4): selective_scan (the prefill scan) and
+rmsnorm.  ``build`` compiles and loads the CUDA sources.
 """

@@ -1,6 +1,8 @@
-"""Where a serve step's time goes on the card: one paged decode step over
-``--max-active`` rows and one prefill padded to the pool's row, at full
-width with random weights, traced with ``torch.profiler``.
+"""Where a serve step's time goes on the card: one decode step over
+``--max-active`` rows (paged, or over the slot pool's rows for a Mamba
+stack) and one prefill (padded to the pool's row for an attention stack,
+at the prompt's length for a Mamba stack), at full width with random
+weights, traced with ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_steps \\
         [--arch granite-3-8b] [--seed 0]
@@ -12,6 +14,9 @@ time by group (the port's three kernels, matrix products, the rest) with
 the largest kernels by name.  ``serve_steps`` builds the two steps; the
 chip smoke test times the same callables, and ``profile_step`` also
 reads its train step.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_steps \
+        --arch falcon-mamba-7b --max-active 4
 """
 from __future__ import annotations
 
@@ -27,13 +32,16 @@ import torch
 from repro_torch.configs import ALL_ARCHS
 from repro_torch.models import (get_config, init_cache, init_paged_cache,
                                 init_params)
-from repro_torch.train import make_paged_decode_step, make_prefill_step
+from repro_torch.models.base import SSM
+from repro_torch.train import (make_paged_decode_step, make_prefill_step,
+                               make_serve_decode_step)
 
 # decode rows' query positions: an inactive row, page boundaries, a full
 # 18-page table (max_len 288 at page size 16)
 LENGTHS = (0, 15, 16, 100, 200, 255, 287, 17)
 GROUPS = (("rmsnorm", "rmsnorm_kernel"), ("flash_attention", "flash_fwd"),
           ("paged_attention", "paged_decode_kernel"),
+          ("selective_scan", "selective_scan_kernel"),
           ("rmsnorm_bwd", "rmsnorm_bwd"), ("flash_attention_bwd", "flash_bwd"),
           ("ckpt_codec", "quantize_kernel"))
 MATMUL_MARKS = ("gemm", "gemv", "xmma", "nvjet", "cutlass", "splitk")
@@ -45,9 +53,21 @@ def serve_steps(cfg, params, *, device, seed: int = 0, max_active: int = 8,
     """The engine's two model calls at its shapes: ``decode`` advances
     ``max_active`` rows (row 0 inactive) through their page tables,
     ``prefill`` runs a ``prompt_len``-token prompt padded to ``max_len``
-    against a fresh cache row."""
+    against a fresh cache row.  A Mamba stack's ``decode`` advances
+    ``max_active`` slot-pool rows and its ``prefill`` runs unpadded."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    if SSM in cfg.layer_kinds():
+        rows = init_cache(cfg, max_active, max_len, device)
+        tokens = torch.randint(0, cfg.vocab_size, (max_active, 1),
+                               generator=gen, device=device)
+        prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len),
+                               generator=gen, device=device)
+        row = init_cache(cfg, 1, max_len, device)
+        decode = make_serve_decode_step(cfg)
+        prefill = make_prefill_step(cfg)
+        return {"decode": lambda: decode(params, {"tokens": tokens}, rows),
+                "prefill": lambda: prefill(params, {"tokens": prompt}, row)}
     mpr = max_len // page_size
     pool = init_paged_cache(cfg, max_active * mpr + 1, page_size, device)
     lengths = torch.tensor([min(n, max_len - 1)

@@ -1,7 +1,8 @@
 """Serving driver: thin CLI over ``repro_torch.serve.ServeEngine`` —
-continuous batching over a block-paged KV cache with prefix sharing, N
-replicas with heartbeat failover, decode-path SDC sentinel.  Runs on the
-card unless ``--device cpu``.
+continuous batching over a block-paged KV cache with prefix sharing (or,
+for a Mamba stack, the slot pool of state rows), N replicas with
+heartbeat failover, decode-path SDC sentinel.  Runs on the card unless
+``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \\
         --requests 8 --prompt-len 128 --gen 32 \\
@@ -10,6 +11,11 @@ card unless ``--device cpu``.
 
     # the tiny config on the CPU (plain PyTorch versions of the kernels)
     PYTHONPATH=src python -m repro_torch.launch.serve --tiny --device cpu
+
+    # Mamba-1 through the slot pool (--slots rows a replica)
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch falcon-mamba-7b --tiny --device cpu --replicas 2 \
+        --fault-tolerant --kill-replica-at 3
 """
 from __future__ import annotations
 
@@ -41,7 +47,8 @@ def main(argv=None) -> int:
                     help="model replicas in the serving pool")
     ap.add_argument("--slots", type=int, default=4,
                     help="sizes the default page pool: the memory of this "
-                    "many max-length rows, repaged")
+                    "many max-length rows, repaged; a Mamba stack's slot "
+                    "pool holds this many rows")
     ap.add_argument("--page-size", type=int, default=None,
                     help="tokens per KV page (default 16)")
     ap.add_argument("--num-pages", type=int, default=None,
@@ -93,18 +100,25 @@ def main(argv=None) -> int:
     ttft = sorted(t for _, t, _ in lat)
     total = sorted(t for _, _, t in lat)
     done_tokens = sum(len(v) for v in results.values())
+    fns = engine.fns
+    rows = (f"{fns.max_active} paged rows ({fns.num_pages} x "
+            f"{fns.page_size}-token pages)" if engine.paged
+            else f"{fns.num_slots} slots")
     print(f"served {len(results)}/{args.requests} requests "
           f"({done_tokens} tokens) in {wall:.2f}s on {args.replicas} "
-          f"replica(s) x {engine.fns.max_active} paged rows "
-          f"({engine.fns.num_pages} x {engine.fns.page_size}-token pages) "
-          f"on {engine.device} -> {done_tokens / wall:.0f} tok/s")
-    cons = engine.page_conservation()
-    hits = sum(r.pool.prefix_hits for r in engine.router.replicas.values())
-    misses = sum(r.pool.prefix_misses
-                 for r in engine.router.replicas.values())
-    print(f"paged KV: prefix hits {hits}/{hits + misses}, "
-          f"{cons['pages_free']}/{cons['pages_total']} pages free, "
-          f"refcounts {'ok' if cons['refs_ok'] else 'DRIFTED'}")
+          f"replica(s) x {rows} on {engine.device} -> "
+          f"{done_tokens / wall:.0f} tok/s")
+    reps = engine.router.replicas.values()
+    if engine.paged:
+        cons = engine.page_conservation()
+        hits = sum(r.pool.prefix_hits for r in reps)
+        misses = sum(r.pool.prefix_misses for r in reps)
+        print(f"paged KV: prefix hits {hits}/{hits + misses}, "
+              f"{cons['pages_free']}/{cons['pages_total']} pages free, "
+              f"refcounts {'ok' if cons['refs_ok'] else 'DRIFTED'}")
+    else:
+        free = sum(r.pool.free_count for r in reps)
+        print(f"slot pool: {free}/{fns.num_slots * len(reps)} slots free")
     if total:
         print(f"latency  p50={statistics.median(total) * 1e3:.0f}ms "
               f"p99={pctl(total, 0.99) * 1e3:.0f}ms "

@@ -1,4 +1,4 @@
-"""Model configs and the dense decoder stack."""
+"""Model configs and the decoder stack (attention and Mamba-1 layers)."""
 from repro_torch.models.base import (BIDIR, FULL, LOCAL, REC, SSM,
                                      ModelConfig, get_config, list_archs,
                                      register)

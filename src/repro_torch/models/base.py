@@ -1,11 +1,11 @@
 """Model configuration + registry (the port's ``ModelConfig``).
 
 The same frozen dataclass as the reference's, with torch dtypes and the
-fields the dense attention path reads.  ``use_pallas`` is gone: the
-tensor's device decides between a kernel and its plain version.  The
-train state always stacks homogeneous blocks, as the reference does with
-``scan_layers=True``, so that flag is gone too.  The MoE, SSM and RG-LRU
-fields wait for their slices.
+fields the dense attention and Mamba-1 paths read.  ``use_pallas`` is
+gone: the tensor's device decides between a kernel and its plain
+version.  The train state always stacks homogeneous blocks, as the
+reference does with ``scan_layers=True``, so that flag is gone too.  The
+MoE and RG-LRU fields wait for their slices.
 """
 from __future__ import annotations
 
@@ -43,6 +43,11 @@ class ModelConfig:
     query_scale: float = 0.0               # 0 => 1/sqrt(head_dim)
     # --- mlp ---
     mlp_act: str = "silu"                  # silu (SwiGLU) | gelu (GeGLU) | gelu_plain
+    # --- SSM (mamba-1) ---
+    ssm_state: int = 0
+    conv_width: int = 4
+    expand: int = 2
+    dt_rank: int = 0                       # 0 => ceil(d_model / 16)
     # --- embeddings / head ---
     tie_embeddings: bool = True
     embed_scale: bool = False              # gemma-style sqrt(d_model) embed scaling
@@ -63,6 +68,14 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // max(self.num_heads, 1))
+
+    @property
+    def resolved_dt_rank(self) -> int:
+        return self.dt_rank or -(-self.d_model // 16)
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
 
     @property
     def is_causal(self) -> bool:

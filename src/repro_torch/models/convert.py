@@ -1,8 +1,9 @@
 """Weights and train states carried across from the JAX package.
 
 ``params_from_jax`` takes the reference's ``init_params`` pytree as numpy
-arrays (``jax.device_get``) and returns the port's serving parameters.
-``state_from_jax`` takes the reference's whole train state (``params``,
+arrays (``jax.device_get``) and returns the port's serving parameters,
+cast as ``load_weight`` casts them (an SSM layer's ``A_log`` and ``D``
+stay float32).  ``state_from_jax`` takes the reference's whole train state (``params``,
 ``opt.{m,v,count}``, ``rng``, ``step``) and returns the port's, which
 keeps the reference's stacked layout leaf for leaf.  The
 reference stacks homogeneous blocks for ``scan``: ``{"embed": {"tok"},
@@ -23,14 +24,15 @@ from repro_torch.models.transformer import load_weight
 from repro_torch.tree import tree_map
 
 
-def _tree(cfg, x, index, device):
+def _tree(cfg, x, index, device, name=""):
     if isinstance(x, dict):
-        return {k: _tree(cfg, v, index, device) for k, v in x.items()}
+        return {k: _tree(cfg, v, index, device, k) for k, v in x.items()}
     a = np.asarray(x)
     if index is not None:
         a = a[index]
     t = torch.from_numpy(np.array(a, dtype=np.float32))
-    return load_weight(cfg, t.to(device=device, dtype=cfg.param_dtype))
+    return load_weight(cfg, t.to(device=device, dtype=cfg.param_dtype),
+                       name)
 
 
 def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],

@@ -1,7 +1,8 @@
-"""The dense decoder stack, PyTorch port of the reference's
-``models/transformer.py`` FULL/LOCAL attention path: GQA, sliding window,
+"""The decoder stack, PyTorch port of the reference's
+``models/transformer.py`` FULL/LOCAL attention path (GQA, sliding window,
 attention and final logit soft-caps, tied or untied embeddings, padded
-vocab.  A Python loop over layers replaces the reference's ``scan``; the
+vocab) and its Mamba-1 SSM layers (``models/mamba.py``, serving modes
+only).  A Python loop over layers replaces the reference's ``scan``; the
 sharding constraints have no counterpart on one card and are dropped.
 
 Modes of ``forward``:
@@ -13,20 +14,26 @@ Modes of ``forward``:
                      recomputed in the backward.  ``impl="abft"`` routes
                      the q/k/v/o and MLP projections through the
                      checksummed matmul (SDC tier 1); the attention core
-                     stays on the flash kernel.
+                     stays on the flash kernel.  Attention stacks only
+                     (Mamba training waits for its slice).
   ``prefill``      — logits for every position; with ``cache`` (a fresh
-                     row from ``init_cache``) the row's k/v/pos are filled
-                     in place.
+                     row from ``init_cache``) the row's k/v/pos, or an SSM
+                     layer's conv and scan state, are filled in place.
+  ``decode``       — one token per cache row against contiguous rows
+                     (the slot pool, ``serve/cache_pool.py``), the state
+                     advanced in place.  SSM layers only: contiguous-row
+                     attention decode waits for ROADMAP item 9.
   ``paged_decode`` — one token per request against the shared page pool
                      (``init_paged_cache``) through per-request page
                      tables; this step's k/v land in the pool in place.
-The ``decode`` mode over contiguous cache rows waits for the slot-pool
-slice.
+                     Attention stacks only.
 
 Parameters are plain nested dicts of tensors: ``{"embed": {"tok"},
-"layers": [{"ln1", "attn": {"wq","wk","wv","wo"[,"bq","bk","bv"]},
-"ln2", "mlp": {...}}, ...], "final_norm"[, "lm_head"]}``, cast to the
-compute dtype once at load.
+"layers": [...], "final_norm"[, "lm_head"]}`` with an attention layer
+``{"ln1", "attn": {"wq","wk","wv","wo"[,"bq","bk","bv"]}, "ln2", "mlp":
+{...}}`` and an SSM layer ``{"ln", "ssm": {...}}``, cast to the compute
+dtype once at load except the recurrence leaves ``A_log`` and ``D``,
+which stay float32 (the reference's ``_KEEP_FP32``).
 """
 from __future__ import annotations
 
@@ -42,31 +49,45 @@ from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.layers.mlp import dot, mlp_apply, mlp_init
 from repro_torch.layers.norms import rms_norm
 from repro_torch.layers.rope import apply_rope, make_positions
-from repro_torch.models.base import BIDIR, FULL, LOCAL, ModelConfig
+from repro_torch.models.base import BIDIR, FULL, LOCAL, SSM, ModelConfig
+from repro_torch.models.mamba import ssm_apply, ssm_cache_init, ssm_init
 from repro_torch.tree import flatten_named, unflatten
 
 Params = Dict[str, Any]
 
 
-def _check_kinds(cfg: ModelConfig) -> None:
-    bad = sorted({k for k in cfg.layer_kinds()
-                  if k not in (FULL, LOCAL, BIDIR)})
-    if bad:
+# Recurrence-dynamics leaves stay float32 (exp() of these is sensitive).
+_KEEP_FP32 = ("A_log", "D", "lam")
+
+
+def _check_kinds(cfg: ModelConfig, ssm: bool = True) -> None:
+    """``ssm``: the mode runs Mamba layers (serving); training does not."""
+    ok = (FULL, LOCAL, BIDIR) + ((SSM,) if ssm else ())
+    bad = sorted({k for k in cfg.layer_kinds() if k not in ok})
+    if not bad:
+        return
+    if SSM in bad and not ssm:
         raise NotImplementedError(
-            f"{cfg.name} has {bad} layers; the port runs attention stacks "
-            "only (SSM/REC wait for the model-families slice, ROADMAP)")
+            f"{cfg.name} has SSM layers; the port serves Mamba stacks but "
+            "does not train them yet (the Mamba-training slice: the scan's "
+            "backward as a kernel, ROADMAP item 12)")
+    raise NotImplementedError(
+        f"{cfg.name} has {bad} layers; the port runs attention and Mamba "
+        "stacks (REC waits for the model-families slice, ROADMAP item 12)")
 
 
 # --------------------------------------------------------------------------
 # init / load
 # --------------------------------------------------------------------------
 
-def load_weight(cfg: ModelConfig, w: torch.Tensor) -> torch.Tensor:
+def load_weight(cfg: ModelConfig, w: torch.Tensor,
+                name: str = "") -> torch.Tensor:
     """The reference casts float32 weights to the compute dtype on every
     forward (``_cast_params``); the port does the same cast once, at
     load — the same arithmetic without per-forward copies of the
-    weights."""
-    if w.dtype == torch.float32 and cfg.dtype != torch.float32:
+    weights.  Leaves named in ``_KEEP_FP32`` stay float32, as there."""
+    if (w.dtype == torch.float32 and cfg.dtype != torch.float32
+            and name not in _KEEP_FP32):
         return w.to(cfg.dtype)
     return w
 
@@ -96,12 +117,20 @@ def init_params(cfg: ModelConfig, *, seed: int, device=None) -> Params:
         return load_weight(cfg, torch.zeros(shape, device=device,
                                             dtype=cfg.param_dtype))
 
+    def const(name, w):
+        return load_weight(cfg, w.to(device=device, dtype=cfg.param_dtype),
+                           name)
+
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
     params: Params = {"embed": {"tok": normal((cfg.padded_vocab, d),
                                               d ** -0.5)}}
     layers: List[Params] = []
-    for _ in range(cfg.num_layers):
+    for kind in cfg.layer_kinds():
+        if kind == SSM:
+            layers.append({"ln": ones(d), "ssm": ssm_init(cfg, normal,
+                                                          const)})
+            continue
         attn = {"wq": normal((d, h, hd), d ** -0.5),
                 "wk": normal((d, kv, hd), d ** -0.5),
                 "wv": normal((d, kv, hd), d ** -0.5),
@@ -127,7 +156,7 @@ def init_train_params(cfg: ModelConfig, *, seed: int, device=None) -> Params:
     {...}}, "final_norm"[, "lm_head"]}`` where every block leaf has a
     leading axis of ``num_layers / len(pattern)`` (layer ``g * len(pattern)
     + p``).  Same shapes and scales as the reference's ``init_params``."""
-    _check_kinds(cfg)
+    _check_kinds(cfg, ssm=False)
     device = resolve_device(device)
     P_ = len(cfg.pattern)
     if cfg.num_layers % P_:
@@ -180,12 +209,17 @@ def init_train_params(cfg: ModelConfig, *, seed: int, device=None) -> Params:
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device) -> Dict[str, Any]:
-    """Fresh contiguous cache rows for prefill: per layer k/v
-    (batch, sc, K, hd) and ``pos`` (sc,) = -1 (empty).  LOCAL layers keep
-    a rolling window of ``min(cache_len, window)`` slots."""
+    """Fresh contiguous cache rows: per attention layer k/v
+    (batch, sc, K, hd) and ``pos`` (sc,) = -1 (empty), LOCAL layers with a
+    rolling window of ``min(cache_len, window)`` slots; per SSM layer the
+    conv state (batch, W-1, Di) in the compute dtype and the scan state
+    ``h`` (batch, Di, N) float32, zero."""
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     layers = []
     for kind in cfg.layer_kinds():
+        if kind == SSM:
+            layers.append(ssm_cache_init(cfg, batch, device))
+            continue
         sc = (min(cache_len, cfg.window) if kind == LOCAL and cfg.window
               else cache_len)
         layers.append({
@@ -366,25 +400,34 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     """Returns (logits, cache); the cache is updated in place.
 
     batch: ``tokens`` (B, S).  ``train`` takes the train state's
-    parameters (``init_train_params``) and returns (logits, None).  ``prefill`` may carry ``length``: only the
-    first ``length`` positions are real (the rest is padding past them,
-    which causal attention keeps out of every real position) and only
-    those enter the cache.  ``paged_decode`` carries ``lengths`` (R,)
-    int32, each row's query position, and ``page_tables`` (R, MPR)
-    int32.  ``impl="abft"`` (train mode) checksums the projections."""
-    _check_kinds(cfg)
+    parameters (``init_train_params``) and returns (logits, None).
+    ``prefill`` may carry ``length``: only the first ``length`` positions
+    are real (the rest is padding past them, which causal attention keeps
+    out of every real position) and only those enter the cache; an SSM
+    stack refuses padding, which would run through its state.
+    ``decode`` takes (B, 1) tokens and B cache rows.  ``paged_decode``
+    carries ``lengths`` (R,) int32, each row's query position, and
+    ``page_tables`` (R, MPR) int32.  ``impl="abft"`` (train mode)
+    checksums the projections."""
+    kinds = cfg.layer_kinds()
+    _check_kinds(cfg, ssm=mode != "train")
     if mode == "train":
         return _forward_train(cfg, params, batch, impl), None
     if impl is not None:
         raise ValueError(f"impl={impl!r} applies to train mode only")
     tokens = batch["tokens"]
     B, S = tokens.shape
+    n_valid = int(batch.get("length", S))
     x = params["embed"]["tok"][tokens.long()]
     if cfg.embed_scale:
         x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
                            device=x.device)
     paged = None
+    positions = None
     if mode == "paged_decode":
+        if SSM in kinds:
+            raise ValueError(f"{cfg.name} has SSM layers: their state has "
+                             "no sequence axis to page")
         if S != 1 or cache is None:
             raise ValueError("paged_decode takes (R, 1) tokens and the pool")
         lengths = batch["lengths"]
@@ -394,16 +437,30 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
         rows = torch.arange(B, device=tokens.device)
         pidx = page_tables.long()[rows, positions[:, 0] // ps]
         paged = (page_tables, lengths, (pidx, positions[:, 0] % ps))
+    elif mode == "decode":
+        if S != 1 or cache is None:
+            raise ValueError("decode takes (B, 1) tokens and B cache rows")
+        if any(k != SSM for k in kinds):
+            raise NotImplementedError(
+                f"{cfg.name}: decode over contiguous attention rows waits "
+                "for its slice (ROADMAP.md, 'Modules to port', item 9: 'The "
+                "rest of serving'); attention stacks decode paged")
     elif mode == "prefill":
+        if n_valid != S and SSM in kinds:
+            raise ValueError(f"{cfg.name}: an SSM stack prefills at the "
+                             "prompt's own length (padding would run "
+                             "through the scan and conv state)")
         positions = make_positions(B, S, device=tokens.device)
     else:
-        raise ValueError(f"mode {mode!r}: the port runs train, prefill and "
-                         "paged_decode (decode waits for the slot-pool "
-                         "slice)")
-    n_valid = int(batch.get("length", S))
-    for i, kind in enumerate(cfg.layer_kinds()):
+        raise ValueError(f"mode {mode!r}: the port runs train, prefill, "
+                         "decode and paged_decode")
+    for i, kind in enumerate(kinds):
         entry = (cache["layers"][i]
-                 if mode == "prefill" and cache is not None else None)
+                 if mode in ("prefill", "decode") and cache is not None
+                 else None)
+        if kind == SSM:
+            x = ssm_apply(params["layers"][i], x, cfg, entry)
+            continue
         x = _attn_apply(params["layers"][i], x, kind, cfg, positions,
                         entry=entry, n_valid=n_valid,
                         pages=cache if paged is not None else None,

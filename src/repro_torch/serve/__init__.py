@@ -2,11 +2,13 @@
 
 Continuous-batching inference over a block-paged KV cache
 (``PagedKVCache``: shared page pool, per-request page tables, refcounted
-prefix sharing), N model replicas registered with the heartbeat monitor,
-and detect-and-recover failover: a dead or sentinel-flagged replica's
-requests drain back to the queue and re-execute on survivors with
-token-identical greedy streams.
+prefix sharing) for attention stacks, or the slot pool (``CachePool``:
+one state row a request) for Mamba stacks, N model replicas registered
+with the heartbeat monitor, and detect-and-recover failover: a dead or
+sentinel-flagged replica's requests drain back to the queue and
+re-execute on survivors with token-identical greedy streams.
 """
+from repro_torch.serve.cache_pool import CachePool, PoolExhausted
 from repro_torch.serve.engine import ServeEngine, pctl
 from repro_torch.serve.page_table import (DEFAULT_PAGE_SIZE, AdmitPlan,
                                           PagedKVCache, PageExhausted,
@@ -19,6 +21,7 @@ from repro_torch.serve.scheduler import (DECODE, DONE, FAILED, PREFILL,
 
 __all__ = [
     "ServeEngine", "pctl", "Scheduler", "Request", "QueueFull",
+    "CachePool", "PoolExhausted",
     "PagedKVCache", "PageExhausted", "AdmitPlan", "PrefixEntry",
     "DEFAULT_PAGE_SIZE", "Replica", "ServeFns", "ReplicaRouter",
     "NoHealthyReplicasError",

@@ -1,0 +1,94 @@
+"""Slot-based cache pool: one cache row per in-flight request.
+
+The pool holds ``num_slots`` independent rows of a stack's decode state
+as the batch rows of one cache (``init_cache(cfg, num_slots, ...)``); the
+engine advances all of them in one batched decode step.  The reference
+stacks B=1 rows on a new axis and vmaps the step over it, because its
+attention rows carry their own positions; the state of a Mamba layer has
+no position, so a batch dimension is the same computation.  Contiguous
+attention rows (per-row positions) wait for ROADMAP item 9, and the pool
+refuses them.
+
+Slot lifecycle (the reference's order): ``acquire`` hands the lowest free
+slot to a request at prefill admission; the prefill runs against a FRESH
+B=1 row and ``write_row`` copies the filled row into the slot, which also
+overwrites whatever a previous occupant left there; ``release`` recycles
+the slot when the request completes or drains, ``release_all`` when the
+replica dies.  Inactive slots keep decoding on stale state; their outputs
+are ignored.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+from repro_torch.models.base import SSM
+from repro_torch.models.transformer import init_cache
+
+
+class PoolExhausted(RuntimeError):
+    """No free slot — admission control should have prevented this."""
+
+
+class CachePool:
+    def __init__(self, cfg, num_slots: int, device):
+        if num_slots < 1:
+            raise ValueError(f"num_slots must be >= 1, got {num_slots}")
+        if any(k != SSM for k in cfg.layer_kinds()):
+            raise NotImplementedError(
+                f"{cfg.name}: the slot pool holds SSM state rows; "
+                "contiguous attention rows wait for ROADMAP.md item 9")
+        self.cfg = cfg
+        self.num_slots = num_slots
+        # SSM state rows have no sequence axis: no cache length
+        self.cache = init_cache(cfg, num_slots, 0, device)
+        self._free: List[int] = list(range(num_slots - 1, -1, -1))
+        self._owner: Dict[int, int] = {}       # slot -> rid
+
+    # ------------------------------------------------------------------
+    # slot accounting
+    # ------------------------------------------------------------------
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def active_slots(self) -> List[int]:
+        return sorted(self._owner)
+
+    def owner(self, slot: int) -> Optional[int]:
+        return self._owner.get(slot)
+
+    def acquire(self, rid: int) -> int:
+        if not self._free:
+            raise PoolExhausted(
+                f"all {self.num_slots} slots in use; admission control "
+                "must gate on free_count")
+        slot = self._free.pop()
+        self._owner[slot] = rid
+        return slot
+
+    def release(self, slot: int) -> None:
+        if slot not in self._owner:
+            raise ValueError(f"slot {slot} not assigned")
+        del self._owner[slot]
+        self._free.append(slot)
+
+    def release_all(self) -> List[int]:
+        """Drain every slot (replica died); returns the rids that were in
+        flight, in slot order (the engine requeues them in reverse so the
+        queue front ends up back in slot order)."""
+        rids = [self._owner[s] for s in sorted(self._owner)]
+        self._owner.clear()
+        self._free = list(range(self.num_slots - 1, -1, -1))
+        return rids
+
+    # ------------------------------------------------------------------
+    # device cache
+    # ------------------------------------------------------------------
+    def write_row(self, slot: int, row_cache: Any) -> None:
+        """Copy a filled B=1 cache (prefill output) into ``slot``, in
+        place: the whole row is overwritten, so slot recycling never
+        leaks a previous request's state."""
+        for dst, src in zip(self.cache["layers"], row_cache["layers"]):
+            for name, t in dst.items():
+                t[slot].copy_(src[name][0])

@@ -1,31 +1,36 @@
 """The dependable serving engine: continuous batching + replicated failover.
 
 One ``ServeEngine`` owns a request ``Scheduler``, a ``ReplicaRouter`` over
-N model replicas (each with its own block-paged KV pool), and — when
-``fault_tolerant`` — a ``HeartbeatMonitor`` the replicas beat into.  Each
-engine step, per healthy replica:
+N model replicas (each with its own cache pool: block-paged KV for
+attention stacks, the slot pool of state rows for Mamba stacks), and —
+when ``fault_tolerant`` — a ``HeartbeatMonitor`` the replicas beat into.
+Each engine step, per healthy replica:
 
-1. **admit**: pop queued requests while the pool can cover their prompt
-   pages plus a worst-case growth reservation (up to
-   ``max_prefill_per_step``), run B=1 prefill for each and scatter its
-   pages into the pool — or, on an exact full-prompt prefix hit, skip the
-   prefill and open with the stored first token;
-2. **decode**: one batched step over all ``max_active`` rows through
-   their page tables; every active row's request gains one greedy token;
+1. **admit**: pop queued requests while the pool can take them (up to
+   ``max_prefill_per_step``): paged, while it can cover their prompt
+   pages plus a worst-case growth reservation, each prefilled B=1 and its
+   pages scattered into the pool — or, on an exact full-prompt prefix
+   hit, opened with the stored first token and no prefill; slot pool,
+   while a slot is free, each prefilled B=1 and its row copied into the
+   slot;
+2. **decode**: one batched step over every row of the pool; every active
+   row's request gains one greedy token;
 3. **guard**: the ``DecodeSentinel`` watches the step's logit stats —
    non-finite logits or an entropy spike flags the REPLICA as corrupt.
 
 Failures — heartbeat-detected (drained at the next step boundary),
 injected (``FaultInjector.schedule_replica_kill``), or sentinel-flagged —
 all take the same path: the router excludes the replica, its in-flight
-requests drain back to the queue with partial output discarded (page
-tables and prefix refs released leak-free), and survivors re-execute
+requests drain back to the queue with partial output discarded (slots,
+page tables and prefix refs released leak-free), and survivors re-execute
 them.  Greedy decode is a pure function of the prompt, so the retried
 streams are token-identical to an uninterrupted run and the engine drops
 zero requests.  Warm standbys (``add_standby``) are activated one per
 failure to restore capacity.
 
-The legacy slot pool (``paged=False``) and the telemetry plane's
+``paged=None`` pages wherever the stack can (attention-only); a Mamba
+stack takes the slot pool.  The slot pool over attention rows
+(``paged=False`` on an attention stack) and the telemetry plane's
 pre-drain wait for a later slice (ROADMAP.md, "Modules to port", item 9).
 """
 from __future__ import annotations
@@ -39,7 +44,7 @@ import numpy as np
 from repro_torch.core.failures import CorruptionDetected, SimulatedFailure
 from repro_torch.core.heartbeat import HeartbeatMonitor
 from repro_torch.device import resolve_device
-from repro_torch.models.base import FULL, LOCAL
+from repro_torch.models.base import FULL, LOCAL, SSM
 from repro_torch.obs import Observability
 from repro_torch.sdc import DecodeSentinel
 from repro_torch.serve.page_table import DEFAULT_PAGE_SIZE, PageExhausted
@@ -47,12 +52,14 @@ from repro_torch.serve.replica import Replica, ServeFns
 from repro_torch.serve.router import NoHealthyReplicasError, ReplicaRouter
 from repro_torch.serve.scheduler import DECODE, Scheduler
 
-_SLOT_POOL_ITEM = ("the legacy slot pool waits for its slice (ROADMAP.md, "
-                   "'Modules to port', item 9: 'The rest of serving')")
+_SLOT_POOL_ITEM = ("the slot pool over attention rows waits for its slice "
+                   "(ROADMAP.md, 'Modules to port', item 9: 'The rest of "
+                   "serving')")
 
 
 def _supports_paging(cfg) -> bool:
-    """Paged KV needs an attention-only decode stack."""
+    """Paged KV needs an attention-only decode stack (SSM state has no
+    sequence axis to page)."""
     return all(k in (FULL, LOCAL) for k in cfg.layer_kinds())
 
 
@@ -86,13 +93,22 @@ class ServeEngine:
         if not cfg.has_decode:
             raise ValueError(f"{cfg.name} is encoder-only; cannot serve "
                              "autoregressive decode")
-        if paged is False or not _supports_paging(cfg):
+        # the paged pool wherever the stack supports it; the slot pool
+        # otherwise (the SSM fallback)
+        if paged is None:
+            paged = _supports_paging(cfg)
+        elif paged and not _supports_paging(cfg):
+            raise ValueError(f"{cfg.name} cannot page its KV cache "
+                             "(non-attention decode state)")
+        if not paged and any(k != SSM for k in cfg.layer_kinds()):
             raise NotImplementedError(
-                f"{cfg.name}: only the paged KV stack is ported; "
-                + _SLOT_POOL_ITEM)
+                f"{cfg.name}: attention stacks serve from the paged KV "
+                "stack only; " + _SLOT_POOL_ITEM)
         self.cfg = cfg
+        self.paged = paged
         self.obs = obs if obs is not None else Observability()
         self.fns = ServeFns(cfg, slots_per_replica, max_len, self.device,
+                            paged=paged,
                             page_size=page_size, num_pages=num_pages,
                             max_active=max_active,
                             prefix_cache=prefix_cache)
@@ -218,10 +234,12 @@ class ServeEngine:
         reg.gauge("serve.queue_depth").set(self.scheduler.pending())
         reg.gauge("serve.in_flight").set(len(self.scheduler.in_flight()))
         reg.gauge("serve.healthy_replicas").set(len(healthy))
-        reg.gauge("serve.pages_free").set(
-            sum(r.pool.free_pages for r in self.router.healthy()))
-        reg.gauge("serve.prefix_hits").set(
-            sum(r.pool.prefix_hits for r in self.router.replicas.values()))
+        if self.paged:
+            reg.gauge("serve.pages_free").set(
+                sum(r.pool.free_pages for r in self.router.healthy()))
+            reg.gauge("serve.prefix_hits").set(
+                sum(r.pool.prefix_hits
+                    for r in self.router.replicas.values()))
 
     def run(self, max_steps: Optional[int] = None) -> Dict[int, List[int]]:
         """Drive ``step`` until every request is DONE (or FAILED past its
@@ -264,7 +282,7 @@ class ServeEngine:
             self.scheduler.requeue(self.scheduler.requests[r])
         drain_s = time.perf_counter() - t0
         extra = {}
-        if rep.pool.last_drain is not None:
+        if self.paged and rep.pool.last_drain is not None:
             extra = {"pages_drained": rep.pool.last_drain["pages_freed"],
                      "prefix_entries_dropped":
                          rep.pool.last_drain["prefix_entries"]}
@@ -288,6 +306,21 @@ class ServeEngine:
         self._decode(rep)
 
     def _admit(self, rep: Replica) -> None:
+        if self.paged:
+            self._admit_paged(rep)
+            return
+        admitted = 0
+        while (rep.pool.free_count > 0 and self.scheduler.pending() > 0
+               and admitted < self.max_prefill_per_step):
+            req = self.scheduler.pop_queued()
+            slot = rep.pool.acquire(req.rid)
+            self.scheduler.start_prefill(req, slot, rep.id)
+            tok0, row = rep.prefill(req.prompt)
+            rep.pool.write_row(slot, row)
+            self._first_token(rep, req, slot, tok0)
+            admitted += 1
+
+    def _admit_paged(self, rep: Replica) -> None:
         """Page-aware admission: a request leaves the queue only when the
         pool can cover its prompt pages AND a worst-case-growth
         reservation.  An exact full-prompt prefix hit skips the prefill:
@@ -336,19 +369,8 @@ class ServeEngine:
             self._finish(rep, req, row)
 
     def _decode(self, rep: Replica) -> None:
-        # make each active row's write-target page exclusively owned
-        # BEFORE the batched step (grow, or copy-on-write a shared tail);
-        # PageExhausted here means reservation accounting was bypassed —
-        # a PLANNED requeue (no retry burned, no incident)
-        for row in list(rep.pool.active_slots):
-            req = self.scheduler.requests[rep.pool.owner(row)]
-            try:
-                rep.pool.ensure_writable(row)
-            except PageExhausted:
-                rep.pool.release(row)
-                self.scheduler.requeue(req, planned=True)
-                self._record("page_requeue", rid=req.rid, row=row)
-                self.obs.registry.counter("serve.page_requeues").inc()
+        if self.paged:
+            self._make_writable(rep)
         active = rep.pool.active_slots
         if not active:
             return
@@ -374,9 +396,25 @@ class ServeEngine:
         self.obs.registry.counter("serve.tokens").inc(len(active))
         for row in active:
             req = self.scheduler.requests[rep.pool.owner(row)]
-            rep.pool.advance(row)        # this step wrote position len
+            if self.paged:
+                rep.pool.advance(row)    # this step wrote position len
             if self.scheduler.append_token(req, int(toks[row])):
                 self._finish(rep, req, row, now=now)
+
+    def _make_writable(self, rep: Replica) -> None:
+        # make each active row's write-target page exclusively owned
+        # BEFORE the batched step (grow, or copy-on-write a shared tail);
+        # PageExhausted here means reservation accounting was bypassed —
+        # a PLANNED requeue (no retry burned, no incident)
+        for row in list(rep.pool.active_slots):
+            req = self.scheduler.requests[rep.pool.owner(row)]
+            try:
+                rep.pool.ensure_writable(row)
+            except PageExhausted:
+                rep.pool.release(row)
+                self.scheduler.requeue(req, planned=True)
+                self._record("page_requeue", rid=req.rid, row=row)
+                self.obs.registry.counter("serve.page_requeues").inc()
 
     def _finish(self, rep: Replica, req, row: int,
                 now: Optional[float] = None) -> None:

@@ -1,15 +1,24 @@
-"""One model replica: params + paged KV pool + the shared serve steps.
+"""One model replica: params + cache pool + the shared serve steps.
 
 N replicas hold the same parameter tensors (one set on the card, as the
-reference shares one pytree), each with its own ``PagedKVCache``, each
-emitting heartbeats to the shared ``HeartbeatMonitor`` under its host ids.
+reference shares one pytree), each with its own pool, each emitting
+heartbeats to the shared ``HeartbeatMonitor`` under its host ids.
 
-Prefill is B=1 against a fresh contiguous row, run at one fixed length
-(the page-aligned ``cache_len``, see ``train.serve.make_prefill_step``),
-and the row's pages are scattered into the pool.  Decode is ONE batched
-step over all ``max_active`` rows through their page tables, so every
-decode call has the same shapes whatever rows are live — a row's tokens
-do not depend on which row it sits in or who shares the batch.
+Paged (attention stacks): prefill is B=1 against a fresh contiguous row,
+run at one fixed length (the page-aligned ``cache_len``, see
+``train.serve.make_prefill_step``), and the row's pages are scattered
+into the ``PagedKVCache``.  Decode is ONE batched step over all
+``max_active`` rows through their page tables.
+
+Slot pool (``paged=False``, Mamba stacks): prefill is B=1 at the prompt's
+own length against a fresh row (padding would run through the scan
+state; a retry re-prefills the same prompt at the same shape), copied
+into a ``CachePool`` slot.  Decode is ONE batched step over all
+``num_slots`` rows.
+
+Either way every decode call has the same shapes whatever rows are live
+— a row's tokens do not depend on which row it sits in or who shares the
+batch.
 """
 from __future__ import annotations
 
@@ -21,17 +30,21 @@ import torch
 from repro_torch.core.heartbeat import HeartbeatEmitter
 from repro_torch.models import init_cache
 from repro_torch.sdc import DecodeSentinel
+from repro_torch.serve.cache_pool import CachePool
 from repro_torch.serve.page_table import DEFAULT_PAGE_SIZE, PagedKVCache
-from repro_torch.train import make_paged_decode_step, make_prefill_step
+from repro_torch.train import (make_paged_decode_step, make_prefill_step,
+                               make_serve_decode_step)
 
 
 class ServeFns:
     """Serve steps and pool geometry shared by every replica of one
-    engine.  The pool is the reference's equal-memory default: the slot
-    pool's budget of ``num_slots`` rows of ``max_len`` tokens, repaged
-    into ``page_size``-token pages (+1 for the reserved null page)."""
+    engine.  ``paged=True``: the pool is the reference's equal-memory
+    default, the slot pool's budget of ``num_slots`` rows of ``max_len``
+    tokens repaged into ``page_size``-token pages (+1 for the reserved
+    null page).  ``paged=False``: a ``CachePool`` of ``num_slots`` rows."""
 
     def __init__(self, cfg, num_slots: int, max_len: int, device,
+                 paged: bool = True,
                  page_size: int = DEFAULT_PAGE_SIZE,
                  num_pages: Optional[int] = None,
                  max_active: Optional[int] = None,
@@ -40,6 +53,12 @@ class ServeFns:
         self.device = device
         self.num_slots = num_slots
         self.max_len = max_len
+        self.paged = paged
+        if not paged:
+            self.cache_len = max_len
+            self.prefill = make_prefill_step(cfg)
+            self.decode = make_serve_decode_step(cfg)
+            return
         self.page_size = page_size
         self.pages_per_row = -(-max_len // page_size)
         self.cache_len = self.pages_per_row * page_size
@@ -53,9 +72,11 @@ class ServeFns:
     @property
     def num_rows(self) -> int:
         """Rows the decode step advances per call (pool width)."""
-        return self.max_active
+        return self.max_active if self.paged else self.num_slots
 
-    def make_pool(self, registry=None) -> PagedKVCache:
+    def make_pool(self, registry=None):
+        if not self.paged:
+            return CachePool(self.cfg, self.num_slots, self.device)
         return PagedKVCache(self.cfg, self.num_pages, self.page_size,
                             self.cache_len, self.max_active,
                             prefix=self.prefix_cache, registry=registry,
@@ -106,7 +127,7 @@ class Replica:
     @torch.no_grad()
     def prefill(self, prompt: Sequence[int]) -> Tuple[int, Any]:
         """Run B=1 prefill for one request; returns (first greedy token,
-        filled cache row) — the caller scatters the row into the pool."""
+        filled cache row) — the caller writes the row into the pool."""
         if len(prompt) > self.fns.max_len:
             raise ValueError(f"prompt length {len(prompt)} exceeds "
                              f"max_len {self.fns.max_len}")
@@ -121,20 +142,26 @@ class Replica:
     def decode(self, last_tokens) -> Tuple[np.ndarray, Dict[str, Any]]:
         """One decode step over the WHOLE pool: ``last_tokens`` is
         (num_rows,) int — the previous token per row, arbitrary for
-        inactive rows (their outputs are ignored).  Returns (tokens
-        (num_rows,), stats with per-row nonfinite and entropy) on the
-        host."""
+        inactive rows (their outputs are ignored).  Paged pools advance
+        every row through its page table; slot pools advance every slot's
+        row (inactive ones on stale state).  Returns (tokens (num_rows,),
+        stats with per-row nonfinite and entropy) on the host."""
         dev = self.fns.device
         pool = self.pool
         batch = {"tokens": torch.tensor(np.asarray(last_tokens),
                                         dtype=torch.long,
-                                        device=dev).reshape(-1, 1),
-                 "lengths": torch.tensor(pool.lengths, dtype=torch.int32,
-                                         device=dev),
-                 "page_tables": torch.tensor(pool.page_tables,
-                                             dtype=torch.int32, device=dev)}
-        toks, pool.pages, stats = self.fns.paged_decode(self.params, batch,
-                                                        pool.pages)
+                                        device=dev).reshape(-1, 1)}
+        if self.fns.paged:
+            batch["lengths"] = torch.tensor(pool.lengths, dtype=torch.int32,
+                                            device=dev)
+            batch["page_tables"] = torch.tensor(pool.page_tables,
+                                                dtype=torch.int32,
+                                                device=dev)
+            toks, pool.pages, stats = self.fns.paged_decode(
+                self.params, batch, pool.pages)
+        else:
+            toks, pool.cache, stats = self.fns.decode(self.params, batch,
+                                                      pool.cache)
         self.steps += 1
         return (toks.cpu().numpy().reshape(-1),
                 {k: v.cpu().numpy() for k, v in stats.items()})

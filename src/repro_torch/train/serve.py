@@ -1,5 +1,6 @@
 """Serving steps: B=1 prefill against a fresh cache row, and one batched
-decode step over the block-paged pool, both with greedy sampling.
+decode step over the block-paged pool or over the slot pool's contiguous
+rows, all with greedy sampling.
 
 ``argmax`` ties go to the first index, as in the reference."""
 from __future__ import annotations
@@ -57,6 +58,34 @@ def logit_stats(cfg: ModelConfig,
     entropy = lse - torch.where(p > 0, p * logits,
                                 torch.zeros_like(p)).sum(dim=-1)
     return {"nonfinite": nonfinite, "entropy": entropy}
+
+
+def make_decode_step(cfg: ModelConfig) -> Callable:
+    """``decode_step(params, batch, cache) -> (next_tok (B,), cache)``:
+    one token per contiguous cache row (``batch["tokens"]`` (B, 1)), the
+    rows advanced in place."""
+    def decode_step(params, batch, cache):
+        logits, cache = forward(cfg, params, batch, mode="decode",
+                                cache=cache)
+        last = _mask_pad_vocab(cfg, logits[:, -1].float())
+        return torch.argmax(last, dim=-1).to(torch.int32), cache
+
+    return decode_step
+
+
+def make_serve_decode_step(cfg: ModelConfig) -> Callable:
+    """Decode step for the slot pool (serve/cache_pool.py): next token,
+    the cache advanced in place, and the per-row logit stats the decode
+    sentinel guards.  The reference vmaps its step over the pool's slot
+    axis; here the slots are the batch rows of one step."""
+    def decode_step(params, batch, cache):
+        logits, cache = forward(cfg, params, batch, mode="decode",
+                                cache=cache)
+        last = _mask_pad_vocab(cfg, logits[:, -1].float())
+        next_tok = torch.argmax(last, dim=-1).to(torch.int32)
+        return next_tok, cache, logit_stats(cfg, last)
+
+    return decode_step
 
 
 def make_paged_decode_step(cfg: ModelConfig) -> Callable:

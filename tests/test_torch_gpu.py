@@ -15,7 +15,9 @@ another order, and in bfloat16 the plain version rounds its intermediate
 gradients where the kernels keep float32.  The checkpoint codec and the
 block hash are held byte for byte; the ABFT matmul (true float32 on the
 CUDA cores) to 1e-4 of the largest magnitude of its float32 plain
-version, bit-equal from call to call.
+version, bit-equal from call to call.  The selective scan is held to its
+plain version within 1e-5 + 1e-5 |want| (tests/test_kernels.py), and the
+tiny Mamba engine on the card gives the CPU's greedy streams.
 """
 import dataclasses
 
@@ -41,6 +43,9 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 from repro_torch.kernels.rmsnorm.kernel import rms_norm_2d, rms_norm_2d_bwd
 from repro_torch.kernels.rmsnorm.ops import rms_norm
 from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
+from repro_torch.kernels.selective_scan.kernel import selective_scan_kernel
+from repro_torch.kernels.selective_scan.ops import selective_scan
+from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -464,3 +469,94 @@ def test_abft_dot_routes_both_contractions_to_the_kernel(cuda):
     (xf @ wf).square().sum().backward()
     _close_grad(x.grad, xf.grad, 2e-2)
     _close_grad(w.grad, wf.grad, 2e-2)
+
+
+def _scan_inputs(rng, B, S, Di, N, device, h0_zero=False):
+    """tests/test_kernels.py's draws, from numpy."""
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device)
+
+    x = randn(B, S, Di)
+    dt = torch.nn.functional.softplus(randn(B, S, Di)) * 0.1
+    bm, cm = randn(B, S, N), randn(B, S, N)
+    a = -torch.exp(randn(Di, N) * 0.2)
+    h0 = randn(B, Di, N) * 0.1
+    return x, dt, bm, cm, a, (torch.zeros_like(h0) if h0_zero else h0)
+
+
+@pytest.mark.parametrize("B,S,Di,N,h0_zero", [
+    (1, 256, 8192, 16, True), (1, 256, 8192, 16, False),
+    (2, 200, 256, 16, False), (1, 300, 128, 4, False),
+    (2, 1, 64, 16, False), (1, 77, 100, 8, False), (3, 65, 33, 5, False)])
+def test_selective_scan_kernel_matches_plain(cuda, B, S, Di, N, h0_zero):
+    rng = np.random.default_rng(5)
+    args = _scan_inputs(rng, B, S, Di, N, cuda, h0_zero)
+    before = selective_scan_kernel.launches
+    y, h = selective_scan_kernel(*args)
+    torch.cuda.synchronize()
+    assert selective_scan_kernel.launches == before + 1
+    yr, hr = selective_scan_ref(*args)
+    torch.testing.assert_close(y, yr, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h, hr, atol=1e-5, rtol=1e-5)
+
+
+def test_selective_scan_reads_b_and_c_in_place(cuda):
+    """B and C as column slices of one (B, S, dtr + 2N) tensor, as the
+    Mamba layer hands them over, read through their strides."""
+    rng = np.random.default_rng(6)
+    x, dt, _, _, a, h0 = _scan_inputs(rng, 2, 90, 64, 16, cuda)
+    bcd = torch.from_numpy(rng.standard_normal((2, 90, 8 + 32)).astype(
+        np.float32)).to(cuda)
+    bm, cm = bcd[..., 8:24], bcd[..., 24:]
+    y, h = selective_scan(x, dt, bm, cm, a, h0)
+    yr, hr = selective_scan_ref(x, dt, bm.contiguous(), cm.contiguous(),
+                                a, h0)
+    torch.testing.assert_close(y, yr, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h, hr, atol=1e-5, rtol=1e-5)
+
+
+def test_selective_scan_refuses_what_it_cannot_take(cuda):
+    rng = np.random.default_rng(7)
+    args = _scan_inputs(rng, 1, 8, 32, 17, cuda)
+    with pytest.raises(ValueError, match="ssm_state up to 16"):
+        selective_scan_kernel(*args)
+    x, dt, bm, cm, a, h0 = _scan_inputs(rng, 1, 8, 32, 4, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        selective_scan_kernel(x.bfloat16(), dt, bm, cm, a, h0)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def test_tiny_mamba_engine_on_the_card_matches_the_cpu(cuda):
+    """The Mamba serving path in float32 through the slot pool: the scan
+    kernel on the card, the plain versions on the CPU, the same greedy
+    streams (a one-token prompt takes the single-step branch)."""
+    from repro_torch.models import get_config, init_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b", tiny=True),
+                              dtype=torch.float32)
+    cpu = init_params(cfg, seed=0, device="cpu")
+    prompts = [[5, 9, 2, 77, 3, 1, 8, 100], [5, 9, 2, 77, 60], [42],
+               list(range(20, 53)), [7, 7]]
+    streams = []
+    for params, device in ((cpu, "cpu"), (_to(cpu, cuda), "cuda")):
+        eng = ServeEngine(cfg, params, device=device, slots_per_replica=4,
+                          max_len=48)
+        assert not eng.paged
+        before = selective_scan_kernel.launches
+        rids = [eng.submit(p, 8) for p in prompts]
+        out = eng.run()
+        eng.shutdown()
+        streams.append([out[r] for r in rids])
+        if device == "cuda":
+            assert (selective_scan_kernel.launches - before
+                    == cfg.num_layers * sum(len(p) > 1 for p in prompts))
+    assert streams[0] == streams[1]

@@ -12,7 +12,10 @@ are held to on the card) match ``jax.grad`` of the reference's within
 in another order).  The plain int8 codec gives the bytes of the
 reference's jnp codec reference; the plain block hash's word view is the
 reference's ``words_view``, and the plain ABFT encode, extended product
-and residuals match the reference's jnp oracle within 2e-5.
+and residuals match the reference's jnp oracle within 2e-5.  The plain
+selective scan matches the reference's Pallas scan (interpret mode) and
+its sequential oracle within 1e-5 (tests/test_kernels.py's tolerance),
+at ragged lengths, two rows and a nonzero initial state.
 """
 import jax
 import jax.numpy as jnp
@@ -33,6 +36,9 @@ from repro.kernels.paged_attention.ops import \
     paged_decode_attention as jax_paged
 from repro.kernels.rmsnorm.ops import rms_norm as jax_rms_norm
 from repro.kernels.rmsnorm.ref import rms_norm_ref as jax_rms_norm_ref
+from repro.kernels.selective_scan.ops import selective_scan as jax_scan
+from repro.kernels.selective_scan.ref import \
+    selective_scan_ref as jax_scan_ref
 from repro_torch.kernels.abft_matmul.ref import (abft_matmul_ref,
                                                  encode_ref, residuals_ref)
 from repro_torch.kernels.block_hash.ref import words_per_element, words_view
@@ -42,6 +48,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.kernels.rmsnorm.ops import rms_norm
 from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
+from repro_torch.kernels.selective_scan.ops import selective_scan
+from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -257,3 +265,33 @@ def test_abft_plain_matches_jax_ref(M, K, N):
     for got, want in zip(residuals_ref(full),
                          jax_residuals_ref(jnp.asarray(full.numpy()))):
         _close(got, want, 2e-4)
+
+
+@pytest.mark.parametrize("B,S,Di,N,h0_zero", [(1, 64, 32, 4, True),
+                                              (2, 100, 64, 8, False),
+                                              (1, 37, 128, 16, False),
+                                              (2, 1, 16, 16, False)])
+def test_selective_scan_plain_matches_jax(B, S, Di, N, h0_zero):
+    """tests/test_kernels.py's draws, from numpy: x, B, C ~ N(0, 1), dt =
+    softplus(N(0, 1)) / 10, A = -exp(N(0, 1) / 5), h0 ~ N(0, 1) / 10."""
+    rng = np.random.default_rng(S)
+
+    def randn(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    x, bm, cm = randn(B, S, Di), randn(B, S, N), randn(B, S, N)
+    dt = (np.logaddexp(randn(B, S, Di), 0.0) * 0.1).astype(np.float32)
+    a = -np.exp(randn(Di, N) * 0.2).astype(np.float32)
+    h0 = np.zeros((B, Di, N), np.float32) if h0_zero else randn(B, Di, N) * 0.1
+    args = (x, dt, bm, cm, a, h0)
+    y, h = selective_scan(*(torch.from_numpy(t) for t in args))
+    assert y.dtype == h.dtype == torch.float32
+    jargs = [jnp.asarray(t) for t in args]
+    for want_y, want_h in (jax_scan(*jargs, interpret=True),
+                           jax_scan_ref(*jargs)):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y),
+                                   atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(h.numpy(), np.asarray(want_h),
+                                   atol=1e-5, rtol=1e-5)
+    ty, th = selective_scan_ref(*(torch.from_numpy(t) for t in args))
+    assert torch.equal(ty, y) and torch.equal(th, h)
