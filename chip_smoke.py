@@ -366,10 +366,17 @@ def _flash_cases(gen, bw, flops):
                                   BF16_TOL),
                       check_close(label + " lse", lse,
                                   _plain_lse(q, k, **kw), FP32_TOL))
-            del o, lse
+            o2, lse2 = flash_attention_bshd(q, k, v, lse=True, **kw)
+            same = torch.equal(o, o2) and torch.equal(lse, lse2)
+            del o, lse, o2, lse2
         else:
-            err = check_close(label, flash_attention_bshd(q, k, v, **kw),
-                              flash_attention_ref(q, k, v, **kw), BF16_TOL)
+            o = flash_attention_bshd(q, k, v, **kw)
+            err = check_close(label, o, flash_attention_ref(q, k, v, **kw),
+                              BF16_TOL)
+            same = torch.equal(o, flash_attention_bshd(q, k, v, **kw))
+            del o
+        if not same:
+            raise AssertionError(f"{label}: two calls differ")
         kw_t = dict(iters=3, reps=3) if train else {}
         library_ms = None
         if not window and not softcap:
@@ -377,22 +384,25 @@ def _flash_cases(gen, bw, flops):
             library_ms = time_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True), **kw_t)
-        op_s = 4 * B * H * hd * _attended_pairs(S, True, window) / flops
+        ops = 4 * B * H * hd * _attended_pairs(S, True, window)
+        op_s = ops / flops
         byte_s = (2 * B * (2 * S * H * hd + 2 * S * K * hd)
                   + (B * H * S * 4 if train else 0)) / bw
+        kernel_ms = time_ms(
+            lambda: flash_attention_bshd(q, k, v, lse=train, **kw), **kw_t)
         out.append({
             "shape": f"q ({B}, {S}, {H}, {hd}) kv ({B}, {S}, {K}, {hd}) "
                      f"bf16 causal window={window} softcap={softcap}"
                      + (" lse" if train else ""),
             "main": S == MAX_LEN and not window, "max_abs_err": err,
             "tol": {"o": BF16_TOL, "lse": FP32_TOL} if train else BF16_TOL,
-            "kernel_ms": time_ms(
-                lambda: flash_attention_bshd(q, k, v, lse=train, **kw),
-                **kw_t),
+            "repeat_bit_equal": same, "kernel_ms": kernel_ms,
             "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, **kw),
                                 **kw_t),
             "library_ms": library_ms, "bound_ms": max(op_s, byte_s) * 1e3,
-            "bound_by": "operations" if op_s >= byte_s else "bytes"})
+            "bound_by": "operations" if op_s >= byte_s else "bytes",
+            "tflops": ops / kernel_ms / 1e9,
+            "share_of_bound": max(op_s, byte_s) * 1e3 / kernel_ms})
         del q, k, v
     return out
 
@@ -616,23 +626,27 @@ def _flash_bwd_cases(gen, bw, flops, fp32_flops):
             del lib
         pairs = _attended_pairs(S, True, window)
         peak = flops if dtype == torch.bfloat16 else fp32_flops
-        op_s = 10 * hd * pairs * H * B / peak
+        ops = 10 * hd * pairs * H * B
+        op_s = ops / peak
         es = q.element_size()
         byte_s = ((4 * B * S * H * hd + 4 * B * S * K * hd) * es
                   + B * H * S * 4) / bw
+        kernel_ms = time_ms(
+            lambda: flash_attention_bshd_bwd(q, k, v, o, do, lse, **kw),
+            iters=3, reps=3)
         out.append({
             "shape": f"q (B={B}, {S}, {H}, {hd}) kv ({S}, {K}, {hd}) "
                      f"{str(dtype).split('.')[-1]} causal window={window} "
                      f"softcap={softcap}",
             "main": dtype == torch.bfloat16 and not window,
-            "max_abs_err": err, "tol": tol,
-            "kernel_ms": time_ms(
-                lambda: flash_attention_bshd_bwd(q, k, v, o, do, lse, **kw),
-                iters=3, reps=3),
+            "max_abs_err": err, "tol": tol, "repeat_bit_equal": True,
+            "kernel_ms": kernel_ms,
             "plain_ms": _bwd_ms(plain, leaves, do, iters=3, reps=3),
             "library_ms": library_ms,
             "bound_ms": max(op_s, byte_s) * 1e3,
-            "bound_by": "operations" if op_s >= byte_s else "bytes"})
+            "bound_by": "operations" if op_s >= byte_s else "bytes",
+            "tflops": ops / kernel_ms / 1e9,
+            "share_of_bound": max(op_s, byte_s) * 1e3 / kernel_ms})
         del q, k, v, do, o, lse, got, again, leaves, want
         torch.cuda.empty_cache()
     return out
@@ -1506,6 +1520,10 @@ def phase_train(seed: int):
               "tokens_per_s": tokens / (eager_ms / 1e3),
               "kernels_per_step": prof["kernels_per_call"],
               "device_ms_by_group": prof["device_ms_by_group"],
+              "flash_fwd_ms": prof["device_ms_by_group"].get(
+                  "flash_attention", 0.0),
+              "flash_bwd_ms": prof["device_ms_by_group"].get(
+                  "flash_attention_bwd", 0.0),
               "top_kernels_ms": prof["top_kernels_ms"],
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
 

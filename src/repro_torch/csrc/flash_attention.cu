@@ -8,30 +8,29 @@
 // in place (the TPU wrapper transposed to (B, H, S, hd) first).  The kv
 // head of q head h is h / (H / K).
 //
-// Bound on the H100 at prefill shapes: bytes at S = 288 (q, k, v, o read
-// or written once: 5.9 MB against 0.68 GFLOP of unmasked q.k pairs at
-// 32 heads of 128), operations from S of about 750 up.  Design: one block
-// per (64-row q tile, q head, batch); kv tiles of 64 rows stream through
-// shared memory only up to the causal bound of the q tile (and from the
-// window's lower bound); the softmax state (m, l) and the output
-// accumulator stay in registers in fp32.
+// Bound on the H100: bytes at the serve shape (S = 288: q, k, v, o read
+// or written once, 5.9 MB against 0.68 GFLOP of unmasked q.k pairs at
+// 32 heads of 128), operations from S of about 750 up (the train shape,
+// B 2, S 2048: 68.7 GFLOP, 0.0695 ms at 989 TFLOP/s).  The softmax state
+// (m, l) and the output accumulator stay in registers in fp32; kv tiles
+// stream through shared memory only up to the causal bound of the q tile
+// (and from the window's lower bound).
 //
-// bfloat16 (the serving path) runs on the tensor cores: 4 warps of 16 q
-// rows each; S = Q K^T and O += P V are mma.sync m16n8k16 products with
-// fp32 accumulation, fed by ldmatrix from padded (conflict-free) shared
-// tiles; P is rounded to bf16 for the second product, as the plain
-// version rounds it.  The scale multiplies the fp32 scores (the TPU kernel
-// scales q in fp32 before its dot; the two differ by fp32 rounding).
-// float32 runs on the CUDA cores (4 threads per q row, operands in shared
-// memory), for the small float32 configurations; wgmma/TMA tiles are
-// later work.
+// bfloat16 (the serving and train paths) runs on Hopper's asynchronous
+// units: TMA loads into a two-stage shared ring, wgmma products,
+// warp-specialised blocks (see flash_fwd_bf16_wgmma below).  P is rounded
+// to bf16 for the second product, as the plain version rounds it.  The
+// scale multiplies the fp32 scores (the TPU kernel scales q in fp32
+// before its dot; the two differ by fp32 rounding).  float32 runs on the
+// CUDA cores (4 threads per q row, operands in shared memory), for the
+// small float32 configurations.
 //
 // Ragged tails are masked, not asserted: S and Sk need not be multiples of
-// the tile.  Masked scores get p = 0 explicitly, so a tile that is fully
-// masked for a row leaves that row's state bit-for-bit unchanged — a
-// row's result does not depend on S or on the other rows of its tile.
+// the tile.  Masked scores get p = 0, so a tile that is fully masked for
+// a row leaves that row's state bit-for-bit unchanged — a row's result
+// does not depend on S or on the other rows of its tile.
 #include "common.cuh"
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -39,7 +38,6 @@ constexpr int BQ = 64;
 constexpr int BK = 64;
 constexpr int NT = 256;          // float32: 4 threads per q row
 constexpr int CPT = BK / 4;      // float32: score columns per thread
-constexpr int NT_MMA = 128;      // bfloat16: 4 warps x 16 q rows
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -164,186 +162,280 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-template <int HD>
-constexpr size_t smem_bytes_mma() {
-  return sizeof(__nv_bfloat16) * 3 * BQ * (HD + 8);
+// ---- bfloat16: wgmma fed by a TMA ring ----------------------------------------
+//
+// One block a (q tile of BQ = 64 NWG rows, q head, batch), NWG + 1
+// warpgroups and one producer warp (the last).  One thread of the
+// producer keeps TMA loads of the K and V tiles in
+// flight, FWD_STAGES deep, each stage with a K-full, a V-full and an
+// empty barrier.  Warpgroups 1..NWG are consumers, each owning 64 q rows:
+// S = Q K^T (m64n128k16, Q and K from shared memory), the online softmax
+// in registers, O += P V (P as the register A operand, V through the
+// transposed-B descriptor).  K and V tiles are FWD_BK = 128 rows whatever
+// S, B or BQ, visited in ascending order, so a row's result does not
+// depend on the sequence length or the tile it sits in (serving's
+// token-identical retries).  Masks: only a tile that crosses the
+// diagonal, the window's lower edge or the end of Sk tests its elements;
+// a tile fully masked for a warpgroup is skipped (it would leave the
+// row's state bit-for-bit as it is).
+//
+// Schedule: the block index runs over heads first, then batches, then q
+// tiles from the last (heaviest under causal: the most kv tiles) to the
+// first, so the long blocks start in the first wave and the short ones
+// fill the tail.  A persistent grid walking the same list would also
+// overlap one tile's epilogue with the next tile's loads; reversing the
+// launch order gets the balance without a scheduler.
+constexpr int FWD_BK = 128;
+constexpr int FWD_STAGES = 2;
+
+template <int HD, int NWG>
+constexpr size_t smem_fwd() {
+  return 1024 + Tile<HD>::bytes(64 * NWG) +
+         2 * FWD_STAGES * Tile<HD>::bytes(FWD_BK) + 8 * (1 + 3 * FWD_STAGES);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(NT_MMA)
-    flash_fwd_bf16_mma(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       __nv_bfloat16* __restrict__ o,
-                       float* __restrict__ lse, int S, int Sk, int H, int K,
-                       float scale, int causal, int window, float softcap) {
-  constexpr int LD = HD + 8;            // padded row: ldmatrix conflict-free
-  constexpr int KS = HD / 16;           // k-steps of Q K^T
-  constexpr int NS = BK / 8;            // score n-tiles per warp
-  constexpr int ND = HD / 8;            // output n-tiles per warp
-  extern __shared__ __align__(16) __nv_bfloat16 smem_bf[];
-  __nv_bfloat16* Qs = smem_bf;
-  __nv_bfloat16* Ks = Qs + BQ * LD;
-  __nv_bfloat16* Vs = Ks + BK * LD;
+// Registers: the producer is one warp, not a warpgroup, so the block is
+// 128 NWG + 32 threads and each may hold 224 (NWG 2) or 255 (NWG 1)
+// registers.  A producer warpgroup that hands its registers to the
+// consumers with setmaxnreg (24 / 240 of 168 at 384 threads) was tried:
+// ptxas (CUDA 12.9) still held the consumer code to the 168 of the launch
+// bound, and the backward's spilled around in-flight wgmma products.
+__host__ __device__ constexpr int fwd_threads(int nwg) {
+  return 128 * nwg + 32;
+}
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+template <int HD, int NWG>
+__global__ void __launch_bounds__(fwd_threads(NWG), 1)
+    flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         __nv_bfloat16* __restrict__ o,
+                         float* __restrict__ lse, int B, int S, int Sk,
+                         int H, int K, float scale, int causal, int window,
+                         float softcap) {
+  using T = Tile<HD>;
+  constexpr int BQ = 64 * NWG, BK = FWD_BK, ST = FWD_STAGES;
+  constexpr uint32_t QB = T::bytes(BQ), KB = T::bytes(BK);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t sQ = smem_u32(smem), sK = sQ + QB, sV = sK + ST * KB;
+  const uint32_t bars = sV + ST * KB;       // q_full, k_full[ST], v_full[ST],
+  const uint32_t q_full = bars;             // empty[ST]
+  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + ST + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 2 * ST + s); };
+
+  const int nq = (S + BQ - 1) / BQ;
+  int id = blockIdx.x;
+  const int h = id % H;
+  id /= H;
+  const int b = id % B;
+  const int q_lo = (nq - 1 - id / B) * BQ;   // heaviest q tile first
   const int kh = h / (H / K);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q_lo = qt * BQ;
-  const long long q_row = static_cast<long long>(H) * HD;
-  const long long kv_row = static_cast<long long>(K) * HD;
-  const __nv_bfloat16* qb = q + static_cast<long long>(b) * S * q_row +
-                            static_cast<long long>(h) * HD;
-  const __nv_bfloat16* kb = k + static_cast<long long>(b) * Sk * kv_row +
-                            static_cast<long long>(kh) * HD;
-  const __nv_bfloat16* vb = v + static_cast<long long>(b) * Sk * kv_row +
-                            static_cast<long long>(kh) * HD;
-
-  load_rows_bf16<HD, BQ, NT_MMA>(Qs, qb, q_row, q_lo, S);
-  __syncthreads();
-  unsigned qa[KS][4];                   // this warp's 16 q rows, A operand
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    ldmatrix_x4(qa[kk], Qs + (warp * 16 + (lane & 15)) * LD + kk * 16 +
-                            (lane >> 4) * 8);
-
-  // this thread's two rows of the warp's 16: r0 and r0 + 8
-  const int row0 = q_lo + warp * 16 + (lane >> 2);
-  const int rows[2] = {row0, row0 + 8};
-  float m[2] = {REPRO_NEG_INF, REPRO_NEG_INF}, l[2] = {0.f, 0.f};
-  float acc[ND][4];
-#pragma unroll
-  for (int i = 0; i < ND; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
   const int nk = (Sk + BK - 1) / BK;
-  int hi = nk;
-  if (causal) hi = min(nk, (min(q_lo + BQ, S) - 1) / BK + 1);
-  const int lo = window > 0 ? max(0, q_lo - window + 1) / BK : 0;
+  const int hi = causal ? min(nk, (min(q_lo + BQ, S) - 1) / BK + 1) : nk;
+  const int lo = window > 0 ? min(hi, max(0, q_lo - window + 1) / BK) : 0;
 
-  for (int j = lo; j < hi; ++j) {
-    const int k_lo = j * BK;
-    __syncthreads();            // previous tile consumed
-    load_rows_bf16<HD, BK, NT_MMA>(Ks, kb, kv_row, k_lo, Sk);
-    load_rows_bf16<HD, BK, NT_MMA>(Vs, vb, kv_row, k_lo, Sk);
-    __syncthreads();
-
-    float sc[NS][4];
-#pragma unroll
-    for (int t = 0; t < NS; ++t)
-      sc[t][0] = sc[t][1] = sc[t][2] = sc[t][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-      for (int jn = 0; jn < NS / 2; ++jn) {
-        unsigned kb4[4];
-        ldmatrix_x4(kb4, Ks + (jn * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
-                             kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_16816(sc[2 * jn], qa[kk], kb4[0], kb4[1]);
-        mma_16816(sc[2 * jn + 1], qa[kk], kb4[2], kb4[3]);
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), 4 * NWG);          // lane 0 of each consumer warp
     }
-
-    unsigned ok_bits = 0u;              // bit 4 * t + e: score (t, e) kept
-    float mx[2] = {REPRO_NEG_INF, REPRO_NEG_INF};
-#pragma unroll
-    for (int t = 0; t < NS; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qpos = rows[e >> 1];
-        const int kpos = k_lo + t * 8 + (lane & 3) * 2 + (e & 1);
-        float s = sc[t][e] * scale;
-        if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-        bool ok = kpos < Sk;
-        if (causal) ok = ok && kpos <= qpos;
-        if (window > 0) ok = ok && qpos - kpos < window;
-        sc[t][e] = ok ? s : REPRO_NEG_INF;
-        ok_bits |= (ok ? 1u : 0u) << (4 * t + e);
-        mx[e >> 1] = fmaxf(mx[e >> 1], sc[t][e]);
-      }
-    }
-    float corr[2], psum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      corr[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int t = 0; t < NS; ++t) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = (ok_bits >> (4 * t + e)) & 1u
-                            ? expf(sc[t][e] - m[e >> 1]) : 0.f;
-        sc[t][e] = p;
-        psum[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 1);
-      psum[r] += __shfl_xor_sync(0xffffffffu, psum[r], 2);
-      l[r] = l[r] * corr[r] + psum[r];
-    }
-#pragma unroll
-    for (int i = 0; i < ND; ++i) {
-      acc[i][0] *= corr[0];
-      acc[i][1] *= corr[0];
-      acc[i][2] *= corr[1];
-      acc[i][3] *= corr[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      unsigned pa[4];
-      c_to_a(pa, sc, kk);
-#pragma unroll
-      for (int dn = 0; dn < HD / 16; ++dn) {
-        unsigned vb4[4];
-        ldmatrix_x4_trans(vb4, Vs + (kk * 16 + (lane & 7) +
-                                     ((lane >> 3) & 1) * 8) * LD +
-                                   dn * 16 + (lane >> 4) * 8);
-        mma_16816(acc[2 * dn], pa, vb4[0], vb4[1]);
-        mma_16816(acc[2 * dn + 1], pa, vb4[2], vb4[3]);
-      }
-    }
+    mbar_fence_init();
   }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;          // NWG: the producer warp
+  if (wg == NWG) {
+    if (threadIdx.x == 128 * NWG) {
+      mbar_expect_tx(q_full, QB);
+#pragma unroll
+      for (int a = 0; a < T::NA; ++a)
+        tma_load_3d(sQ + a * BQ * T::RB, &tq, h * HD + a * T::SW, q_lo, b,
+                    q_full);
+      int i = 0;
+      for (int j = lo; j < hi; ++j, ++i) {
+        const int s = i % ST;
+        mbar_wait(empty(s), ((i / ST) & 1) ^ 1);
+        mbar_expect_tx(k_full(s), KB);
+#pragma unroll
+        for (int a = 0; a < T::NA; ++a)
+          tma_load_3d(sK + s * KB + a * BK * T::RB, &tk, kh * HD + a * T::SW,
+                      j * BK, b, k_full(s));
+        mbar_expect_tx(v_full(s), KB);
+#pragma unroll
+        for (int a = 0; a < T::NA; ++a)
+          tma_load_3d(sV + s * KB + a * BK * T::RB, &tv, kh * HD + a * T::SW,
+                      j * BK, b, v_full(s));
+      }
+      // the consumers' last releases: a consumer that never arrives makes
+      // this wait trap instead of leaving the launch hung
+      for (int n = 0; n < ST; ++n, ++i)
+        mbar_wait(empty(i % ST), ((i / ST) & 1) ^ 1);
+    }
+  } else {
+    const int cw = wg;                         // consumer warpgroup
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int t = lane & 3;
+    const int wq_lo = q_lo + 64 * cw;          // this warpgroup's rows
+    const int row0 = wq_lo + 16 * warp + (lane >> 2);   // and row0 + 8
+    // x = the score in base 2: s * scale * log2 e, or under the softcap
+    // cap * tanh(s * scale / cap) * log2 e.  __fmul_rn keeps the compiler
+    // from fusing it differently on edge and interior tiles.
+    const float c_out = (softcap > 0.f ? softcap : scale) * REPRO_LOG2E;
+    const float c_in = softcap > 0.f ? scale / softcap : 0.f;
+
+    float acc[HD / 2];
+#pragma unroll
+    for (int e = 0; e < HD / 2; ++e) acc[e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    mbar_wait(q_full, 0);
+
+    int i = 0;
+    for (int j = lo; j < hi; ++j, ++i) {
+      const int s = i % ST;
+      const uint32_t ph = (i / ST) & 1;
+      const int k_lo = j * BK;
+      const bool skip = (causal && k_lo > wq_lo + 63) ||
+                        (window > 0 && wq_lo - (k_lo + BK - 1) >= window);
+      if (!skip) {
+        mbar_wait(k_full(s), ph);
+        float sc[BK / 2];
+        const uint64_t qd = T::kdesc(sQ + 64 * cw * T::RB);
+        const uint64_t kd = T::kdesc(sK + s * KB);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss<BK>(sc, T::kstep(qd, BQ, kk), T::kstep(kd, BK, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= S) continue;
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    if (lse != nullptr && (lane & 3) == 0)
-      lse[(static_cast<long long>(b) * H + h) * S + rows[r]] =
-          m[r] + logf(l[r]);
-    __nv_bfloat16* orow = o + static_cast<long long>(b) * S * q_row +
-                          rows[r] * q_row + static_cast<long long>(h) * HD;
+        for (int e = 0; e < BK / 2; ++e)
+          sc[e] = softcap > 0.f ? __fmul_rn(tanhf(__fmul_rn(sc[e], c_in)), c_out)
+                                : __fmul_rn(sc[e], c_out);
+        const bool edge = (causal && k_lo + BK - 1 > wq_lo) ||
+                          (window > 0 && wq_lo + 63 - k_lo >= window) ||
+                          k_lo + BK > Sk;
+        if (edge) {
 #pragma unroll
-    for (int i = 0; i < ND; ++i) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + i * 8 + (lane & 3) * 2) =
-          __floats2bfloat162_rn(acc[i][2 * r] * inv, acc[i][2 * r + 1] * inv);
+          for (int e = 0; e < BK / 2; ++e) {
+            const int qpos = row0 + 8 * ((e >> 1) & 1);
+            const int kpos = k_lo + 8 * (e >> 2) + 2 * t + (e & 1);
+            bool ok = kpos < Sk;
+            if (causal) ok = ok && kpos <= qpos;
+            if (window > 0) ok = ok && qpos - kpos < window;
+            if (!ok) sc[e] = -INFINITY;
+          }
+        }
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e)
+          mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+        float corr[2], base[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m[r], mx[r]);
+          // a row with nothing unmasked yet keeps m = -inf: exponentiate
+          // against 0 then (every p is 0), and leave an unchanged max's
+          // state exactly as it is
+          base[r] = m_new == -INFINITY ? 0.f : m_new;
+          corr[r] = m_new == m[r] ? 1.f : ex2(m[r] - base[r]);
+          m[r] = m_new;
+        }
+        float rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) {
+          const float p = ex2(sc[e] - base[(e >> 1) & 1]);
+          sc[e] = p;
+          rs[(e >> 1) & 1] += p;
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + rs[r];
+#pragma unroll
+        for (int e = 0; e < HD / 2; ++e) acc[e] *= corr[(e >> 1) & 1];
+        unsigned pa[BK / 16][4];
+        acc_to_a<BK>(pa, sc);
+
+        mbar_wait(v_full(s), ph);
+        const uint64_t vd = T::mndesc(sV + s * KB, BK);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_rs<HD>(acc, pa[kk], T::mnstep(vd, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(pa);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
     }
+
+    // epilogue: l over the row's four lanes; O through this warpgroup's own
+    // Q rows (no product reads them any more) to 16-byte stores
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+      const int row = row0 + 8 * r;
+      if (lse != nullptr && t == 0 && row < S)
+        lse[(static_cast<long long>(b) * H + h) * S + row] =
+            (m[r] + log2f(l[r])) * REPRO_LN2;
+    }
+#pragma unroll
+    for (int e = 0; e < HD / 2; ++e) acc[e] *= inv[(e >> 1) & 1];
+    uint8_t* slice = smem + 64 * cw * T::RB;
+    stage_acc<HD>(slice, BQ, acc, 1.f);
+    named_bar_sync(1 + cw, 128);
+    const long long ld = static_cast<long long>(H) * HD;
+    store_slice<HD>(o + static_cast<long long>(b) * S * ld + h * HD, ld, slice,
+                    BQ, wq_lo, S, threadIdx.x & 127);
   }
 }
 
-template <int HD>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int S, int Sk, int H, int K,
-                       float scale, int causal, int window, float softcap,
-                       cudaStream_t stream) {
-  auto kernel = flash_fwd_bf16_mma<HD>;
-  const size_t bytes = smem_bytes_mma<HD>();
-  static size_t allowed = 48 * 1024;     // per instantiation
-  cudaError_t err = allow_smem(kernel, bytes, allowed);
+template <int HD, int NWG>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* o, float* lse, int B, int S, int Sk, int H,
+                         int K, float scale, int causal, int window,
+                         float softcap, cudaStream_t stream) {
+  constexpr int BQ = 64 * NWG;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = head_map<HD>(&tq, q, B, S, H, BQ);
+  if (err == cudaSuccess) err = head_map<HD>(&tk, k, B, Sk, K, FWD_BK);
+  if (err == cudaSuccess) err = head_map<HD>(&tv, v, B, Sk, K, FWD_BK);
   if (err != cudaSuccess) return err;
-  dim3 grid((S + BQ - 1) / BQ, H, B);
-  kernel<<<grid, NT_MMA, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      lse, S, Sk, H, K, scale, causal, window, softcap);
+  auto kernel = flash_fwd_bf16_wgmma<HD, NWG>;
+  constexpr size_t bytes = smem_fwd<HD, NWG>();
+  static size_t allowed = 48 * 1024;     // per instantiation
+  err = allow_smem(kernel, bytes, allowed);
+  if (err != cudaSuccess) return err;
+  const long long blocks = static_cast<long long>((S + BQ - 1) / BQ) * H * B;
+  kernel<<<static_cast<unsigned>(blocks), fwd_threads(NWG), bytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, B, S, Sk, H, K,
+      scale, causal, window, softcap);
   return cudaGetLastError();
+}
+
+// two consumer warpgroups (BQ = 128) when that grid fills the card, else
+// one (BQ = 64): a B = 1 prefill of 288 rows gives 96 blocks at 128
+template <int HD>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        float* lse, int B, int S, int Sk, int H, int K,
+                        float scale, int causal, int window, float softcap,
+                        cudaStream_t stream) {
+  if (static_cast<long long>((S + 127) / 128) * H * B >= sm_count())
+    return launch_wgmma<HD, 2>(q, k, v, o, lse, B, S, Sk, H, K, scale,
+                               causal, window, softcap, stream);
+  return launch_wgmma<HD, 1>(q, k, v, o, lse, B, S, Sk, H, K, scale, causal,
+                             window, softcap, stream);
 }
 
 template <typename T, int HD>
@@ -370,8 +462,8 @@ cudaError_t launch_dtype(int dtype, const void* q, const void* k,
                          int Sk, int H, int K, float scale, int causal,
                          int window, float softcap, cudaStream_t s) {
   if (dtype == DT_BF16)
-    return launch_mma<HD>(q, k, v, o, lse, B, S, Sk, H, K, scale, causal,
-                          window, softcap, s);
+    return launch_bf16<HD>(q, k, v, o, lse, B, S, Sk, H, K, scale, causal,
+                           window, softcap, s);
   if (dtype == DT_F32)
     return launch<float, HD>(q, k, v, o, lse, B, S, Sk, H, K, scale, causal,
                              window, softcap, s);

@@ -24,20 +24,15 @@
 // Bound on the H100 at the train shape (S = 2048, 32/8 heads of 128,
 // bf16): operations, ~10 * hd flops per unmasked (q, k) pair.
 //
-// bfloat16 (the train path) runs on the tensor cores: 4 warps a block, each
-// owning 16 rows of the block's 64-row tile (k rows in pass 1, q rows in
-// pass 2); the four products a tile pair needs (S^T = K Q^T, dP^T =
-// V dO^T, dV += P^T dO, dK += dS^T Q in pass 1; S = Q K^T, dP = dO V^T,
-// dQ += dS K in pass 2) are mma.sync m16n8k16 with fp32 accumulation,
-// fed by ldmatrix from padded shared tiles — the forward's two patterns.
-// P and dS are rounded to bf16 for the products that consume them, as
-// the forward rounds P.  float32 runs on the CUDA cores: 64-row tiles of
-// q, k, v, dO in shared memory as float32 (padded rows), each of 256
-// threads owning a 4 x 4 block of the 64 x 64 score tile and a 4 x hd/16
-// block of the accumulators in registers.  cp.async/TMA double buffering
-// and wgmma are later work.
+// bfloat16 (the train path) runs on Hopper's asynchronous units: TMA rings
+// in shared memory, wgmma products, warp-specialised blocks (see the
+// bf16 section below).  P and dS are rounded to bf16 for the products that
+// consume them, as the forward rounds P.  float32 runs on the CUDA cores:
+// 64-row tiles of q, k, v, dO in shared memory as float32 (padded rows),
+// each of 256 threads owning a 4 x 4 block of the 64 x 64 score tile and a
+// 4 x hd/16 block of the accumulators in registers.
 #include "common.cuh"
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -382,348 +377,505 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-constexpr int BT_MMA = 64;       // bf16: k and q tile rows
-constexpr int NT_MMA = 128;      // bf16: 4 warps x 16 tile rows
+// ---- bfloat16: wgmma fed by TMA rings ------------------------------------------
+//
+// Three launches, deterministic, no float atomics:
+//   prep:   D = rowsum(dO * O) and L2 = lse * log2 e, (B, H, Sp) each with
+//           Sp = S rounded up to 128, padded with D = 0, L2 = +inf (P = 0);
+//   pass 1: dK, dV.  One block a (64-row k tile, kv head, batch): K and V
+//           stay in shared memory; the G q heads of the group and their
+//           q tiles (p1_bq rows) stream through a TMA ring (Q, dO, and L2,
+//           D by bulk copy) in a fixed order, and one consumer warpgroup
+//           sums into registers
+//             S^T = K Q^T, dP^T = V dO^T      (wgmma, both from shared)
+//             P^T, dS^T elementwise           (edge tiles masked)
+//             dV += P^T dO, dK += dS^T Q      (P^T, dS^T as register A,
+//                                              dO, Q transposed-B);
+//   pass 2: dQ.  One block a (128-row q tile, q head, batch): Q and dO stay
+//           in shared memory, 64-row K and V tiles stream through the ring
+//           in ascending order; S = Q K^T, dP = dO V^T, dQ += dS K.
+// Pass 2 recomputes S and dP (7 products a tile pair where a backward with
+// atomic dQ needs 5): the price of a fixed summation order, which bit-equal
+// repeated steps and bit-exact recovery rest on.
+//
+// Schedule (both passes: one block an output tile, heaviest first): pass 1
+// runs k tiles in ascending order (under causal k tile 0 sees every q
+// tile), pass 2 q tiles in descending order; heads and batches vary
+// fastest.  Registers: pass 1 holds dK and dV (HD fp32 a thread) and the
+// S^T and dP^T tiles of a q tile (see p1_bq).
+constexpr int P1_BK = 64;        // pass 1: k rows a block (one warpgroup)
+// pass 1: streamed q rows.  At hd 128 a consumer thread holds dK and dV
+// (128 fp32) for the whole loop; 64-row q tiles would add 96 (S^T, dP^T
+// and their bf16 copies), at the edge of 255, 32-row tiles add 48.
+template <int HD>
+__host__ __device__ constexpr int p1_bq() {
+  return HD == 128 ? 32 : 64;
+}
+constexpr int P2_BQ = 128;       // pass 2: q rows a block (2 x 64)
+constexpr int P2_BK = 64;        // pass 2: streamed k rows
+constexpr int BWD_STAGES = 2;
+constexpr int PAD = 128;         // Sp = S rounded up to PAD
 
 template <int HD>
-constexpr size_t smem_mma() {
-  return sizeof(__nv_bfloat16) * 4 * BT_MMA * (HD + 8) +
-         sizeof(float) * 2 * BT_MMA;
+constexpr size_t smem_p1() {
+  return 1024 + 2 * Tile<HD>::bytes(P1_BK) +
+         BWD_STAGES * (2 * Tile<HD>::bytes(p1_bq<HD>()) + 1024) +
+         8 * (1 + 2 * BWD_STAGES);
 }
 
-// P (and dS) of one score fragment s (16 x 8 n-tiles over a 64-row tile):
-// `rows_are_k` says whether the fragment's rows are keys (pass 1, S^T)
-// or queries (pass 2, S).  Ls/Ds are indexed by the query within its tile.
-// NT is a template argument so that the fragments stay in registers.
-template <int NT>
-__device__ __forceinline__ void mma_probs(float (*s)[4], float (*dp)[4],
-                                          const float* Ls, const float* Ds,
-                                          int row_pos0, int row_loc0,
-                                          int col_pos0, bool rows_are_k,
-                                          int S, int Sk, float scale,
-                                          int causal, int window,
-                                          float softcap) {
+template <int HD>
+constexpr size_t smem_p2() {
+  return 1024 + 2 * Tile<HD>::bytes(P2_BQ) +
+         2 * BWD_STAGES * Tile<HD>::bytes(P2_BK) + 8 * (1 + 3 * BWD_STAGES);
+}
+
+// D and L2 of each row (b, h, s), s < Sp; one warp a row.
+template <int HD>
+__global__ void flash_bwd_prep(const __nv_bfloat16* __restrict__ o,
+                               const __nv_bfloat16* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               float* __restrict__ dvec,
+                               float* __restrict__ l2, int B, int S, int H,
+                               int Sp) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (NTB / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
+  if (row >= static_cast<long long>(B) * H * Sp) return;
+  const int s = static_cast<int>(row % Sp);
+  const long long bh = row / Sp;
+  float acc = 0.f;
+  if (s < S) {
+    const long long b = bh / H, h = bh % H;
+    const long long off = ((b * S + s) * H + h) * HD;
+    for (int d = lane; d < HD; d += 32)
+      acc += __bfloat162float(o[off + d]) * __bfloat162float(dout[off + d]);
+  }
 #pragma unroll
-  for (int t = 0; t < NT; ++t) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int rpos = row_pos0 + (lane >> 2) + (e >> 1) * 8;
-      const int cpos = col_pos0 + t * 8 + (lane & 3) * 2 + (e & 1);
-      const int qpos = rows_are_k ? cpos : rpos;
-      const int kpos = rows_are_k ? rpos : cpos;
-      const int qloc = rows_are_k ? t * 8 + (lane & 3) * 2 + (e & 1)
-                                  : row_loc0 + (lane >> 2) + (e >> 1) * 8;
-      bool ok = qpos < S && kpos < Sk;
-      if (causal) ok = ok && kpos <= qpos;
-      if (window > 0) ok = ok && qpos - kpos < window;
-      const float sc = s[t][e] * scale;
-      float th = 0.f, z = sc;
-      if (softcap > 0.f) {
-        th = tanhf(sc / softcap);
-        z = th * softcap;
-      }
-      const float p = ok ? expf(z - Ls[qloc]) : 0.f;
-      float ds = p * (dp[t][e] - Ds[qloc]);
-      if (softcap > 0.f) ds *= 1.f - th * th;
-      s[t][e] = p;
-      dp[t][e] = ds;
+  for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
+  if (lane == 0) {
+    dvec[row] = acc;
+    l2[row] = s < S ? __fmul_rn(lse[bh * S + s], REPRO_LOG2E) : INFINITY;
+  }
+}
+
+// Pass 2: two consumer warpgroups and one producer warp, one block a SM.
+// ptxas holds a block with two warpgroups of wgmma products to 168
+// registers a thread (65536 / 384, with or without setmaxnreg: see
+// flash_fwd_bf16_wgmma), too few for pass 1's dK and dV (128 a thread)
+// beside its S^T and dP^T tiles; pass 1 runs one consumer warpgroup and
+// its producer warp, 160 threads of up to 255 registers.
+constexpr int BWD_THREADS = 288, P1_THREADS = 160;
+
+// The base-2 score x of a raw dot product s, and the softcap's derivative
+// factor 1 - tanh^2 (1 without a cap).
+struct Scores {
+  float c_out, c_in;
+  int cap;
+  __device__ __forceinline__ Scores(float scale, float softcap)
+      : c_out((softcap > 0.f ? softcap : scale) * REPRO_LOG2E),
+        c_in(softcap > 0.f ? scale / softcap : 0.f), cap(softcap > 0.f) {}
+  __device__ __forceinline__ float x(float s, float& dz) const {
+    if (!cap) {
+      dz = 1.f;
+      return __fmul_rn(s, c_out);
     }
+    const float th = tanhf(__fmul_rn(s, c_in));
+    dz = 1.f - th * th;
+    return __fmul_rn(th, c_out);
   }
-}
-
-// Stores a warp's 16 x HD accumulator (rows row0 + g, row0 + g + 8 of a
-// (rows, stride) head view) as bf16, times `mul`.
-template <int HD>
-__device__ __forceinline__ void store_rows_bf16(__nv_bfloat16* base,
-                                                long long stride,
-                                                const float (*acc)[4],
-                                                int row0, int rows,
-                                                float mul) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + (lane >> 2) + r * 8;
-    if (row >= rows) continue;
-    __nv_bfloat16* out = base + static_cast<long long>(row) * stride;
-#pragma unroll
-    for (int i = 0; i < HD / 8; ++i)
-      *reinterpret_cast<__nv_bfloat162*>(out + i * 8 + (lane & 3) * 2) =
-          __floats2bfloat162_rn(acc[i][2 * r] * mul,
-                                acc[i][2 * r + 1] * mul);
-  }
-}
+};
 
 template <int HD>
-__global__ void __launch_bounds__(NT_MMA)
-    flash_bwd_dkdv_mma(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       const __nv_bfloat16* __restrict__ dout,
-                       const float* __restrict__ lse,
-                       const float* __restrict__ dvec,
-                       __nv_bfloat16* __restrict__ dk,
-                       __nv_bfloat16* __restrict__ dv, int S, int Sk, int H,
-                       int K, float scale, int causal, int window,
-                       float softcap) {
-  constexpr int LD = HD + 8;
-  constexpr int NQ = BT_MMA / 8;          // score n-tiles (q columns)
-  extern __shared__ __align__(16) __nv_bfloat16 smem_bf[];
-  __nv_bfloat16* Ks = smem_bf;
-  __nv_bfloat16* Vs = Ks + BT_MMA * LD;
-  __nv_bfloat16* Qs = Vs + BT_MMA * LD;
-  __nv_bfloat16* dOs = Qs + BT_MMA * LD;
-  float* Ls = reinterpret_cast<float*>(dOs + BT_MMA * LD);
-  float* Ds = Ls + BT_MMA;
+__global__ void __launch_bounds__(P1_THREADS, 1)
+    flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const float* __restrict__ dvec,
+                         const float* __restrict__ l2,
+                         __nv_bfloat16* __restrict__ dk,
+                         __nv_bfloat16* __restrict__ dv, int B, int S, int Sk,
+                         int H, int K, int Sp, float scale, int causal,
+                         int window, float softcap) {
+  using T = Tile<HD>;
+  constexpr int BK = P1_BK, BQ = p1_bq<HD>(), ST = BWD_STAGES;
+  constexpr uint32_t KB = T::bytes(BK), QB = T::bytes(BQ);
+  // a stage: Q, dO, then L2 and D (2 x 4 BQ bytes) in a 1024-byte slot, so
+  // that every stage's tiles stay 1024-byte aligned
+  constexpr uint32_t STAGE = 2 * QB + 1024;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t sK = smem_u32(smem), sV = sK + KB, sS = sV + KB;
+  auto sQ = [&](int s) { return sS + s * STAGE; };
+  auto sdO = [&](int s) { return sS + s * STAGE + QB; };
+  auto sL = [&](int s) {
+    return reinterpret_cast<const float*>(smem + 2 * KB + s * STAGE + 2 * QB);
+  };
+  const uint32_t bars = sS + ST * STAGE;   // kv_full, full[ST], empty[ST]
+  const uint32_t kv_full = bars;
+  auto full = [&](int s) { return bars + 8 * (1 + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + ST + s); };
 
-  const int kt = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  int id = blockIdx.x;
+  const int kh = id % K;
+  id /= K;
+  const int b = id % B;
+  const int k_lo = (id / B) * BK;            // k tile 0 (the heaviest) first
   const int G = H / K;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int k_lo = kt * BT_MMA;
-  const long long q_row = static_cast<long long>(H) * HD;
-  const long long kv_row = static_cast<long long>(K) * HD;
-  const long long kv_off = static_cast<long long>(b) * Sk * kv_row +
-                           static_cast<long long>(kh) * HD;
-  load_rows_bf16<HD, BT_MMA, NT_MMA>(Ks, k + kv_off, kv_row, k_lo, Sk);
-  load_rows_bf16<HD, BT_MMA, NT_MMA>(Vs, v + kv_off, kv_row, k_lo, Sk);
+  const int nq = (S + BQ - 1) / BQ;
+  const int qlo = causal ? min(nq, k_lo / BQ) : 0;
+  const int qhi =
+      window > 0 ? min(nq, (k_lo + BK - 1 + window - 1) / BQ + 1) : nq;
+  const int nt = G * max(0, qhi - qlo);      // tiles: (g, q tile), g slowest
 
-  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
-#pragma unroll
-  for (int i = 0; i < HD / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
-
-  const int nq = (S + BT_MMA - 1) / BT_MMA;
-  const int qlo = causal ? min(nq, k_lo / BT_MMA) : 0;
-  const int qhi = window > 0
-                      ? min(nq, (k_lo + BT_MMA - 1 + window - 1) / BT_MMA + 1)
-                      : nq;
-  const __nv_bfloat16* ka_base = Ks + (warp * 16 + (lane & 15)) * LD +
-                                 (lane >> 4) * 8;
-  const __nv_bfloat16* va_base = Vs + (warp * 16 + (lane & 15)) * LD +
-                                 (lane >> 4) * 8;
-
-  for (int g = 0; g < G; ++g) {
-    const int h = kh * G + g;
-    const long long q_off = static_cast<long long>(b) * S * q_row +
-                            static_cast<long long>(h) * HD;
-    const float* lse_h = lse + (static_cast<long long>(b) * H + h) * S;
-    const float* d_h = dvec + (static_cast<long long>(b) * H + h) * S;
-    for (int qt = qlo; qt < qhi; ++qt) {
-      const int q_lo = qt * BT_MMA;
-      __syncthreads();                    // previous tile consumed
-      load_rows_bf16<HD, BT_MMA, NT_MMA>(Qs, q + q_off, q_row, q_lo, S);
-      load_rows_bf16<HD, BT_MMA, NT_MMA>(dOs, dout + q_off, q_row, q_lo,
-                                         S);
-      for (int i = threadIdx.x; i < BT_MMA; i += NT_MMA) {
-        const int s = q_lo + i;
-        Ls[i] = s < S ? lse_h[s] : 0.f;
-        Ds[i] = s < S ? d_h[s] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 k rows x 64 q
-      float st[NQ][4], dpt[NQ][4];
-#pragma unroll
-      for (int t = 0; t < NQ; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[t][e] = dpt[t][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        unsigned ka[4], va[4];
-        ldmatrix_x4(ka, ka_base + kk * 16);
-        ldmatrix_x4(va, va_base + kk * 16);
-#pragma unroll
-        for (int jn = 0; jn < NQ / 2; ++jn) {
-          const int off = (jn * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
-                          kk * 16 + ((lane >> 3) & 1) * 8;
-          unsigned qb4[4], ob4[4];
-          ldmatrix_x4(qb4, Qs + off);
-          ldmatrix_x4(ob4, dOs + off);
-          mma_16816(st[2 * jn], ka, qb4[0], qb4[1]);
-          mma_16816(st[2 * jn + 1], ka, qb4[2], qb4[3]);
-          mma_16816(dpt[2 * jn], va, ob4[0], ob4[1]);
-          mma_16816(dpt[2 * jn + 1], va, ob4[2], ob4[3]);
-        }
-      }
-      mma_probs<NQ>(st, dpt, Ls, Ds, k_lo + warp * 16, 0, q_lo, true, S,
-                    Sk, scale, causal, window, softcap);
-
-      // dV += P^T dO and dK += dS^T Q over the tile's 64 q rows
-#pragma unroll
-      for (int kk = 0; kk < BT_MMA / 16; ++kk) {
-        unsigned pa[4], da[4];
-        c_to_a(pa, st, kk);
-        c_to_a(da, dpt, kk);
-#pragma unroll
-        for (int dn = 0; dn < HD / 16; ++dn) {
-          const int off = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                              LD + dn * 16 + (lane >> 4) * 8;
-          unsigned ob4[4], qb4[4];
-          ldmatrix_x4_trans(ob4, dOs + off);
-          ldmatrix_x4_trans(qb4, Qs + off);
-          mma_16816(dv_acc[2 * dn], pa, ob4[0], ob4[1]);
-          mma_16816(dv_acc[2 * dn + 1], pa, ob4[2], ob4[3]);
-          mma_16816(dk_acc[2 * dn], da, qb4[0], qb4[1]);
-          mma_16816(dk_acc[2 * dn + 1], da, qb4[2], qb4[3]);
-        }
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4);                // lane 0 of each consumer warp
     }
+    mbar_fence_init();
   }
-  store_rows_bf16<HD>(dk + kv_off, kv_row, dk_acc, k_lo + warp * 16, Sk,
-                      scale);
-  store_rows_bf16<HD>(dv + kv_off, kv_row, dv_acc, k_lo + warp * 16, Sk,
-                      1.f);
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;          // 1: the producer warp
+  if (wg == 1) {
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(kv_full, 2 * KB);
+#pragma unroll
+      for (int a = 0; a < T::NA; ++a) {
+        tma_load_3d(sK + a * BK * T::RB, &tk, kh * HD + a * T::SW, k_lo, b,
+                    kv_full);
+        tma_load_3d(sV + a * BK * T::RB, &tv, kh * HD + a * T::SW, k_lo, b,
+                    kv_full);
+      }
+      int i = 0;
+      for (; i < nt; ++i) {
+        const int h = kh * G + i / (qhi - qlo);
+        const int q_lo = (qlo + i % (qhi - qlo)) * BQ;
+        const int s = i % ST;
+        mbar_wait(empty(s), ((i / ST) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * QB + 2 * BQ * 4);
+#pragma unroll
+        for (int a = 0; a < T::NA; ++a) {
+          tma_load_3d(sQ(s) + a * BQ * T::RB, &tq, h * HD + a * T::SW, q_lo, b,
+                      full(s));
+          tma_load_3d(sdO(s) + a * BQ * T::RB, &tdo, h * HD + a * T::SW, q_lo,
+                      b, full(s));
+        }
+        const long long off = (static_cast<long long>(b) * H + h) * Sp + q_lo;
+        bulk_load(sdO(s) + QB, l2 + off, BQ * 4, full(s));
+        bulk_load(sdO(s) + QB + BQ * 4, dvec + off, BQ * 4, full(s));
+      }
+      for (int n = 0; n < ST; ++n, ++i)
+        mbar_wait(empty(i % ST), ((i / ST) & 1) ^ 1);
+    }
+  } else {
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int t = lane & 3;
+    const int wk_lo = k_lo;                    // the consumers' k rows
+    const int krow0 = wk_lo + 16 * warp + (lane >> 2);   // and krow0 + 8
+    const Scores sco(scale, softcap);
+
+    float dk_acc[HD / 2], dv_acc[HD / 2];
+#pragma unroll
+    for (int e = 0; e < HD / 2; ++e) dk_acc[e] = dv_acc[e] = 0.f;
+    mbar_wait(kv_full, 0);
+
+    for (int i = 0; i < nt; ++i) {
+      const int q_lo = (qlo + i % (qhi - qlo)) * BQ;
+      const int s = i % ST;
+      const bool skip = (causal && q_lo + BQ - 1 < wk_lo) ||
+                        (window > 0 && q_lo - (wk_lo + 63) >= window);
+      if (!skip) {
+        mbar_wait(full(s), (i / ST) & 1);
+        float st[BQ / 2], dpt[BQ / 2];
+        const uint64_t kd = T::kdesc(sK);
+        const uint64_t qd = T::kdesc(sQ(s));
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss<BQ>(st, T::kstep(kd, BK, kk), T::kstep(qd, BQ, kk), kk > 0);
+        const uint64_t vd = T::kdesc(sV);
+        const uint64_t od = T::kdesc(sdO(s));
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss<BQ>(dpt, T::kstep(vd, BK, kk), T::kstep(od, BQ, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+
+        const float* Ls = sL(s);
+        const float* Ds = Ls + BQ;
+        const bool edge = (causal && wk_lo + 63 > q_lo) ||
+                          (window > 0 && q_lo + BQ - 1 - wk_lo >= window) ||
+                          q_lo + BQ > S;
+#pragma unroll
+        for (int e = 0; e < BQ / 2; ++e) {
+          const int qc = 8 * (e >> 2) + 2 * t + (e & 1);   // column: q
+          float dz;
+          const float x = sco.x(st[e], dz);
+          float p = ex2(x - Ls[qc]);
+          if (edge) {
+            const int qpos = q_lo + qc, kpos = krow0 + 8 * ((e >> 1) & 1);
+            bool ok = qpos < S;
+            if (causal) ok = ok && kpos <= qpos;
+            if (window > 0) ok = ok && qpos - kpos < window;
+            if (!ok) p = 0.f;
+          }
+          st[e] = p;
+          dpt[e] = p * (dpt[e] - Ds[qc]) * dz;
+        }
+        unsigned pa[BQ / 16][4], da[BQ / 16][4];
+        acc_to_a<BQ>(pa, st);
+        acc_to_a<BQ>(da, dpt);
+        const uint64_t otd = T::mndesc(sdO(s), BQ);
+        const uint64_t qtd = T::mndesc(sQ(s), BQ);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs<HD>(dv_acc, pa[kk], T::mnstep(otd, kk));
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs<HD>(dk_acc, da[kk], T::mnstep(qtd, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+        fence_regs(pa);
+        fence_regs(da);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+    }
+
+    // dK and dV through this warpgroup's own K and V rows
+    uint8_t* k_slice = smem;
+    uint8_t* v_slice = smem + KB;
+    stage_acc<HD>(k_slice, BK, dk_acc, scale);
+    stage_acc<HD>(v_slice, BK, dv_acc, 1.f);
+    named_bar_sync(1, 128);
+    const long long ld = static_cast<long long>(K) * HD;
+    const long long base = static_cast<long long>(b) * Sk * ld + kh * HD;
+    store_slice<HD>(dk + base, ld, k_slice, BK, wk_lo, Sk, threadIdx.x & 127);
+    store_slice<HD>(dv + base, ld, v_slice, BK, wk_lo, Sk, threadIdx.x & 127);
+  }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(NT_MMA)
-    flash_bwd_dq_mma(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ dvec,
-                     __nv_bfloat16* __restrict__ dq, int S, int Sk, int H,
-                     int K, float scale, int causal, int window,
-                     float softcap) {
-  constexpr int LD = HD + 8;
-  constexpr int NK = BT_MMA / 8;          // score n-tiles (k columns)
-  extern __shared__ __align__(16) __nv_bfloat16 smem_bf[];
-  __nv_bfloat16* Qs = smem_bf;
-  __nv_bfloat16* dOs = Qs + BT_MMA * LD;
-  __nv_bfloat16* Ks = dOs + BT_MMA * LD;
-  __nv_bfloat16* Vs = Ks + BT_MMA * LD;
-  float* Ls = reinterpret_cast<float*>(Vs + BT_MMA * LD);
-  float* Ds = Ls + BT_MMA;
+__global__ void __launch_bounds__(BWD_THREADS, 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const float* __restrict__ dvec,
+                       const float* __restrict__ l2,
+                       __nv_bfloat16* __restrict__ dq, int B, int S, int Sk,
+                       int H, int K, int Sp, float scale, int causal,
+                       int window, float softcap) {
+  using T = Tile<HD>;
+  constexpr int BQ = P2_BQ, BK = P2_BK, ST = BWD_STAGES;
+  constexpr uint32_t QB = T::bytes(BQ), KB = T::bytes(BK);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t sQ = smem_u32(smem), sdO = sQ + QB, sK = sdO + QB,
+                 sV = sK + ST * KB;
+  const uint32_t bars = sV + ST * KB;   // q_full, k_full[ST], v_full[ST],
+  const uint32_t q_full = bars;         // empty[ST]
+  auto k_full = [&](int s) { return bars + 8 * (1 + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + ST + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 2 * ST + s); };
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int nq = (S + BQ - 1) / BQ;
+  int id = blockIdx.x;
+  const int h = id % H;
+  id /= H;
+  const int b = id % B;
+  const int q_lo = (nq - 1 - id / B) * BQ;   // heaviest q tile first
   const int kh = h / (H / K);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q_lo = qt * BT_MMA;
-  const long long q_row = static_cast<long long>(H) * HD;
-  const long long kv_row = static_cast<long long>(K) * HD;
-  const long long q_off = static_cast<long long>(b) * S * q_row +
-                          static_cast<long long>(h) * HD;
-  const long long kv_off = static_cast<long long>(b) * Sk * kv_row +
-                           static_cast<long long>(kh) * HD;
-  const float* lse_h = lse + (static_cast<long long>(b) * H + h) * S;
-  const float* d_h = dvec + (static_cast<long long>(b) * H + h) * S;
+  const int nk = (Sk + BK - 1) / BK;
+  const int khi = causal ? min(nk, (min(q_lo + BQ, S) - 1) / BK + 1) : nk;
+  const int klo = window > 0 ? min(khi, max(0, q_lo - window + 1) / BK) : 0;
 
-  load_rows_bf16<HD, BT_MMA, NT_MMA>(Qs, q + q_off, q_row, q_lo, S);
-  load_rows_bf16<HD, BT_MMA, NT_MMA>(dOs, dout + q_off, q_row, q_lo, S);
-  for (int i = threadIdx.x; i < BT_MMA; i += NT_MMA) {
-    const int s = q_lo + i;
-    Ls[i] = s < S ? lse_h[s] : 0.f;
-    Ds[i] = s < S ? d_h[s] : 0.f;
-  }
-
-  float dq_acc[HD / 8][4];
-#pragma unroll
-  for (int i = 0; i < HD / 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[i][e] = 0.f;
-
-  const int nk = (Sk + BT_MMA - 1) / BT_MMA;
-  const int khi =
-      causal ? min(nk, (min(q_lo + BT_MMA, S) - 1) / BT_MMA + 1) : nk;
-  const int klo = window > 0 ? max(0, q_lo - window + 1) / BT_MMA : 0;
-  const __nv_bfloat16* qa_base = Qs + (warp * 16 + (lane & 15)) * LD +
-                                 (lane >> 4) * 8;
-  const __nv_bfloat16* oa_base = dOs + (warp * 16 + (lane & 15)) * LD +
-                                 (lane >> 4) * 8;
-
-  for (int kt = klo; kt < khi; ++kt) {
-    const int k_lo = kt * BT_MMA;
-    __syncthreads();                      // previous tile consumed
-    load_rows_bf16<HD, BT_MMA, NT_MMA>(Ks, k + kv_off, kv_row, k_lo, Sk);
-    load_rows_bf16<HD, BT_MMA, NT_MMA>(Vs, v + kv_off, kv_row, k_lo, Sk);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: this warp's 16 q rows x 64 k
-    float s[NK][4], dp[NK][4];
-#pragma unroll
-    for (int t = 0; t < NK; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      unsigned qa[4], oa[4];
-      ldmatrix_x4(qa, qa_base + kk * 16);
-      ldmatrix_x4(oa, oa_base + kk * 16);
-#pragma unroll
-      for (int jn = 0; jn < NK / 2; ++jn) {
-        const int off = (jn * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
-                        kk * 16 + ((lane >> 3) & 1) * 8;
-        unsigned kb4[4], vb4[4];
-        ldmatrix_x4(kb4, Ks + off);
-        ldmatrix_x4(vb4, Vs + off);
-        mma_16816(s[2 * jn], qa, kb4[0], kb4[1]);
-        mma_16816(s[2 * jn + 1], qa, kb4[2], kb4[3]);
-        mma_16816(dp[2 * jn], oa, vb4[0], vb4[1]);
-        mma_16816(dp[2 * jn + 1], oa, vb4[2], vb4[3]);
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), 8);
     }
-    mma_probs<NK>(s, dp, Ls, Ds, q_lo + warp * 16, warp * 16, k_lo,
-                  false, S, Sk, scale, causal, window, softcap);
-
-    // dQ += dS K over the tile's 64 k rows
-#pragma unroll
-    for (int kk = 0; kk < BT_MMA / 16; ++kk) {
-      unsigned da[4];
-      c_to_a(da, dp, kk);
-#pragma unroll
-      for (int dn = 0; dn < HD / 16; ++dn) {
-        unsigned kb4[4];
-        ldmatrix_x4_trans(kb4, Ks + (kk * 16 + (lane & 7) +
-                                     ((lane >> 3) & 1) * 8) * LD +
-                                   dn * 16 + (lane >> 4) * 8);
-        mma_16816(dq_acc[2 * dn], da, kb4[0], kb4[1]);
-        mma_16816(dq_acc[2 * dn + 1], da, kb4[2], kb4[3]);
-      }
-    }
+    mbar_fence_init();
   }
-  store_rows_bf16<HD>(dq + q_off, q_row, dq_acc, q_lo + warp * 16, S,
-                      scale);
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;          // 2: the producer warp
+  if (wg == 2) {
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, 2 * QB);
+#pragma unroll
+      for (int a = 0; a < T::NA; ++a) {
+        tma_load_3d(sQ + a * BQ * T::RB, &tq, h * HD + a * T::SW, q_lo, b,
+                    q_full);
+        tma_load_3d(sdO + a * BQ * T::RB, &tdo, h * HD + a * T::SW, q_lo, b,
+                    q_full);
+      }
+      int i = 0;
+      for (int j = klo; j < khi; ++j, ++i) {
+        const int s = i % ST;
+        mbar_wait(empty(s), ((i / ST) & 1) ^ 1);
+        mbar_expect_tx(k_full(s), KB);
+#pragma unroll
+        for (int a = 0; a < T::NA; ++a)
+          tma_load_3d(sK + s * KB + a * BK * T::RB, &tk, kh * HD + a * T::SW,
+                      j * BK, b, k_full(s));
+        mbar_expect_tx(v_full(s), KB);
+#pragma unroll
+        for (int a = 0; a < T::NA; ++a)
+          tma_load_3d(sV + s * KB + a * BK * T::RB, &tv, kh * HD + a * T::SW,
+                      j * BK, b, v_full(s));
+      }
+      for (int n = 0; n < ST; ++n, ++i)
+        mbar_wait(empty(i % ST), ((i / ST) & 1) ^ 1);
+    }
+  } else {
+    const int cw = wg;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const int t = lane & 3;
+    const int wq_lo = q_lo + 64 * cw;
+    const int row0 = wq_lo + 16 * warp + (lane >> 2);   // and row0 + 8
+    const Scores sco(scale, softcap);
+    const long long off = (static_cast<long long>(b) * H + h) * Sp + row0;
+    const float L[2] = {l2[off], l2[off + 8]};          // rows < Sp
+    const float D[2] = {dvec[off], dvec[off + 8]};
+
+    float dq_acc[HD / 2];
+#pragma unroll
+    for (int e = 0; e < HD / 2; ++e) dq_acc[e] = 0.f;
+    mbar_wait(q_full, 0);
+
+    int i = 0;
+    for (int j = klo; j < khi; ++j, ++i) {
+      const int s = i % ST;
+      const uint32_t ph = (i / ST) & 1;
+      const int k_lo = j * BK;
+      const bool skip = (causal && k_lo > wq_lo + 63) ||
+                        (window > 0 && wq_lo - (k_lo + BK - 1) >= window);
+      if (!skip) {
+        float sc[BK / 2], dp[BK / 2];
+        mbar_wait(k_full(s), ph);
+        const uint64_t qd = T::kdesc(sQ + 64 * cw * T::RB);
+        const uint64_t kd = T::kdesc(sK + s * KB);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss<BK>(sc, T::kstep(qd, BQ, kk), T::kstep(kd, BK, kk), kk > 0);
+        wgmma_commit();
+        mbar_wait(v_full(s), ph);
+        const uint64_t od = T::kdesc(sdO + 64 * cw * T::RB);
+        const uint64_t vd = T::kdesc(sV + s * KB);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+          wgmma_ss<BK>(dp, T::kstep(od, BQ, kk), T::kstep(vd, BK, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        const bool edge = (causal && k_lo + BK - 1 > wq_lo) ||
+                          (window > 0 && wq_lo + 63 - k_lo >= window) ||
+                          k_lo + BK > Sk;
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) {
+          const int r = (e >> 1) & 1;
+          float dz;
+          const float x = sco.x(sc[e], dz);
+          float p = ex2(x - L[r]);
+          if (edge) {
+            const int qpos = row0 + 8 * r;
+            const int kpos = k_lo + 8 * (e >> 2) + 2 * t + (e & 1);
+            bool ok = kpos < Sk;
+            if (causal) ok = ok && kpos <= qpos;
+            if (window > 0) ok = ok && qpos - kpos < window;
+            if (!ok) p = 0.f;
+          }
+          dp[e] = p * (dp[e] - D[r]) * dz;
+        }
+        unsigned da[BK / 16][4];
+        acc_to_a<BK>(da, dp);
+        const uint64_t ktd = T::mndesc(sK + s * KB, BK);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_rs<HD>(dq_acc, da[kk], T::mnstep(ktd, kk));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq_acc);
+        fence_regs(da);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+    }
+
+    uint8_t* slice = smem + 64 * cw * T::RB;   // this warpgroup's Q rows
+    stage_acc<HD>(slice, BQ, dq_acc, scale);
+    named_bar_sync(1 + cw, 128);
+    const long long ld = static_cast<long long>(H) * HD;
+    store_slice<HD>(dq + static_cast<long long>(b) * S * ld + h * HD, ld, slice,
+                    BQ, wq_lo, S, threadIdx.x & 127);
+  }
 }
 
 template <int HD>
-cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v,
-                           const void* o, const void* dout, const float* lse,
-                           float* dvec, void* dq, void* dk, void* dv, int B,
-                           int S, int Sk, int H, int K, float scale,
-                           int causal, int window, float softcap,
-                           cudaStream_t stream) {
+cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
+                            const void* o, const void* dout, const float* lse,
+                            float* dvec, void* dq, void* dk, void* dv, int B,
+                            int S, int Sk, int H, int K, float scale,
+                            int causal, int window, float softcap,
+                            cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  const long long rows = static_cast<long long>(B) * S * H;
-  flash_bwd_rowdot<bf16, HD>
+  const int Sp = (S + PAD - 1) / PAD * PAD;
+  float* l2 = dvec + static_cast<long long>(B) * H * Sp;
+  const long long rows = static_cast<long long>(B) * H * Sp;
+  flash_bwd_prep<HD>
       <<<static_cast<unsigned>((rows + NTB / 32 - 1) / (NTB / 32)), NTB, 0,
-         stream>>>(static_cast<const bf16*>(o),
-                   static_cast<const bf16*>(dout), dvec, B, S, H);
+         stream>>>(static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
+                   lse, dvec, l2, B, S, H, Sp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t bytes = smem_mma<HD>();
 
-  auto dkdv = flash_bwd_dkdv_mma<HD>;
-  static size_t allowed_dkdv = 48 * 1024;   // per instantiation
-  err = allow_smem(dkdv, bytes, allowed_dkdv);
+  CUtensorMap tq, tdo, tk, tv;
+  err = head_map<HD>(&tq, q, B, S, H, p1_bq<HD>());
+  if (err == cudaSuccess) err = head_map<HD>(&tdo, dout, B, S, H, p1_bq<HD>());
+  if (err == cudaSuccess) err = head_map<HD>(&tk, k, B, Sk, K, P1_BK);
+  if (err == cudaSuccess) err = head_map<HD>(&tv, v, B, Sk, K, P1_BK);
   if (err != cudaSuccess) return err;
-  dkdv<<<dim3((Sk + BT_MMA - 1) / BT_MMA, K, B), NT_MMA, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, dvec,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Sk, H, K, scale,
-      causal, window, softcap);
+  auto dkdv = flash_bwd_dkdv_wgmma<HD>;
+  static size_t allowed_dkdv = 48 * 1024;   // per instantiation
+  err = allow_smem(dkdv, smem_p1<HD>(), allowed_dkdv);
+  if (err != cudaSuccess) return err;
+  const long long b1 = static_cast<long long>((Sk + P1_BK - 1) / P1_BK) * K * B;
+  dkdv<<<static_cast<unsigned>(b1), P1_THREADS, smem_p1<HD>(), stream>>>(
+      tq, tdo, tk, tv, dvec, l2, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), B, S, Sk, H, K, Sp, scale, causal, window,
+      softcap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto dqk = flash_bwd_dq_mma<HD>;
-  static size_t allowed_dq = 48 * 1024;
-  err = allow_smem(dqk, bytes, allowed_dq);
+  err = head_map<HD>(&tq, q, B, S, H, P2_BQ);
+  if (err == cudaSuccess) err = head_map<HD>(&tdo, dout, B, S, H, P2_BQ);
+  if (err == cudaSuccess) err = head_map<HD>(&tk, k, B, Sk, K, P2_BK);
+  if (err == cudaSuccess) err = head_map<HD>(&tv, v, B, Sk, K, P2_BK);
   if (err != cudaSuccess) return err;
-  dqk<<<dim3((S + BT_MMA - 1) / BT_MMA, H, B), NT_MMA, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, dvec,
-      static_cast<bf16*>(dq), S, Sk, H, K, scale, causal, window, softcap);
+  auto dqk = flash_bwd_dq_wgmma<HD>;
+  static size_t allowed_dq = 48 * 1024;
+  err = allow_smem(dqk, smem_p2<HD>(), allowed_dq);
+  if (err != cudaSuccess) return err;
+  const long long b2 = static_cast<long long>((S + P2_BQ - 1) / P2_BQ) * H * B;
+  dqk<<<static_cast<unsigned>(b2), BWD_THREADS, smem_p2<HD>(), stream>>>(
+      tq, tdo, tk, tv, dvec, l2, static_cast<bf16*>(dq), B, S, Sk, H, K, Sp,
+      scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
@@ -735,8 +887,9 @@ cudaError_t launch_bwd_dtype(int dtype, const void* q, const void* k,
                              int K, float scale, int causal, int window,
                              float softcap, cudaStream_t s) {
   if (dtype == DT_BF16)
-    return launch_bwd_mma<HD>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, S,
-                              Sk, H, K, scale, causal, window, softcap, s);
+    return launch_bwd_bf16<HD>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B,
+                               S, Sk, H, K, scale, causal, window, softcap,
+                               s);
   if (dtype == DT_F32)
     return launch_bwd<float, HD>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B,
                                  S, Sk, H, K, scale, causal, window, softcap,
@@ -747,9 +900,9 @@ cudaError_t launch_bwd_dtype(int dtype, const void* q, const void* k,
 }  // namespace
 
 // q, o, dout, dq: (B, S, H, hd); k, v, dk, dv: (B, Sk, K, hd); contiguous,
-// one dtype.  lse: (B, H, S) float32 from the forward; dvec: (B, H, S)
-// float32 scratch.  hd in {16, 32, 64, 128}.  Returns the cudaError_t of
-// the launches.
+// one dtype.  lse: (B, H, S) float32 from the forward; dvec: float32
+// scratch of 2 B H Sp elements, Sp = S rounded up to 128.  hd in {16, 32,
+// 64, 128}.  Returns the cudaError_t of the launches.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dvec, void* dq, void* dk,

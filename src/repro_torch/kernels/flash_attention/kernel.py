@@ -110,7 +110,10 @@ def flash_attention_bshd_bwd(q: torch.Tensor, k: torch.Tensor,
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    dvec = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    # scratch: D = rowsum(dO * O) and the base-2 LSE, (B, H, S) rounded up
+    # to 128 rows each (the bf16 kernels' tiles read them padded)
+    sp = -(-S // 128) * 128
+    dvec = torch.empty(2 * B * H * sp, dtype=torch.float32, device=q.device)
     err = _bwd_entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(),

@@ -308,6 +308,109 @@ def test_flash_backward_matches_autograd(cuda, S, H, K, hd, causal, window,
     assert all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
 
 
+# the bf16 kernels' tile edges: 128-row q and kv tiles (forward, dQ pass),
+# 128-row k tiles over 64-row q tiles (dK/dV pass); S at, short of and
+# just past them, at the train path's heads and at two other head dims
+FLASH_EDGES = [(2, S, 32, 8, 128) for S in (2048, 1500, 129, 255)] + [
+    (2, 300, 4, 2, 64), (2, 300, 4, 2, 16)]
+
+
+def _lse_plain(q, k, *, causal, window, softcap):
+    """Each row's log-sum-exp of its float32 scores, masked."""
+    S, H, hd = q.shape[1:]
+    kk = k.float().repeat_interleave(H // k.shape[2], dim=2)
+    s = torch.einsum("bshd,bthd->bhst", q.float(), kk) * hd ** -0.5
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    i = torch.arange(S, device=q.device)
+    ok = torch.ones(S, S, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= i[None, :] <= i[:, None]
+    if window:
+        ok &= i[:, None] - i[None, :] < window
+    return torch.logsumexp(s.masked_fill(~ok, float("-inf")), dim=-1)
+
+
+@pytest.mark.parametrize("B,S,H,K,hd", FLASH_EDGES)
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (512, 0.0),
+                                            (512, 30.0)])
+def test_flash_bf16_tile_edges_match_plain(cuda, B, S, H, K, hd, window,
+                                           softcap):
+    """Forward (o and the LSE) and backward of the bf16 kernels against
+    the plain version, bit-equal from call to call."""
+    rng = np.random.default_rng(12)
+    q, do = (_randn(rng, (B, S, H, hd), torch.bfloat16, cuda)
+             for _ in range(2))
+    k, v = (_randn(rng, (B, S, K, hd), torch.bfloat16, cuda)
+            for _ in range(2))
+    kw = dict(causal=True, window=window, softcap=softcap)
+    o, lse = flash_attention_bshd(q, k, v, lse=True, **kw)
+    o2, lse2 = flash_attention_bshd(q, k, v, lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    _close(o, flash_attention_ref(q, k, v, **kw), TOL[torch.bfloat16])
+    torch.testing.assert_close(lse, _lse_plain(q, k, **kw), atol=1e-4,
+                               rtol=1e-4)
+    grads = flash_attention_bshd_bwd(q, k, v, o, do, lse, **kw)
+    again = flash_attention_bshd_bwd(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    want = _flash_grads(flash_attention_ref, q, k, v, do, kw)
+    for got, ref in zip(grads, want):
+        _close_grad(got, ref, GRAD_TOL[torch.bfloat16])
+
+
+def test_flash_row_does_not_depend_on_sequence_length_at_train_shape(cuda):
+    """The same at the train path's length, with the LSE, two sequences
+    and the 128-row tiles of the two-warpgroup blocks."""
+    rng = np.random.default_rng(13)
+    q, k, v = (_randn(rng, (2, 2048, n, 128), torch.bfloat16, cuda)
+               for n in (32, 8, 8))
+    full, lse = flash_attention_bshd(q, k, v, lse=True)
+    cut, lse_cut = flash_attention_bshd(*(t[:, :1500].contiguous()
+                                          for t in (q, k, v)), lse=True)
+    assert torch.equal(full[:, :1500], cut)
+    assert torch.equal(lse[:, :, :1500], lse_cut)
+
+
+def _kernel_names(fn):
+    """Names of the CUDA kernels that ``fn`` launches."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("B,S", [(1, 288), (2, 2048)])
+def test_flash_bf16_launches_the_wgmma_kernels(cuda, B, S):
+    """One call, one count: the forward launches one wgmma kernel, the
+    backward its prep kernel and its two wgmma passes, and nothing else
+    (no mma.sync kernel is left on the bf16 path)."""
+    rng = np.random.default_rng(14)
+    q, do = (_randn(rng, (B, S, 32, 128), torch.bfloat16, cuda)
+             for _ in range(2))
+    k, v = (_randn(rng, (B, S, 8, 128), torch.bfloat16, cuda)
+            for _ in range(2))
+    before = (flash_attention_bshd.launches,
+              flash_attention_bshd_bwd.launches)
+    out = {}
+    fwd = _kernel_names(lambda: out.update(
+        zip(("o", "lse"), flash_attention_bshd(q, k, v, lse=True))))
+    bwd = _kernel_names(lambda: flash_attention_bshd_bwd(
+        q, k, v, out["o"], do, out["lse"]))
+    assert (flash_attention_bshd.launches,
+            flash_attention_bshd_bwd.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    assert len(fwd) == 1 and "flash_fwd_bf16_wgmma" in fwd[0], fwd
+    assert len(bwd) == 3, bwd
+    for mark, name in zip(("flash_bwd_prep", "flash_bwd_dkdv_wgmma",
+                           "flash_bwd_dq_wgmma"), bwd):
+        assert mark in name, bwd
+
+
 def test_flash_lse_is_the_rows_logsumexp(cuda):
     rng = np.random.default_rng(8)
     q, k, v = (_randn(rng, (1, 200, n, 64), torch.float32, cuda)
