@@ -586,6 +586,7 @@ def _flash_bwd_cases(gen, bw, flops, fp32_flops):
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bshd, flash_attention_bshd_bwd)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.launch.profile_steps import profile_step
 
     B, S, H, K, hd = TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, 32, 8, 128
     out = []
@@ -634,6 +635,11 @@ def _flash_bwd_cases(gen, bw, flops, fp32_flops):
         kernel_ms = time_ms(
             lambda: flash_attention_bshd_bwd(q, k, v, o, do, lse, **kw),
             iters=3, reps=3)
+        # device ms of each kernel of one call (the bf16 path launches a
+        # prep kernel and the dK/dV and dQ passes)
+        split = profile_step(
+            lambda: flash_attention_bshd_bwd(q, k, v, o, do, lse, **kw),
+            calls=3)["top_kernels_ms"]
         out.append({
             "shape": f"q (B={B}, {S}, {H}, {hd}) kv ({S}, {K}, {hd}) "
                      f"{str(dtype).split('.')[-1]} causal window={window} "
@@ -641,6 +647,8 @@ def _flash_bwd_cases(gen, bw, flops, fp32_flops):
             "main": dtype == torch.bfloat16 and not window,
             "max_abs_err": err, "tol": tol, "repeat_bit_equal": True,
             "kernel_ms": kernel_ms,
+            "kernels_ms": {n.split("::")[-1].split("(")[0]: ms
+                           for n, ms in split.items()},
             "plain_ms": _bwd_ms(plain, leaves, do, iters=3, reps=3),
             "library_ms": library_ms,
             "bound_ms": max(op_s, byte_s) * 1e3,

@@ -384,7 +384,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
 //           Sp = S rounded up to 128, padded with D = 0, L2 = +inf (P = 0);
 //   pass 1: dK, dV.  One block a (64-row k tile, kv head, batch): K and V
 //           stay in shared memory; the G q heads of the group and their
-//           q tiles (p1_bq rows) stream through a TMA ring (Q, dO, and L2,
+//           64-row q tiles stream through a TMA ring (Q, dO, and L2,
 //           D by bulk copy) in a fixed order, and one consumer warpgroup
 //           sums into registers
 //             S^T = K Q^T, dP^T = V dO^T      (wgmma, both from shared)
@@ -401,16 +401,11 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
 // Schedule (both passes: one block an output tile, heaviest first): pass 1
 // runs k tiles in ascending order (under causal k tile 0 sees every q
 // tile), pass 2 q tiles in descending order; heads and batches vary
-// fastest.  Registers: pass 1 holds dK and dV (HD fp32 a thread) and the
-// S^T and dP^T tiles of a q tile (see p1_bq).
+// fastest.  Registers: pass 1 holds dK and dV (2 x 64 fp32 a thread at hd
+// 128) and the 64 x 64 S^T and dP^T tiles (2 x 32) with their bf16 copies:
+// 255 registers, no spill (one consumer warpgroup, below).
 constexpr int P1_BK = 64;        // pass 1: k rows a block (one warpgroup)
-// pass 1: streamed q rows.  At hd 128 a consumer thread holds dK and dV
-// (128 fp32) for the whole loop; 64-row q tiles would add 96 (S^T, dP^T
-// and their bf16 copies), at the edge of 255, 32-row tiles add 48.
-template <int HD>
-__host__ __device__ constexpr int p1_bq() {
-  return HD == 128 ? 32 : 64;
-}
+constexpr int P1_BQ = 64;        // pass 1: streamed q rows
 constexpr int P2_BQ = 128;       // pass 2: q rows a block (2 x 64)
 constexpr int P2_BK = 64;        // pass 2: streamed k rows
 constexpr int BWD_STAGES = 2;
@@ -419,7 +414,7 @@ constexpr int PAD = 128;         // Sp = S rounded up to PAD
 template <int HD>
 constexpr size_t smem_p1() {
   return 1024 + 2 * Tile<HD>::bytes(P1_BK) +
-         BWD_STAGES * (2 * Tile<HD>::bytes(p1_bq<HD>()) + 1024) +
+         BWD_STAGES * (2 * Tile<HD>::bytes(P1_BQ) + 1024) +
          8 * (1 + 2 * BWD_STAGES);
 }
 
@@ -429,7 +424,9 @@ constexpr size_t smem_p2() {
          2 * BWD_STAGES * Tile<HD>::bytes(P2_BK) + 8 * (1 + 3 * BWD_STAGES);
 }
 
-// D and L2 of each row (b, h, s), s < Sp; one warp a row.
+// D and L2 of each row (b, h, s), s < Sp: HD / 8 lanes a row, each with
+// one 16-byte load of O and of dO; rows ordered (b, s, h), so that a warp
+// reads consecutive heads of one position, contiguous in memory.
 template <int HD>
 __global__ void flash_bwd_prep(const __nv_bfloat16* __restrict__ o,
                                const __nv_bfloat16* __restrict__ dout,
@@ -437,24 +434,39 @@ __global__ void flash_bwd_prep(const __nv_bfloat16* __restrict__ o,
                                float* __restrict__ dvec,
                                float* __restrict__ l2, int B, int S, int H,
                                int Sp) {
+  constexpr int LPR = HD / 8;                  // lanes a row
+  const int lane = threadIdx.x & 31, sub = lane % LPR;
   const long long row =
-      static_cast<long long>(blockIdx.x) * (NTB / 32) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= static_cast<long long>(B) * H * Sp) return;
-  const int s = static_cast<int>(row % Sp);
-  const long long bh = row / Sp;
+      (static_cast<long long>(blockIdx.x) * (NTB / 32) + (threadIdx.x >> 5)) *
+          (32 / LPR) + lane / LPR;
+  const bool live = row < static_cast<long long>(B) * Sp * H;
+  const int h = static_cast<int>(row % H);
+  const long long bs = row / H;
+  const int s = static_cast<int>(bs % Sp), b = static_cast<int>(bs / Sp);
   float acc = 0.f;
-  if (s < S) {
-    const long long b = bh / H, h = bh % H;
-    const long long off = ((b * S + s) * H + h) * HD;
-    for (int d = lane; d < HD; d += 32)
-      acc += __bfloat162float(o[off + d]) * __bfloat162float(dout[off + d]);
+  if (live && s < S) {
+    const long long off = ((static_cast<long long>(b) * S + s) * H + h) * HD +
+                          sub * 8;
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + off);
+    const uint4 gv = *reinterpret_cast<const uint4*>(dout + off);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 of = __bfloat1622float2(o2[i]);
+      const float2 gf = __bfloat1622float2(g2[i]);
+      acc += of.x * gf.x;
+      acc += of.y * gf.y;
+    }
   }
 #pragma unroll
-  for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
-  if (lane == 0) {
-    dvec[row] = acc;
-    l2[row] = s < S ? __fmul_rn(lse[bh * S + s], REPRO_LOG2E) : INFINITY;
+  for (int w = LPR / 2; w > 0; w >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, w);
+  if (live && sub == 0) {
+    const long long bh = static_cast<long long>(b) * H + h;
+    dvec[bh * Sp + s] = acc;
+    l2[bh * Sp + s] =
+        s < S ? __fmul_rn(lse[bh * S + s], REPRO_LOG2E) : INFINITY;
   }
 }
 
@@ -498,7 +510,7 @@ __global__ void __launch_bounds__(P1_THREADS, 1)
                          int H, int K, int Sp, float scale, int causal,
                          int window, float softcap) {
   using T = Tile<HD>;
-  constexpr int BK = P1_BK, BQ = p1_bq<HD>(), ST = BWD_STAGES;
+  constexpr int BK = P1_BK, BQ = P1_BQ, ST = BWD_STAGES;
   constexpr uint32_t KB = T::bytes(BK), QB = T::bytes(BQ);
   // a stage: Q, dO, then L2 and D (2 x 4 BQ bytes) in a 1024-byte slot, so
   // that every stage's tiles stay 1024-byte aligned
@@ -838,16 +850,17 @@ cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v,
   const int Sp = (S + PAD - 1) / PAD * PAD;
   float* l2 = dvec + static_cast<long long>(B) * H * Sp;
   const long long rows = static_cast<long long>(B) * H * Sp;
+  const long long per_block = NTB / 32 * (32 / (HD / 8));
   flash_bwd_prep<HD>
-      <<<static_cast<unsigned>((rows + NTB / 32 - 1) / (NTB / 32)), NTB, 0,
+      <<<static_cast<unsigned>((rows + per_block - 1) / per_block), NTB, 0,
          stream>>>(static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
                    lse, dvec, l2, B, S, H, Sp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   CUtensorMap tq, tdo, tk, tv;
-  err = head_map<HD>(&tq, q, B, S, H, p1_bq<HD>());
-  if (err == cudaSuccess) err = head_map<HD>(&tdo, dout, B, S, H, p1_bq<HD>());
+  err = head_map<HD>(&tq, q, B, S, H, P1_BQ);
+  if (err == cudaSuccess) err = head_map<HD>(&tdo, dout, B, S, H, P1_BQ);
   if (err == cudaSuccess) err = head_map<HD>(&tk, k, B, Sk, K, P1_BK);
   if (err == cudaSuccess) err = head_map<HD>(&tv, v, B, Sk, K, P1_BK);
   if (err != cudaSuccess) return err;
