@@ -396,7 +396,7 @@ def _flash_cases(gen, bw, flops):
                      + (" lse" if train else ""),
             "main": S == MAX_LEN and not window, "max_abs_err": err,
             "tol": {"o": BF16_TOL, "lse": FP32_TOL} if train else BF16_TOL,
-            "repeat_bit_equal": same, "kernel_ms": kernel_ms,
+            "kernel_ms": kernel_ms,
             "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, **kw),
                                 **kw_t),
             "library_ms": library_ms, "bound_ms": max(op_s, byte_s) * 1e3,
@@ -645,8 +645,7 @@ def _flash_bwd_cases(gen, bw, flops, fp32_flops):
                      f"{str(dtype).split('.')[-1]} causal window={window} "
                      f"softcap={softcap}",
             "main": dtype == torch.bfloat16 and not window,
-            "max_abs_err": err, "tol": tol, "repeat_bit_equal": True,
-            "kernel_ms": kernel_ms,
+            "max_abs_err": err, "tol": tol, "kernel_ms": kernel_ms,
             "kernels_ms": {n.split("::")[-1].split("(")[0]: ms
                            for n, ms in split.items()},
             "plain_ms": _bwd_ms(plain, leaves, do, iters=3, reps=3),

@@ -355,23 +355,6 @@ static inline int sm_count() {
 }
 
 // ---- wgmma products (m64nNk16, bf16 in, fp32 accumulate) ------------------------
-// d (64 x 32 fp32) = (scale_d ? d : 0) + A (64 x 16, shared, K-major) * B (32 x 16, shared, K-major)^T
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
 // d (64 x 64 fp32) = (scale_d ? d : 0) + A (64 x 16, shared, K-major) * B (64 x 16, shared, K-major)^T
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
@@ -523,10 +506,8 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const unsigned (&a
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
-  static_assert(N == 32 || N == 64 || N == 128,
-                "wgmma_ss: N is 32, 64 or 128");
-  if constexpr (N == 32) wgmma_ss_n32(d, da, db, scale_d);
-  else if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
+  static_assert(N == 64 || N == 128, "wgmma_ss: N is 64 or 128");
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db, scale_d);
   else wgmma_ss_n128(d, da, db, scale_d);
 }
 
