@@ -164,11 +164,11 @@ __global__ void __launch_bounds__(NT)
 
 // ---- bfloat16: wgmma fed by a TMA ring ----------------------------------------
 //
-// One block a (q tile of BQ = 64 NWG rows, q head, batch), NWG + 1
-// warpgroups and one producer warp (the last).  One thread of the
-// producer keeps TMA loads of the K and V tiles in
-// flight, FWD_STAGES deep, each stage with a K-full, a V-full and an
-// empty barrier.  Warpgroups 1..NWG are consumers, each owning 64 q rows:
+// One block a (q tile of BQ = 64 NWG rows, q head, batch): NWG consumer
+// warpgroups and one producer warp (the last), one thread of which keeps
+// TMA loads of the K and V tiles in flight, FWD_STAGES deep, each stage
+// with a K-full, a V-full and an empty barrier.  Each consumer warpgroup
+// owns 64 q rows:
 // S = Q K^T (m64n128k16, Q and K from shared memory), the online softmax
 // in registers, O += P V (P as the register A operand, V through the
 // transposed-B descriptor).  K and V tiles are FWD_BK = 128 rows whatever
@@ -194,12 +194,13 @@ constexpr size_t smem_fwd() {
          2 * FWD_STAGES * Tile<HD>::bytes(FWD_BK) + 8 * (1 + 3 * FWD_STAGES);
 }
 
-// Registers: the producer is one warp, not a warpgroup, so the block is
-// 128 NWG + 32 threads and each may hold 224 (NWG 2) or 255 (NWG 1)
-// registers.  A producer warpgroup that hands its registers to the
-// consumers with setmaxnreg (24 / 240 of 168 at 384 threads) was tried:
-// ptxas (CUDA 12.9) still held the consumer code to the 168 of the launch
-// bound, and the backward's spilled around in-flight wgmma products.
+// Registers: ptxas (CUDA 12.9) holds a block with two consumer
+// warpgroups to 168 registers a thread, as for 384 threads, and gives a
+// block with one up to 255; the forward's consumers fit 168.  A producer
+// warpgroup handing its registers to the consumers with setmaxnreg (24 /
+// 240) was tried: ptxas still held the consumer code to 168, and the
+// backward then spilled around in-flight wgmma products.  So the producer
+// is one warp and nothing is rebalanced.
 __host__ __device__ constexpr int fwd_threads(int nwg) {
   return 128 * nwg + 32;
 }
