@@ -545,6 +545,7 @@ def _rmsnorm_bwd_cases(gen, bw):
     from repro_torch.kernels.rmsnorm.kernel import (rms_norm_2d,
                                                     rms_norm_2d_bwd)
     from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
+    from repro_torch.launch.profile_steps import profile_step
 
     R, D = TRAIN_ROWS, 4096                               # a microbatch
     out = []
@@ -556,6 +557,9 @@ def _rmsnorm_bwd_cases(gen, bw):
         rstd = torch.empty(R, dtype=torch.float32, device="cuda")
         rms_norm_2d(x, w, rstd=rstd)
         dx, dw = rms_norm_2d_bwd(g, x, w, rstd)
+        dx2, dw2 = rms_norm_2d_bwd(g, x, w, rstd)
+        if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+            raise AssertionError(f"rmsnorm_bwd {dtype}: two launches differ")
         leaves = (x.clone().requires_grad_(), w.clone().requires_grad_())
         gx, gw = _grads(rms_norm_ref, leaves, g)
         tol = GRAD_TOL[dtype]
@@ -566,16 +570,24 @@ def _rmsnorm_bwd_cases(gen, bw):
             return torch.nn.functional.rms_norm(xl, (D,), wl, eps=1e-6)
 
         es = x.element_size()
+        kernel_ms = time_ms(lambda: rms_norm_2d_bwd(g, x, w, rstd))
+        bound_ms = ((3 * R * D + 2 * D) * es + R * 4) / bw * 1e3
+        # device ms of each kernel of one call (the fused pass, the reduce
+        # of the dw partials), profiled eagerly
+        split = profile_step(lambda: rms_norm_2d_bwd(g, x, w, rstd),
+                             calls=5)["top_kernels_ms"]
         out.append({
             "shape": f"({R}, {D}) {str(dtype).split('.')[-1]}",
             "main": dtype == torch.bfloat16, "max_abs_err": err, "tol": tol,
-            "kernel_ms": time_ms(
-                lambda: rms_norm_2d_bwd(g, x, w, rstd)),
+            "repeat_bit_equal": True,
+            "kernel_ms": kernel_ms,
+            "kernels_ms": {n.split("::")[-1].split("(")[0]: ms
+                           for n, ms in split.items()},
+            "share_of_bound": bound_ms / kernel_ms,
             "plain_ms": _bwd_ms(rms_norm_ref, leaves, g),
             "library_ms": _bwd_ms(library, leaves, g),
-            "bound_ms": ((3 * R * D + 2 * D) * es + R * 4) / bw * 1e3,
-            "bound_by": "bytes"})
-        del x, g, w, leaves, gx, gw, dx, dw
+            "bound_ms": bound_ms, "bound_by": "bytes"})
+        del x, g, w, leaves, gx, gw, dx, dw, dx2, dw2
     return out
 
 
@@ -791,21 +803,30 @@ def _mass_ratio(got, want, mass) -> float:
     return ((got - want).abs() / mass).max().item()
 
 
-def _abft_cases(gen, bw, fp32_flops):
+def _abft_cases(gen, bw, flops, fp32_flops):
     """One microbatch's MLP ``w_in`` (x @ w, M = 2048 tokens, K = 4096,
     N = 12800, bf16 operands) and its two backward contractions, dx = g @
     w^T and dw = x^T @ g with a float32 g, read through transposed views:
-    every element of C (data, checksum row and column) within ABFT_TOL of
-    its absolute mass of the plain version (float32 matmul of the extended
-    operands), and three wrong products outside it: TF32 (in the checksum
-    row and column even where bf16 operands make the data exact), the
-    plain C through bf16, and the product without its last 32 K terms.
-    Then the library call (one ``torch.matmul`` of the same extended
-    operands, TF32 off) and the verifier's checks."""
+    the route the wrapper takes (the tensor cores for all three), two
+    launches bit-equal, every element of C (data, checksum row and column)
+    within ABFT_TOL of its absolute mass of the plain version (float32
+    matmul of the extended operands), and three wrong products outside it:
+    TF32 (in the checksum row and column even where bf16 operands make the
+    data exact), the plain C through bf16, and the product without its
+    last 32 K terms.  The accuracy gate beside it: the same reading for
+    the tensor-core mainloop with the whole K in the wgmma accumulator
+    (no promoted partial sums) and for the kept CUDA-core SGEMM, with
+    their times.  Then the library call (one ``torch.matmul`` of the same
+    extended operands, TF32 off) and the verifier's checks.  The bound
+    counts the bf16 tensor-core passes the exact split needs (one for bf16
+    x bf16, three with a float32 operand); the float32 CUDA-core bound of
+    the same product stands beside it."""
+    from repro_torch.kernels.abft_matmul import kernel as abft_kernel
     from repro_torch.kernels.abft_matmul.kernel import abft_matmul_ext
     from repro_torch.kernels.abft_matmul.ref import (abft_matmul_ref,
                                                      checksums, encode_ref,
                                                      product_mass)
+    from repro_torch.launch.profile_steps import profile_step
 
     T, D, F = TRAIN_SEQ, 4096, 12800
     x = torch.randn(T, D, generator=gen, device="cuda").to(torch.bfloat16)
@@ -819,7 +840,14 @@ def _abft_cases(gen, bw, fp32_flops):
                         ("x^T @ g (4096, 2048) bf16 col-major x "
                          "(2048, 12800) f32", x.t(), g)):
         a_sum, b_sum = checksums(a, b)
+        route = abft_kernel.tc_route(a, b)
+        tc_before = abft_matmul_ext.tc_launches
         c_full = abft_matmul_ext(a, a_sum, b, b_sum)
+        if not (route and abft_matmul_ext.tc_launches == tc_before + 1):
+            raise AssertionError(f"abft {label}: the tensor-core route was "
+                                 "not taken")
+        if not torch.equal(c_full, abft_matmul_ext(a, a_sum, b, b_sum)):
+            raise AssertionError(f"abft {label}: two launches differ")
         want = abft_matmul_ref(a, b)
         mass = product_mass(a, b)
         if not torch.isfinite(c_full).all() or c_full.shape != want.shape:
@@ -831,6 +859,12 @@ def _abft_cases(gen, bw, fp32_flops):
                                  f"{ratio:.3g} of its mass off the plain "
                                  f"version, beyond {ABFT_TOL:.3g}")
         err = (c_full - want).abs().max().item()
+        variants = {"bare_mainloop": dict(route=True, chunk=0),
+                    **{f"promote_every_{n}": dict(route=True, chunk=n)
+                       for n in (1, 2, 4, 8)},
+                    "sgemm": dict(route=False)}
+        gate = {k: _mass_ratio(abft_kernel._launch(a, a_sum, b, b_sum, **v),
+                               want, mass) for k, v in variants.items()}
         a_ext, b_ext = encode_ref(a, b)
         M, K = a.shape
         N = b.shape[1]
@@ -846,21 +880,39 @@ def _abft_cases(gen, bw, fp32_flops):
             raise AssertionError(f"abft {label}: a wrong product passes "
                                  f"the check: {controls}")
         corr_err = _abft_checks(label, a, b, c_full)
-        op_s = 2 * (M + 1) * (N + 1) * K / fp32_flops
+        passes = 3 if torch.float32 in (a.dtype, b.dtype) else 1
+        flop = 2 * (M + 1) * (N + 1) * K
+        op_s = passes * flop / flops
         byte_s = ((M + 1) * K * a.element_size() + K * (N + 1)
                   * b.element_size() + (M + 1) * (N + 1) * 4) / bw
         kw = dict(iters=3, reps=3)
+        kernel_ms = time_ms(lambda: abft_matmul_ext(a, a_sum, b, b_sum),
+                            **kw)
+        # device ms of each kernel of one call (the split of a float32
+        # operand, the checksum pieces, the mainloop), profiled eagerly
+        split = profile_step(lambda: abft_matmul_ext(a, a_sum, b, b_sum),
+                             calls=3)["top_kernels_ms"]
         out.append({
-            "shape": label, "main": a is x, "max_abs_err": err,
-            "max_err_of_mass": ratio, "tol_of_mass": ABFT_TOL,
+            "shape": label, "main": a is x, "route": "tensor cores",
+            "max_abs_err": err, "max_err_of_mass": ratio,
+            "tol_of_mass": ABFT_TOL, "gate_err_of_mass": gate,
             "wrong_products_err_of_mass": controls,
-            "corrected_element_err": corr_err,
-            "kernel_ms": time_ms(lambda: abft_matmul_ext(a, a_sum, b, b_sum),
-                                 **kw),
+            "corrected_element_err": corr_err, "repeat_bit_equal": True,
+            "kernel_ms": kernel_ms,
+            "kernels_ms": {n.split("::")[-1].split("(")[0]: ms
+                           for n, ms in split.items()},
+            "share_of_bound": max(op_s, byte_s) * 1e3 / kernel_ms,
+            "variant_ms": {k: time_ms(lambda v=v: abft_kernel._launch(
+                a, a_sum, b, b_sum, **v), **kw)
+                for k, v in variants.items()},
+            "tflops_fp32_equivalent": flop / kernel_ms / 1e9,
             "plain_ms": time_ms(lambda: abft_matmul_ref(a, b), **kw),
             "library_ms": time_ms(lambda: torch.matmul(a_ext, b_ext), **kw),
             "bound_ms": max(op_s, byte_s) * 1e3,
-            "bound_by": "operations" if op_s >= byte_s else "bytes"})
+            "bound_by": "operations" if op_s >= byte_s else "bytes",
+            "bound_note": f"bf16 tensor cores, exact split: {passes} "
+                          f"pass(es)",
+            "bound_fp32_ms": max(flop / fp32_flops, byte_s) * 1e3})
         del c_full, want, mass, a_ext, b_ext
         torch.cuda.empty_cache()
     return out
@@ -949,7 +1001,7 @@ def phase_kernels(seed: int, bw: float, flops: float, fp32_flops: float):
                                                        fp32_flops),
                "ckpt_quantize": quant, "ckpt_dequantize": dequant,
                "block_hash": _block_hash_cases(gen, bw, seed),
-               "abft_matmul": _abft_cases(gen, bw, fp32_flops),
+               "abft_matmul": _abft_cases(gen, bw, flops, fp32_flops),
                "selective_scan": _scan_cases(gen, bw, fp32_flops,
                                              sfu_rate())}
     for name, cases in results.items():
@@ -1856,8 +1908,10 @@ def phase_train_abft(seed: int):
     projections: forward, recomputation and two backward
     contractions)."""
     from repro_torch.data import make_pipeline
+    from repro_torch.kernels.abft_matmul.kernel import abft_matmul_ext
     from repro_torch.kernels.abft_matmul.ops import (detections,
                                                      reset_detections)
+    from repro_torch.launch.profile_steps import profile_step
     from repro_torch.models import get_config
     from repro_torch.train import init_state, make_train_step
     from repro_torch.train.step import metrics_to_host
@@ -1874,13 +1928,15 @@ def phase_train_abft(seed: int):
     if found:
         raise AssertionError(f"ABFT flagged {found} products of a clean "
                              "backward")
-    runs = {}
+    runs, step_fns = {}, {}
     for impl in (None, "abft"):
-        step_fn = make_train_step(cfg, total_steps=ABFT_STEPS, impl=impl)
+        step_fn = step_fns[impl] = make_train_step(
+            cfg, total_steps=ABFT_STEPS, impl=impl)
         if impl == "abft":
             counters = _counters()
             for fn in counters.values():
                 fn.launches = 0
+            abft_matmul_ext.tc_launches = 0
             reset_detections()
         st, losses, ms = state, [], []
         for b in batches:
@@ -1902,6 +1958,10 @@ def phase_train_abft(seed: int):
     if launches != want:
         raise AssertionError(f"ABFT steps: launches {launches}, the path "
                              f"implies {want}")
+    if abft_matmul_ext.tc_launches != want["abft_matmul"]:
+        raise AssertionError(f"ABFT steps: {abft_matmul_ext.tc_launches} of "
+                             f"{want['abft_matmul']} abft_matmul launches "
+                             "took the tensor-core route")
     plain, abft = runs[None], runs["abft"]
     for a, b in zip(abft[0], plain[0]):
         if not abs(a - b) <= BF16_TOL * max(1.0, abs(b)):
@@ -1912,11 +1972,23 @@ def phase_train_abft(seed: int):
     found = detections("cuda")
     if found:
         raise AssertionError(f"ABFT flagged {found} products of clean steps")
+    # one step of each, profiled: eager (host clock) and device time, and
+    # the device time by kernel group (ABFT's kernels, the verifier's
+    # reductions among "other")
+    prof = {("abft" if impl else "plain"): profile_step(
+        lambda f=f: f(state, batches[0]), calls=1)
+        for impl, f in step_fns.items()}
     emit({"phase": "train-abft", "arch": cfg.name, "layers": L,
           "seq": TRAIN_SEQ, "batch": 1, "abft_losses": abft[0],
           "plain_losses": plain[0], "abft_step_ms": abft[1],
           "plain_step_ms": plain[1], "detections": found,
           "identical_steps_bit_equal": True, "launches": launches,
+          "abft_tc_launches": abft_matmul_ext.tc_launches,
+          "profiled": {k: {"wall_ms": v["wall_ms"],
+                           "device_ms": v["device_ms"],
+                           "device_ms_by_group": v["device_ms_by_group"],
+                           "top_kernels_ms": v["top_kernels_ms"]}
+                       for k, v in prof.items()},
           "grads": grad_check})
     del state
     torch.cuda.empty_cache()

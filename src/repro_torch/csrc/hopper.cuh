@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the bf16 flash-attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): TMA tile loads into a
+// (flash_attention.cu, flash_attention_bwd.cu) and the ABFT product
+// (abft_matmul.cu): TMA tile loads into a
 // 128/64/32-byte swizzled shared layout, mbarrier rings, wgmma products
 // with fp32 accumulation, and the host-side encoding of the tensor maps.
 //
@@ -102,6 +103,24 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
       : "memory");
+}
+
+// box (c0, c1) of a 2-D tensor map into shared memory at `dst`, completing
+// `bytes` (the full box) on `bar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Makes this thread's ordinary stores to shared memory visible to the
+// asynchronous proxy (wgmma operands, TMA); a barrier after it hands them
+// to the other threads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // `bytes` (a multiple of 16, 16-byte aligned ends) from global to shared
@@ -342,6 +361,29 @@ static inline cudaError_t head_map(CUtensorMap* map, const void* base, int B,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The tensor map of a bf16 matrix read in place: `outer` rows of `inner`
+// elements, rows `ld` elements apart (ld * 2 a multiple of 16, the base
+// 16-byte aligned), boxes of (64, box_outer) elements with the 128-byte
+// swizzle (a box row is one swizzle row).  TMA zero-fills a box past
+// either extent.
+static inline cudaError_t matrix_map(CUtensorMap* map, const void* base,
+                                     long long inner, long long outer,
+                                     long long ld, int box_outer) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                        static_cast<cuuint64_t>(outer)};
+  cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
+  cuuint32_t box[2] = {64u, static_cast<cuuint32_t>(box_outer)};
+  cuuint32_t elem[2] = {1u, 1u};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                  const_cast<void*>(base), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 static inline int sm_count() {
   static int n = 0;
   if (n == 0) {
@@ -378,8 +420,11 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// d (64 x 128 fp32) = (scale_d ? d : 0) + A (64 x 16, shared, K-major) * B (128 x 16, shared, K-major)^T
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+// d (64 x 128 fp32) = (scale_d ? d : 0) + A (64 x 16, shared) * B (16 x 128,
+// shared); TA / TB = 1 when that operand's tile is MN-major (the transpose
+// flags), 0 when it is K-major
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128_t(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %66, 0;\n"
@@ -393,7 +438,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
       "%40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55,"
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -410,7 +455,12 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// both operands K-major: d = (scale_d ? d : 0) + A * B^T
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  wgmma_ss_n128_t<0, 0>(d, da, db, scale_d);
 }
 
 // d (64 x 16 fp32) += A (64 x 16 bf16, registers) * B (16 x 16, shared, MN-major)

@@ -119,57 +119,129 @@ extern "C" int repro_rmsnorm_fwd(const void* x, const void* w, void* y,
 // Backward.  With g = dL/dy and r = rsqrt(mean(x^2) + eps) per row:
 //   dx = r * (g * w) - x * r^3 * mean(g * w * x)
 //   dw = sum over rows of g * x * r
-// dx: one block per row, as the forward, reading r from the forward's
-// saved rstd (the serving path passes no rstd and runs no backward).  dw
-// in two passes and no float atomics, so the result does not depend on the
-// order blocks run in: per-block float32 partial sums over kRowsPerBlock
-// rows, then one thread per column adds the partials in a fixed order.
-// Bound: memory (x and g read once for dx and once more for dw, dx
-// written once; the partials are 1/kRowsPerBlock of that).
+// r comes from the forward's saved rstd (the serving path passes no rstd
+// and runs no backward).
+//
+// Bound: memory, g and x read once and dx written once (3 R D elements;
+// w, rstd and dw are small).  Design: one fused pass.  A block owns a
+// fixed group of kRowsPerGroup rows, so the number of groups is a function
+// of R alone (the same partial sums, and so the same dw bits, on any
+// card).  Each thread owns fixed 16-byte chunks of the columns (NC of
+// them, w kept in registers) and keeps their dw sums in float32
+// registers over the group's rows; RP rows are loaded at once (RP * NC =
+// 8 chunks of g and of x a thread in flight) and their dot products share
+// one block reduction (warp shuffles, then the warps' sums in a fixed
+// order), so that the loads of several rows overlap.  Each group writes
+// its dw partial row; rmsnorm_bwd_dw_reduce_kernel adds the partials in
+// group order.  No float atomics: two identical calls give the same bits.
 // ---------------------------------------------------------------------------
 namespace {
 
-constexpr int kRowsPerBlock = 32;
+constexpr int kRowsPerGroup = 16;
+constexpr int kBwdThreads = 256;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    rmsnorm_bwd_dx_kernel(const T* __restrict__ g, const T* __restrict__ x,
-                          const T* __restrict__ w,
-                          const float* __restrict__ rstd,
-                          T* __restrict__ dx, int D) {
-  const long long base = static_cast<long long>(blockIdx.x) * D;
-  const T* gr = g + base;
-  const T* xr = x + base;
-  T* dxr = dx + base;
-  const float r = rstd[blockIdx.x];
-  float dot = 0.f;
-  for (int i = threadIdx.x; i < D; i += kThreads)
-    dot += to_f32(gr[i]) * to_f32(w[i]) * to_f32(xr[i]);
-  dot = block_sum(dot);
-  const float c = r * r * r * (dot / static_cast<float>(D));
-  for (int i = threadIdx.x; i < D; i += kThreads) {
-    const float gw = to_f32(gr[i]) * to_f32(w[i]);
-    dxr[i] = from_f32<T>(r * gw - to_f32(xr[i]) * c);
-  }
-}
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Chunk {
+  T v[V];
+};
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    rmsnorm_bwd_dw_partial_kernel(const T* __restrict__ g,
-                                  const T* __restrict__ x,
-                                  const float* __restrict__ rstd,
-                                  float* __restrict__ partial, int rows,
-                                  int D) {
-  const int col = blockIdx.x * kThreads + threadIdx.x;
-  if (col >= D) return;
-  const int r0 = blockIdx.y * kRowsPerBlock;
-  const int r1 = min(rows, r0 + kRowsPerBlock);
-  float acc = 0.f;
-  for (int row = r0; row < r1; ++row) {
-    const long long off = static_cast<long long>(row) * D + col;
-    acc += to_f32(g[off]) * to_f32(x[off]) * rstd[row];
+// V: elements a chunk (16 bytes, or 1 when the rows are not 16-byte
+// multiples); NC: chunks a thread (chunk c of a row at thread c % 256).
+// Two blocks a SM up to NC = 4 (128 registers a thread), so that one
+// block's loads overlap the other's reduction.
+template <typename T, int V, int NC>
+__global__ void __launch_bounds__(kBwdThreads, NC <= 4 ? 2 : 1)
+    rmsnorm_bwd_fused(const T* __restrict__ g, const T* __restrict__ x,
+                      const T* __restrict__ w, const float* __restrict__ rstd,
+                      T* __restrict__ dx, float* __restrict__ partial,
+                      int rows, int D) {
+  using C = Chunk<T, V>;
+  constexpr int RP = NC >= 8 ? 1 : 8 / NC;        // rows a step
+  constexpr int NW = kBwdThreads / 32;
+  __shared__ float red[2][RP][NW];
+  const int nch = D / V;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r0 = blockIdx.x * kRowsPerGroup;
+  const int r1 = min(rows, r0 + kRowsPerGroup);
+  const C* gc = reinterpret_cast<const C*>(g);
+  const C* xc = reinterpret_cast<const C*>(x);
+  C* dxc = reinterpret_cast<C*>(dx);
+
+  C wv[NC];
+  float dw[NC][V];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int c = tid + j * kBwdThreads;
+    if (c < nch) wv[j] = reinterpret_cast<const C*>(w)[c];
+#pragma unroll
+    for (int e = 0; e < V; ++e) dw[j][e] = 0.f;
   }
-  partial[static_cast<long long>(blockIdx.y) * D + col] = acc;
+
+  int step = 0;
+  for (int row0 = r0; row0 < r1; row0 += RP, ++step) {
+    C gv[RP][NC], xv[RP][NC];
+#pragma unroll
+    for (int i = 0; i < RP; ++i)
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const int c = tid + j * kBwdThreads;
+        if (row0 + i < r1 && c < nch) {
+          const long long off = static_cast<long long>(row0 + i) * nch + c;
+          gv[i][j] = gc[off];
+          xv[i][j] = xc[off];
+        }
+      }
+    float dot[RP];
+#pragma unroll
+    for (int i = 0; i < RP; ++i) {
+      dot[i] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NC; ++j)
+        if (row0 + i < r1 && tid + j * kBwdThreads < nch)
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            dot[i] += to_f32(gv[i][j].v[e]) * to_f32(wv[j].v[e]) *
+                      to_f32(xv[i][j].v[e]);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        dot[i] += __shfl_xor_sync(0xffffffffu, dot[i], off);
+      if (lane == 0) red[step & 1][i][warp] = dot[i];
+    }
+    // one barrier a step: the buffer written here is written again two
+    // steps on, after every thread has passed the next step's barrier
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RP; ++i) {
+      const int row = row0 + i;
+      if (row >= r1) continue;
+      float total = 0.f;
+#pragma unroll
+      for (int k = 0; k < NW; ++k) total += red[step & 1][i][k];
+      const float r = rstd[row];
+      const float cf = r * r * r * (total / static_cast<float>(D));
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        const int c = tid + j * kBwdThreads;
+        if (c >= nch) continue;
+        C out;
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float gf = to_f32(gv[i][j].v[e]), xf = to_f32(xv[i][j].v[e]);
+          out.v[e] = from_f32<T>(r * (gf * to_f32(wv[j].v[e])) - xf * cf);
+          dw[j][e] += gf * xf * r;
+        }
+        dxc[static_cast<long long>(row) * nch + c] = out;
+      }
+    }
+  }
+  float* part = partial + static_cast<long long>(blockIdx.x) * D;
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int c = tid + j * kBwdThreads;
+    if (c < nch)
+#pragma unroll
+      for (int e = 0; e < V; ++e) part[c * V + e] = dw[j][e];
+  }
 }
 
 template <typename T>
@@ -184,27 +256,48 @@ __global__ void rmsnorm_bwd_dw_reduce_kernel(const float* __restrict__ partial,
   dw[col] = from_f32<T>(acc);
 }
 
+template <typename T, int V>
+cudaError_t launch_fused(const T* g, const T* x, const T* w,
+                         const float* rstd, T* dx, float* partial, int rows,
+                         int D, cudaStream_t s) {
+  const int nch = D / V, groups = (rows + kRowsPerGroup - 1) / kRowsPerGroup;
+  if (nch <= kBwdThreads)
+    rmsnorm_bwd_fused<T, V, 1><<<groups, kBwdThreads, 0, s>>>(
+        g, x, w, rstd, dx, partial, rows, D);
+  else if (nch <= 2 * kBwdThreads)
+    rmsnorm_bwd_fused<T, V, 2><<<groups, kBwdThreads, 0, s>>>(
+        g, x, w, rstd, dx, partial, rows, D);
+  else if (nch <= 4 * kBwdThreads)
+    rmsnorm_bwd_fused<T, V, 4><<<groups, kBwdThreads, 0, s>>>(
+        g, x, w, rstd, dx, partial, rows, D);
+  else if (nch <= 8 * kBwdThreads)
+    rmsnorm_bwd_fused<T, V, 8><<<groups, kBwdThreads, 0, s>>>(
+        g, x, w, rstd, dx, partial, rows, D);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_bwd(const void* g, const void* x, const void* w,
                        const void* rstd, void* dx, void* dw, void* partial,
                        int rows, int D, cudaStream_t s) {
-  rmsnorm_bwd_dx_kernel<T><<<rows, kThreads, 0, s>>>(
-      static_cast<const T*>(g), static_cast<const T*>(x),
-      static_cast<const T*>(w), static_cast<const float*>(rstd),
-      static_cast<T*>(dx), D);
-  cudaError_t err = cudaGetLastError();
+  constexpr int V = 16 / sizeof(T);
+  const T* gt = static_cast<const T*>(g);
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  const float* rs = static_cast<const float*>(rstd);
+  T* dxt = static_cast<T*>(dx);
+  float* part = static_cast<float*>(partial);
+  // the wrapper passes 16-byte aligned bases; rows stay aligned when D
+  // is a multiple of the vector width
+  cudaError_t err =
+      D % V == 0 ? launch_fused<T, V>(gt, xt, wt, rs, dxt, part, rows, D, s)
+                 : launch_fused<T, 1>(gt, xt, wt, rs, dxt, part, rows, D, s);
   if (err != cudaSuccess) return err;
-  const int nparts = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  dim3 grid((D + kThreads - 1) / kThreads, nparts);
-  rmsnorm_bwd_dw_partial_kernel<T><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(g), static_cast<const T*>(x),
-      static_cast<const float*>(rstd), static_cast<float*>(partial), rows,
-      D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rmsnorm_bwd_dw_reduce_kernel<T><<<(D + kThreads - 1) / kThreads, kThreads,
-                                    0, s>>>(
-      static_cast<const float*>(partial), static_cast<T*>(dw), nparts, D);
+  const int nparts = (rows + kRowsPerGroup - 1) / kRowsPerGroup;
+  rmsnorm_bwd_dw_reduce_kernel<T><<<(D + 63) / 64, 64, 0, s>>>(
+      part, static_cast<T*>(dw), nparts, D);
   return cudaGetLastError();
 }
 
@@ -213,12 +306,14 @@ cudaError_t launch_bwd(const void* g, const void* x, const void* w,
 // Number of float32 partial rows the backward needs as scratch: the
 // wrapper allocates (repro_rmsnorm_bwd_parts(rows), D).
 extern "C" int repro_rmsnorm_bwd_parts(int rows) {
-  return (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  return (rows + kRowsPerGroup - 1) / kRowsPerGroup;
 }
 
 // g, x, dx: (rows, D); w, dw: (D,), all of one dtype; rstd: (rows,)
 // float32 from the forward; partial: (repro_rmsnorm_bwd_parts(rows), D)
-// float32 scratch.
+// float32 scratch.  D up to 2048 chunks of 16 bytes (16384 bf16, 8192
+// float32), or 2048 when D is not a multiple of 16 bytes; larger D is
+// refused (cudaErrorInvalidValue).
 extern "C" int repro_rmsnorm_bwd(const void* g, const void* x, const void* w,
                                  const void* rstd, void* dx, void* dw,
                                  void* partial, int rows, int D, int dtype,

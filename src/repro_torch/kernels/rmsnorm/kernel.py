@@ -89,6 +89,11 @@ def rms_norm_2d_bwd(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
             or rstd.device != x.device or not rstd.is_contiguous()):
         raise ValueError("rstd must be a contiguous float32 (R,) tensor on "
                          "x's device")
+    vec = 16 // x.element_size()
+    if D > 2048 * (vec if D % vec == 0 else 1):
+        raise ValueError(f"rms_norm_2d_bwd takes up to 2048 16-byte chunks "
+                         f"a row (2048 elements when D is not a multiple "
+                         f"of {vec}), got D = {D}")
     fn, parts = _bwd_entry()
     dx = torch.empty_like(x)
     dw = torch.empty_like(w)

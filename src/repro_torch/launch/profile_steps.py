@@ -43,7 +43,7 @@ GROUPS = (("rmsnorm", "rmsnorm_kernel"), ("flash_attention", "flash_fwd"),
           ("paged_attention", "paged_decode_kernel"),
           ("selective_scan", "selective_scan_kernel"),
           ("rmsnorm_bwd", "rmsnorm_bwd"), ("flash_attention_bwd", "flash_bwd"),
-          ("ckpt_codec", "quantize_kernel"))
+          ("ckpt_codec", "quantize_kernel"), ("abft_matmul", "abft_"))
 MATMUL_MARKS = ("gemm", "gemv", "xmma", "nvjet", "cutlass", "splitk")
 
 

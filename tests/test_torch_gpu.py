@@ -13,9 +13,10 @@ are held to 1e-4 (float32) and 2e-2 (bfloat16) of the largest magnitude
 of the plain gradient: they are sums over thousands of terms taken in
 another order, and in bfloat16 the plain version rounds its intermediate
 gradients where the kernels keep float32.  The checkpoint codec and the
-block hash are held byte for byte; the ABFT matmul (true float32 on the
-CUDA cores) to 1e-4 of the largest magnitude of its float32 plain
-version, bit-equal from call to call.  The selective scan is held to its
+block hash are held byte for byte; the ABFT matmul, on either route
+(exact bf16 pieces on the tensor cores, or true float32 on the CUDA
+cores), to 32 float32 ulps of each element's absolute mass against its
+float32 plain version, bit-equal from call to call.  The selective scan is held to its
 plain version within 1e-5 + 1e-5 |want| (tests/test_kernels.py), and the
 tiny Mamba engine on the card gives the CPU's greedy streams.
 """
@@ -25,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.abft_matmul import kernel as abft_kernel
 from repro_torch.kernels.abft_matmul.kernel import abft_matmul_ext
 from repro_torch.kernels.abft_matmul.ops import abft_dot, abft_matmul
 from repro_torch.kernels.abft_matmul.ref import (abft_matmul_ref, checksums,
@@ -274,6 +276,27 @@ def test_rmsnorm_backward_matches_autograd(cuda, rows, D, dtype, seed):
     _close_grad(dw, wr.grad, GRAD_TOL[dtype])
     dx2, dw2 = rms_norm_2d_bwd(g, x, w, rstd)
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_rmsnorm_backward_dw_follows_row_groups(cuda, dtype):
+    """dw sums fixed groups of rows, whatever the card: zero gradients
+    past a group boundary leave dw (and every dx row before it) the same
+    bits as the rows before the boundary alone."""
+    rng = np.random.default_rng(9)
+    R, cut, D = 300, 256, 4096
+    x = _randn(rng, (R, D), dtype, cuda)
+    w = _randn(rng, (D,), dtype, cuda)
+    g = _randn(rng, (R, D), dtype, cuda)
+    g[cut:] = 0
+    rstd = torch.empty(R, dtype=torch.float32, device=cuda)
+    rms_norm_2d(x, w, rstd=rstd)
+    dx, dw = rms_norm_2d_bwd(g, x, w, rstd)
+    dx_cut, dw_cut = rms_norm_2d_bwd(g[:cut].contiguous(),
+                                     x[:cut].contiguous(), w,
+                                     rstd[:cut].contiguous())
+    assert torch.equal(dw, dw_cut)
+    assert torch.equal(dx[:cut], dx_cut)
 
 
 def _flash_grads(fn, q, k, v, do, kw):
@@ -528,6 +551,85 @@ def test_abft_kernel_matches_plain(cuda, M, K, N, a_dtype, b_dtype, a_t,
     c = abft_matmul_ext(a, a_sum, b, b_sum)
     assert _of_mass(c, abft_matmul_ref(a, b), a, b) <= ABFT_TOL
     assert torch.equal(c, abft_matmul_ext(a, a_sum, b, b_sum))
+
+
+def _tma_operand(rng, shape, dtype, device, transposed):
+    """A (rows, cols) operand in storage TMA reads in place: rows start
+    16-byte aligned, a multiple of 8 elements apart (a transposed view
+    stays column-major)."""
+    rows, cols = shape[::-1] if transposed else shape
+    base = torch.zeros(rows, -(-cols // 8) * 8, dtype=dtype, device=device)
+    base[:, :cols] = _randn(rng, (rows, cols), dtype, device)
+    view = base[:, :cols]
+    return view.t() if transposed else view
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+ROUTES = ([("sgemm", a, b) for a, b in ((F32, F32), (BF16, BF16),
+                                        (F32, BF16), (BF16, F32))]
+          + [("tensor cores", a, b) for a, b in ((BF16, BF16), (F32, BF16),
+                                                 (BF16, F32))])
+
+
+def _abft_route_case(cuda, route, M, K, N, a_dtype, b_dtype, a_t, b_t,
+                     seed):
+    rng = np.random.default_rng(seed)
+    tc = route == "tensor cores"
+    if tc:
+        a = _tma_operand(rng, (M, K), a_dtype, cuda, a_t)
+        b = _tma_operand(rng, (K, N), b_dtype, cuda, b_t)
+        assert abft_kernel.tc_route(a, b)
+    else:
+        a = _randn(rng, (K, M) if a_t else (M, K), a_dtype, cuda)
+        b = _randn(rng, (N, K) if b_t else (K, N), b_dtype, cuda)
+        a, b = (a.t() if a_t else a), (b.t() if b_t else b)
+    a_sum, b_sum = checksums(a, b)
+    c = abft_kernel._launch(a, a_sum, b, b_sum, route=tc)
+    assert _of_mass(c, abft_matmul_ref(a, b), a, b) <= ABFT_TOL
+    assert torch.equal(c, abft_kernel._launch(a, a_sum, b, b_sum, route=tc))
+
+
+@pytest.mark.parametrize("M,K,N", [(5, 7, 3), (130, 200, 72),
+                                   (257, 129, 300)])
+@pytest.mark.parametrize("route,a_dtype,b_dtype", ROUTES)
+@pytest.mark.parametrize("a_t,b_t", [(False, False), (True, True)])
+def test_abft_routes_match_plain(cuda, route, M, K, N, a_dtype, b_dtype,
+                                 a_t, b_t):
+    """Each route at the card tests' shapes, dtypes and transposes (the
+    tensor cores on operands stored for TMA), within ABFT_TOL of mass of
+    the plain version, two launches bit-equal."""
+    _abft_route_case(cuda, route, M, K, N, a_dtype, b_dtype, a_t, b_t,
+                     M + K + N)
+
+
+@pytest.mark.parametrize("M,K,N", [(64, 16, 127), (63, 17, 129),
+                                   (65, 15, 255), (128, 33, 257),
+                                   (127, 47, 383), (129, 65, 385)])
+@pytest.mark.parametrize("a_dtype,b_dtype", [(BF16, BF16), (F32, BF16),
+                                             (BF16, F32)])
+@pytest.mark.parametrize("a_t,b_t", [(False, False), (True, True),
+                                     (False, True)])
+def test_abft_tensor_cores_at_tile_edges(cuda, M, K, N, a_dtype, b_dtype,
+                                         a_t, b_t):
+    """The tensor-core route where its tiles end: M at 64 k and 64 k ± 1
+    (a consumer warpgroup's rows), N at 128 k ± 1, K at 16 k ± 1 (one
+    wgmma step), so the checksum rows and columns land at every offset of
+    a tile."""
+    _abft_route_case(cuda, "tensor cores", M, K, N, a_dtype, b_dtype, a_t,
+                     b_t, 7 * M + K + N)
+
+
+def test_abft_dot_takes_the_tensor_core_route(cuda):
+    """abft_dot's three products on bf16 operands (forward, dx with a
+    float32 gradient, dw through x's transposed view) all take the
+    tensor-core route."""
+    rng = np.random.default_rng(5)
+    x = _randn(rng, (2, 64, 128), torch.bfloat16, cuda).requires_grad_()
+    w = _randn(rng, (128, 96), torch.bfloat16, cuda).requires_grad_()
+    before = abft_matmul_ext.launches, abft_matmul_ext.tc_launches
+    abft_dot(x, w).float().square().sum().backward()
+    assert (abft_matmul_ext.launches, abft_matmul_ext.tc_launches) == (
+        before[0] + 3, before[1] + 3)
 
 
 def test_abft_check_rejects_a_tf32_product(cuda):

@@ -109,8 +109,12 @@ def test_ssm_apply_matches_jax(dtype, use_pallas, with_cache):
               if with_cache else None)
     jy, jc = jax_ssm_apply(jp, _to_jax(x, dtype), jcfg, jcache,
                            use_pallas=use_pallas)
-    tcache = ({"conv": torch.from_numpy(conv).to(DT[dtype][1]),
-               "h": torch.from_numpy(h)} if with_cache else None)
+    # the port updates its cache in place, so it gets buffers of its own:
+    # jnp.asarray copies a numpy array to the device asynchronously, and a
+    # write into the shared buffer before that copy ends reached the
+    # reference's input under load
+    tcache = ({"conv": torch.from_numpy(conv.copy()).to(DT[dtype][1]),
+               "h": torch.from_numpy(h.copy())} if with_cache else None)
     with torch.no_grad():
         ty = ssm_apply(tparams["layers"][1],
                        torch.from_numpy(x).to(DT[dtype][1]), tcfg, tcache)
