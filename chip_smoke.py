@@ -217,6 +217,13 @@ def time_ms(fn, iters: int = 20, reps: int = 7) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events) / iters
 
 
+def _kernel_name(name: str) -> str:
+    """A profiler's kernel name without its namespace, return type and
+    argument list: ``abft_wgmma<true, true, true>``."""
+    name = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return name[5:] if name.startswith("void ") else name
+
+
 def check_grad(name: str, got, want, tol: float) -> float:
     """Raises unless |got - want| <= tol * max|want| + tol * |want|
     everywhere (a gradient is a sum over many terms taken in another
@@ -581,8 +588,7 @@ def _rmsnorm_bwd_cases(gen, bw):
             "main": dtype == torch.bfloat16, "max_abs_err": err, "tol": tol,
             "repeat_bit_equal": True,
             "kernel_ms": kernel_ms,
-            "kernels_ms": {n.split("::")[-1].split("(")[0]: ms
-                           for n, ms in split.items()},
+            "kernels_ms": {_kernel_name(n): ms for n, ms in split.items()},
             "share_of_bound": bound_ms / kernel_ms,
             "plain_ms": _bwd_ms(rms_norm_ref, leaves, g),
             "library_ms": _bwd_ms(library, leaves, g),
@@ -658,8 +664,7 @@ def _flash_bwd_cases(gen, bw, flops, fp32_flops):
                      f"softcap={softcap}",
             "main": dtype == torch.bfloat16 and not window,
             "max_abs_err": err, "tol": tol, "kernel_ms": kernel_ms,
-            "kernels_ms": {n.split("::")[-1].split("(")[0]: ms
-                           for n, ms in split.items()},
+            "kernels_ms": {_kernel_name(n): ms for n, ms in split.items()},
             "plain_ms": _bwd_ms(plain, leaves, do, iters=3, reps=3),
             "library_ms": library_ms,
             "bound_ms": max(op_s, byte_s) * 1e3,
@@ -859,10 +864,8 @@ def _abft_cases(gen, bw, flops, fp32_flops):
                                  f"{ratio:.3g} of its mass off the plain "
                                  f"version, beyond {ABFT_TOL:.3g}")
         err = (c_full - want).abs().max().item()
-        variants = {"bare_mainloop": dict(route=True, chunk=0),
-                    **{f"promote_every_{n}": dict(route=True, chunk=n)
-                       for n in (1, 2, 4, 8)},
-                    "sgemm": dict(route=False)}
+        variants = {"bare_mainloop": dict(route=True, promote=False),
+                    "promoted": dict(route=True), "sgemm": dict(route=False)}
         gate = {k: _mass_ratio(abft_kernel._launch(a, a_sum, b, b_sum, **v),
                                want, mass) for k, v in variants.items()}
         a_ext, b_ext = encode_ref(a, b)
@@ -899,8 +902,7 @@ def _abft_cases(gen, bw, flops, fp32_flops):
             "wrong_products_err_of_mass": controls,
             "corrected_element_err": corr_err, "repeat_bit_equal": True,
             "kernel_ms": kernel_ms,
-            "kernels_ms": {n.split("::")[-1].split("(")[0]: ms
-                           for n, ms in split.items()},
+            "kernels_ms": {_kernel_name(n): ms for n, ms in split.items()},
             "share_of_bound": max(op_s, byte_s) * 1e3 / kernel_ms,
             "variant_ms": {k: time_ms(lambda v=v: abft_kernel._launch(
                 a, a_sum, b, b_sum, **v), **kw)
@@ -1958,8 +1960,9 @@ def phase_train_abft(seed: int):
     if launches != want:
         raise AssertionError(f"ABFT steps: launches {launches}, the path "
                              f"implies {want}")
-    if abft_matmul_ext.tc_launches != want["abft_matmul"]:
-        raise AssertionError(f"ABFT steps: {abft_matmul_ext.tc_launches} of "
+    tc_launches = abft_matmul_ext.tc_launches
+    if tc_launches != want["abft_matmul"]:
+        raise AssertionError(f"ABFT steps: {tc_launches} of "
                              f"{want['abft_matmul']} abft_matmul launches "
                              "took the tensor-core route")
     plain, abft = runs[None], runs["abft"]
@@ -1983,7 +1986,7 @@ def phase_train_abft(seed: int):
           "plain_losses": plain[0], "abft_step_ms": abft[1],
           "plain_step_ms": plain[1], "detections": found,
           "identical_steps_bit_equal": True, "launches": launches,
-          "abft_tc_launches": abft_matmul_ext.tc_launches,
+          "abft_tc_launches": tc_launches,
           "profiled": {k: {"wall_ms": v["wall_ms"],
                            "device_ms": v["device_ms"],
                            "device_ms_by_group": v["device_ms_by_group"],

@@ -31,11 +31,12 @@
 // go through the same tensor-core mainloop, in the same launch, as the
 // data; the epilogue folds the three rows (columns) into row M (column
 // N), (p0 + p1) + p2, and the corner likewise over rows of column folds.
-// Partial sums are promoted: every `chunk` k-tiles (the wrapper's
-// PROMOTE_TILES) the wgmma accumulator starts afresh and is added into a
-// float32 total with ordinary FADDs, in k order, since the tensor cores
-// do not round their internal additions as an IEEE FADD does (with the
-// whole K in the accumulator dx and dw miss the bound; PERF.md).
+// Partial sums are promoted: every kChunk = 8 k-tiles (512 k) the wgmma
+// accumulator starts afresh and is added into a float32 total with
+// ordinary FADDs, in k order, since the tensor cores do not round their
+// internal additions as an IEEE FADD does: with the whole K in the
+// accumulator dx and dw miss the bound, promoted every 1 to 8 k-tiles
+// all three contractions read as the SGEMM does (PERF.md).
 //
 // Design: 128 x 128 output tiles, two consumer warpgroups (64 rows each,
 // m64n128k16 products, both operands from shared memory, K-major or
@@ -237,6 +238,7 @@ constexpr int kTcThreads = 288;                  // 2 consumer warpgroups + 1 wa
 constexpr uint32_t kTileBytes = 128 * TBK * 2;   // an A or a B tile: 16 KB
 constexpr uint32_t kStageBytes = 2 * kTileBytes;
 constexpr int kStageLd = TBN + 4;                // epilogue row, floats
+constexpr int kChunk = 8;                        // k-tiles a promoted partial sum
 constexpr size_t kTcSmem = 1024 + TST * kStageBytes + 16 * TST;
 static_assert(TBM * kStageLd * 4 <= TST * kStageBytes, "staging fits the ring");
 
@@ -312,7 +314,6 @@ struct TcArgs {
   int Kp, kt_total, kt_plane;    // k-tiles of the product, of one plane
   int a_split, b_split;          // that side's k runs over all planes
   int m_tiles, n_tiles, m_fast;
-  int chunk;                     // k-tiles a promoted partial sum
 };
 
 // byte offset of element (r, k) of a K-major tile (rows of 64 k, 128 B),
@@ -344,7 +345,7 @@ __device__ __forceinline__ float fold3(const float* v, int stride, int n) {
 }
 
 // kAK / kBK: the A / B tiles are K-major (else MN-major); kPr: promote a
-// partial sum every p.chunk k-tiles (else the whole K stays in the wgmma
+// partial sum every kChunk k-tiles (else the whole K stays in the wgmma
 // fragment)
 template <bool kAK, bool kBK, bool kPr>
 __global__ void __launch_bounds__(kTcThreads, 1)
@@ -443,14 +444,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < TBK / 16; ++kk) {
-      const int first = kk == 0 && (kPr ? kt % p.chunk == 0 : kt == 0);
+      const int first = kk == 0 && (kPr ? kt % kChunk == 0 : kt == 0);
       wgmma_ss_n128_t<kAK ? 0 : 1, kBK ? 0 : 1>(
           acc, da + ((kAK ? 32 * kk : 2048 * kk) >> 4),
           db + ((kBK ? 32 * kk : 2048 * kk) >> 4), !first);
     }
     wgmma_commit();
     int ready;                               // k-tiles whose products are done
-    if (kPr && ((kt + 1) % p.chunk == 0 || kt + 1 == KT)) {
+    if (kPr && ((kt + 1) % kChunk == 0 || kt + 1 == KT)) {
       wgmma_wait<0>();
       fence_regs(acc);
       if constexpr (kPr) {
@@ -519,9 +520,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 
 template <bool kAK, bool kBK>
 cudaError_t launch_wgmma(const CUtensorMap& ta, const CUtensorMap& tb,
-                         const TcArgs& args, cudaStream_t s) {
+                         const TcArgs& args, int promote, cudaStream_t s) {
   const unsigned blocks = static_cast<unsigned>(args.m_tiles) * args.n_tiles;
-  if (args.chunk > 0) {
+  if (promote) {
     auto kernel = abft_wgmma<kAK, kBK, true>;
     static size_t allowed = 48 * 1024;
     cudaError_t err = allow_smem(kernel, kTcSmem, allowed);
@@ -578,13 +579,13 @@ bool tma_ok(const void* base, long long ld) {
 cudaError_t launch_tc(const void* a, const void* a_sum, const void* b,
                       const void* b_sum, void* c, void* scratch, int M, int N,
                       int K, long long lda, long long ldb, int a_dtype,
-                      int a_row, int b_dtype, int b_row, int chunk,
+                      int a_row, int b_dtype, int b_row, int promote,
                       cudaStream_t s) {
   const bool a_split = a_dtype == DT_F32, b_split = b_dtype == DT_F32;
   if ((a_dtype != DT_F32 && a_dtype != DT_BF16) ||
       (b_dtype != DT_F32 && b_dtype != DT_BF16) || (a_split && b_split) ||
       M <= 0 || N <= 0 || K <= 0 || (!a_split && !tma_ok(a, lda)) ||
-      (!b_split && !tma_ok(b, ldb)) || chunk < 0)
+      (!b_split && !tma_ok(b, ldb)))
     return cudaErrorInvalidValue;
   const TcLayout l = tc_layout(M, N, K, a_dtype, b_dtype);
   uint8_t* base = static_cast<uint8_t*>(scratch);
@@ -658,7 +659,6 @@ cudaError_t launch_tc(const void* a, const void* a_sum, const void* b,
   const double a_bytes = a_split ? (l.Rx + 1.0) * l.ld3 : 1.0 * M * K;
   const double b_bytes = b_split ? 3.0 * l.Kp * (l.Cx + 1.0) : 1.0 * K * N;
   args.m_fast = a_bytes <= b_bytes;
-  args.chunk = chunk;
   if (static_cast<long long>(args.m_tiles) * args.n_tiles >= (1ll << 31))
     return cudaErrorInvalidValue;
 
@@ -678,10 +678,10 @@ cudaError_t launch_tc(const void* a, const void* a_sum, const void* b,
   else
     err = matrix_map(&tb, b, K, N, ldb, TBN);
   if (err != cudaSuccess) return err;
-  if (ak && bk) return launch_wgmma<true, true>(ta, tb, args, s);
-  if (ak) return launch_wgmma<true, false>(ta, tb, args, s);
-  if (bk) return launch_wgmma<false, true>(ta, tb, args, s);
-  return launch_wgmma<false, false>(ta, tb, args, s);
+  if (ak && bk) return launch_wgmma<true, true>(ta, tb, args, promote, s);
+  if (ak) return launch_wgmma<true, false>(ta, tb, args, promote, s);
+  if (bk) return launch_wgmma<false, true>(ta, tb, args, promote, s);
+  return launch_wgmma<false, false>(ta, tb, args, promote, s);
 }
 
 }  // namespace
@@ -701,20 +701,20 @@ extern "C" long long repro_abft_scratch_bytes(int M, int N, int K,
 // route 0: the CUDA-core SGEMM (any operands; scratch unused); route 1:
 // the tensor cores (at least one bf16 operand, each bf16 one with a
 // 16-byte aligned base and ld a multiple of 8; M, N, K > 0), scratch of
-// repro_abft_scratch_bytes bytes, 256-byte aligned; chunk > 0 promotes
-// the partial sums every `chunk` k-tiles of 64, 0 keeps the whole K in
-// the wgmma accumulator.  Returns the cudaError_t of the launches.
+// repro_abft_scratch_bytes bytes, 256-byte aligned; promote 1 promotes
+// the partial sums every kChunk k-tiles, 0 keeps the whole K in the
+// wgmma accumulator.  Returns the cudaError_t of the launches.
 extern "C" int repro_abft_matmul(const void* a, const void* a_sum,
                                  const void* b, const void* b_sum, void* c,
                                  void* scratch, int M, int N, int K,
                                  long long lda, long long ldb, int a_dtype,
                                  int a_row, int b_dtype, int b_row,
-                                 int route, int chunk, void* stream) {
+                                 int route, int promote, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M < 0 || N < 0 || K < 0) return cudaErrorInvalidValue;
   if (route == 1)
     return launch_tc(a, a_sum, b, b_sum, c, scratch, M, N, K, lda, ldb,
-                     a_dtype, a_row, b_dtype, b_row, chunk, s);
+                     a_dtype, a_row, b_dtype, b_row, promote, s);
   if (route != 0) return cudaErrorInvalidValue;
   if (a_dtype == DT_F32)
     return a_row ? launch_b<float, true>(a, a_sum, b, b_sum, c, M, N, K, lda,

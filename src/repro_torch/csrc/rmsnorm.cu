@@ -13,6 +13,7 @@
 // The TPU kernel's `rows = ROWS if R % ROWS == 0 else 1` tiling is a VMEM
 // artifact and does not carry over: every row is its own block.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -128,44 +129,111 @@ extern "C" int repro_rmsnorm_fwd(const void* x, const void* w, void* y,
 // of R alone (the same partial sums, and so the same dw bits, on any
 // card).  Each thread owns fixed 16-byte chunks of the columns (NC of
 // them, w kept in registers) and keeps their dw sums in float32
-// registers over the group's rows; RP rows are loaded at once (RP * NC =
-// 8 chunks of g and of x a thread in flight) and their dot products share
-// one block reduction (warp shuffles, then the warps' sums in a fixed
-// order), so that the loads of several rows overlap.  Each group writes
-// its dw partial row; rmsnorm_bwd_dw_reduce_kernel adds the partials in
-// group order.  No float atomics: two identical calls give the same bits.
+// registers over the group's rows.  The rows stream through a ring in
+// shared memory by cp.async, several steps ahead of the arithmetic (16
+// chunks of g and of x a thread in flight); a step's RP rows share one
+// block reduction of their dot products (warp shuffles, then the warps'
+// sums in a fixed order), and each step's rstd is loaded a step ahead,
+// so no load waits behind a step's barrier.  Each group writes
+// its dw partial row; rmsnorm_bwd_dw_reduce_kernel adds the partials in a
+// fixed association.  No float atomics: two identical calls give the same
+// bits.
 // ---------------------------------------------------------------------------
 namespace {
 
-constexpr int kRowsPerGroup = 16;
+constexpr int kRowsPerGroup = 32;
 constexpr int kBwdThreads = 256;
+constexpr int kPartsPerSlice = 8;      // the reduce: dw partials a thread sums
 
 template <typename T, int V>
 struct alignas(sizeof(T) * V) Chunk {
   T v[V];
 };
 
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows of a step (RP) and steps in flight (ST) for NC chunks a thread:
+// RP * NC * ST = 16 chunks of g and 16 of x a thread in flight (128 KB of
+// shared memory a block), at least two stages.
+template <int NC>
+struct BwdRing {
+  static constexpr int RP = NC >= 4 ? 1 : 4 / NC;
+  static constexpr int ST = 16 / (RP * NC);
+  static constexpr size_t bytes = 2ull * ST * RP * NC * kBwdThreads * 16;
+};
+
 // V: elements a chunk (16 bytes, or 1 when the rows are not 16-byte
 // multiples); NC: chunks a thread (chunk c of a row at thread c % 256).
-// Two blocks a SM up to NC = 4 (128 registers a thread), so that one
-// block's loads overlap the other's reduction.
+// 16-byte chunks stream through a ring in shared memory by cp.async, ST
+// steps deep: each thread copies and reads back its own chunks, so the
+// ring needs no barrier, and the loads of the next steps stay in flight
+// through a step's reduction.  1-element chunks (odd D) are read from
+// global memory where they are used.
 template <typename T, int V, int NC>
-__global__ void __launch_bounds__(kBwdThreads, NC <= 4 ? 2 : 1)
+__global__ void __launch_bounds__(kBwdThreads)
     rmsnorm_bwd_fused(const T* __restrict__ g, const T* __restrict__ x,
                       const T* __restrict__ w, const float* __restrict__ rstd,
                       T* __restrict__ dx, float* __restrict__ partial,
                       int rows, int D) {
   using C = Chunk<T, V>;
-  constexpr int RP = NC >= 8 ? 1 : 8 / NC;        // rows a step
+  constexpr bool kRing = sizeof(C) == 16;
+  constexpr int RP = BwdRing<NC>::RP, ST = BwdRing<NC>::ST;
   constexpr int NW = kBwdThreads / 32;
+  extern __shared__ uint4 ring[];               // [ST][RP][2][NC][threads]
   __shared__ float red[2][RP][NW];
   const int nch = D / V;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int r0 = blockIdx.x * kRowsPerGroup;
   const int r1 = min(rows, r0 + kRowsPerGroup);
+  const int steps = (r1 - r0 + RP - 1) / RP;
   const C* gc = reinterpret_cast<const C*>(g);
   const C* xc = reinterpret_cast<const C*>(x);
   C* dxc = reinterpret_cast<C*>(dx);
+
+  // chunk j of row i of step s, of g (t = 0) or x (t = 1)
+  auto slot = [&](int s, int i, int t, int j) -> uint4* {
+    return ring + ((((s % ST) * RP + i) * 2 + t) * NC + j) * kBwdThreads +
+           tid;
+  };
+  auto chunk = [&](int s, int i, int t, int j) -> C {
+    if constexpr (kRing) {
+      return *reinterpret_cast<const C*>(slot(s, i, t, j));
+    } else {
+      const long long off =
+          static_cast<long long>(r0 + s * RP + i) * nch + tid + j * kBwdThreads;
+      return t == 0 ? gc[off] : xc[off];
+    }
+  };
+  auto issue = [&](int s) {
+    if constexpr (kRing) {
+      if (s < steps)
+#pragma unroll
+        for (int i = 0; i < RP; ++i)
+#pragma unroll
+          for (int j = 0; j < NC; ++j) {
+            const int row = r0 + s * RP + i, c = tid + j * kBwdThreads;
+            if (row < r1 && c < nch) {
+              const long long off = static_cast<long long>(row) * nch + c;
+              cp_async16(smem_u32(slot(s, i, 0, j)), gc + off);
+              cp_async16(smem_u32(slot(s, i, 1, j)), xc + off);
+            }
+          }
+      cp_async_commit();                      // one group a step, maybe empty
+    }
+  };
 
   C wv[NC];
   float dw[NC][V];
@@ -177,35 +245,35 @@ __global__ void __launch_bounds__(kBwdThreads, NC <= 4 ? 2 : 1)
     for (int e = 0; e < V; ++e) dw[j][e] = 0.f;
   }
 
-  int step = 0;
-  for (int row0 = r0; row0 < r1; row0 += RP, ++step) {
-    C gv[RP][NC], xv[RP][NC];
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) issue(s);
+  float rs[RP];                               // this step's rstd
+#pragma unroll
+  for (int i = 0; i < RP; ++i) rs[i] = r0 + i < r1 ? rstd[r0 + i] : 0.f;
+  for (int s = 0; s < steps; ++s) {
+    issue(s + ST - 1);                        // into the slot of step s - 1
+    if constexpr (kRing) cp_async_wait<ST - 1>();
+    const int row0 = r0 + s * RP;
+    float rs_next[RP];                        // the next step's, in flight
 #pragma unroll
     for (int i = 0; i < RP; ++i)
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const int c = tid + j * kBwdThreads;
-        if (row0 + i < r1 && c < nch) {
-          const long long off = static_cast<long long>(row0 + i) * nch + c;
-          gv[i][j] = gc[off];
-          xv[i][j] = xc[off];
-        }
-      }
+      rs_next[i] = row0 + RP + i < r1 ? rstd[row0 + RP + i] : 0.f;
     float dot[RP];
 #pragma unroll
     for (int i = 0; i < RP; ++i) {
       dot[i] = 0.f;
 #pragma unroll
       for (int j = 0; j < NC; ++j)
-        if (row0 + i < r1 && tid + j * kBwdThreads < nch)
+        if (row0 + i < r1 && tid + j * kBwdThreads < nch) {
+          const C gv = chunk(s, i, 0, j), xv = chunk(s, i, 1, j);
 #pragma unroll
           for (int e = 0; e < V; ++e)
-            dot[i] += to_f32(gv[i][j].v[e]) * to_f32(wv[j].v[e]) *
-                      to_f32(xv[i][j].v[e]);
+            dot[i] += to_f32(gv.v[e]) * to_f32(wv[j].v[e]) * to_f32(xv.v[e]);
+        }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         dot[i] += __shfl_xor_sync(0xffffffffu, dot[i], off);
-      if (lane == 0) red[step & 1][i][warp] = dot[i];
+      if (lane == 0) red[s & 1][i][warp] = dot[i];
     }
     // one barrier a step: the buffer written here is written again two
     // steps on, after every thread has passed the next step's barrier
@@ -216,23 +284,26 @@ __global__ void __launch_bounds__(kBwdThreads, NC <= 4 ? 2 : 1)
       if (row >= r1) continue;
       float total = 0.f;
 #pragma unroll
-      for (int k = 0; k < NW; ++k) total += red[step & 1][i][k];
-      const float r = rstd[row];
+      for (int k = 0; k < NW; ++k) total += red[s & 1][i][k];
+      const float r = rs[i];
       const float cf = r * r * r * (total / static_cast<float>(D));
 #pragma unroll
       for (int j = 0; j < NC; ++j) {
         const int c = tid + j * kBwdThreads;
         if (c >= nch) continue;
+        const C gv = chunk(s, i, 0, j), xv = chunk(s, i, 1, j);
         C out;
 #pragma unroll
         for (int e = 0; e < V; ++e) {
-          const float gf = to_f32(gv[i][j].v[e]), xf = to_f32(xv[i][j].v[e]);
+          const float gf = to_f32(gv.v[e]), xf = to_f32(xv.v[e]);
           out.v[e] = from_f32<T>(r * (gf * to_f32(wv[j].v[e])) - xf * cf);
           dw[j][e] += gf * xf * r;
         }
         dxc[static_cast<long long>(row) * nch + c] = out;
       }
     }
+#pragma unroll
+    for (int i = 0; i < RP; ++i) rs[i] = rs_next[i];
   }
   float* part = partial + static_cast<long long>(blockIdx.x) * D;
 #pragma unroll
@@ -244,38 +315,75 @@ __global__ void __launch_bounds__(kBwdThreads, NC <= 4 ? 2 : 1)
   }
 }
 
+// dw = the sum of the groups' partials, in one fixed association that
+// depends on the partials alone: slice s sums partials 8 s .. 8 s + 7 in
+// order, thread ty of a column adds its slices s = ty, ty + 8, ... in
+// order, and the column's eight thread sums are added in order.  Zero
+// partials appended at the end (a batch cut at a group boundary, padded
+// back) leave dw's bits unchanged.  A block: 32 columns x 8 slice lanes.
 template <typename T>
-__global__ void rmsnorm_bwd_dw_reduce_kernel(const float* __restrict__ partial,
-                                             T* __restrict__ dw, int nparts,
-                                             int D) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= D) return;
+__global__ void __launch_bounds__(256)
+    rmsnorm_bwd_dw_reduce_kernel(const float* __restrict__ partial,
+                                 T* __restrict__ dw, int nparts, int D) {
+  __shared__ float sums[8][33];
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int col = blockIdx.x * 32 + tx;
   float acc = 0.f;
-  for (int p = 0; p < nparts; ++p)
-    acc += partial[static_cast<long long>(p) * D + col];
-  dw[col] = from_f32<T>(acc);
+  if (col < D) {
+    for (int s0 = ty * kPartsPerSlice; s0 < nparts;
+         s0 += 8 * kPartsPerSlice) {
+      float v[kPartsPerSlice];
+#pragma unroll
+      for (int p = 0; p < kPartsPerSlice; ++p)
+        v[p] = s0 + p < nparts
+                   ? partial[static_cast<long long>(s0 + p) * D + col]
+                   : 0.f;
+      float slice = v[0];
+#pragma unroll
+      for (int p = 1; p < kPartsPerSlice; ++p) slice += v[p];
+      acc += slice;
+    }
+  }
+  sums[ty][tx] = acc;
+  __syncthreads();
+  if (ty == 0 && col < D) {
+    float total = sums[0][tx];
+#pragma unroll
+    for (int k = 1; k < 8; ++k) total += sums[k][tx];
+    dw[col] = from_f32<T>(total);
+  }
+}
+
+template <typename T, int V, int NC>
+cudaError_t launch_nc(const T* g, const T* x, const T* w, const float* rstd,
+                      T* dx, float* partial, int rows, int D,
+                      cudaStream_t s) {
+  auto kernel = rmsnorm_bwd_fused<T, V, NC>;
+  // the ring only for 16-byte chunks
+  const size_t bytes = V * sizeof(T) == 16 ? BwdRing<NC>::bytes : 0;
+  static size_t allowed = 48 * 1024;      // per instantiation
+  cudaError_t err = allow_smem(kernel, bytes, allowed);
+  if (err != cudaSuccess) return err;
+  const int groups = (rows + kRowsPerGroup - 1) / kRowsPerGroup;
+  kernel<<<groups, kBwdThreads, bytes, s>>>(g, x, w, rstd, dx, partial, rows,
+                                            D);
+  return cudaGetLastError();
 }
 
 template <typename T, int V>
 cudaError_t launch_fused(const T* g, const T* x, const T* w,
                          const float* rstd, T* dx, float* partial, int rows,
                          int D, cudaStream_t s) {
-  const int nch = D / V, groups = (rows + kRowsPerGroup - 1) / kRowsPerGroup;
+  const int nch = D / V;
   if (nch <= kBwdThreads)
-    rmsnorm_bwd_fused<T, V, 1><<<groups, kBwdThreads, 0, s>>>(
-        g, x, w, rstd, dx, partial, rows, D);
-  else if (nch <= 2 * kBwdThreads)
-    rmsnorm_bwd_fused<T, V, 2><<<groups, kBwdThreads, 0, s>>>(
-        g, x, w, rstd, dx, partial, rows, D);
-  else if (nch <= 4 * kBwdThreads)
-    rmsnorm_bwd_fused<T, V, 4><<<groups, kBwdThreads, 0, s>>>(
-        g, x, w, rstd, dx, partial, rows, D);
-  else if (nch <= 8 * kBwdThreads)
-    rmsnorm_bwd_fused<T, V, 8><<<groups, kBwdThreads, 0, s>>>(
-        g, x, w, rstd, dx, partial, rows, D);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+    return launch_nc<T, V, 1>(g, x, w, rstd, dx, partial, rows, D, s);
+  if (nch <= 2 * kBwdThreads)
+    return launch_nc<T, V, 2>(g, x, w, rstd, dx, partial, rows, D, s);
+  if (nch <= 4 * kBwdThreads)
+    return launch_nc<T, V, 4>(g, x, w, rstd, dx, partial, rows, D, s);
+  if (nch <= 8 * kBwdThreads)
+    return launch_nc<T, V, 8>(g, x, w, rstd, dx, partial, rows, D, s);
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -296,7 +404,7 @@ cudaError_t launch_bwd(const void* g, const void* x, const void* w,
                  : launch_fused<T, 1>(gt, xt, wt, rs, dxt, part, rows, D, s);
   if (err != cudaSuccess) return err;
   const int nparts = (rows + kRowsPerGroup - 1) / kRowsPerGroup;
-  rmsnorm_bwd_dw_reduce_kernel<T><<<(D + 63) / 64, 64, 0, s>>>(
+  rmsnorm_bwd_dw_reduce_kernel<T><<<(D + 31) / 32, 256, 0, s>>>(
       part, static_cast<T*>(dw), nparts, D);
   return cudaGetLastError();
 }

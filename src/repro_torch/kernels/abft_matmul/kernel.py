@@ -15,11 +15,6 @@ import torch
 
 from repro_torch.kernels import build
 
-# the tensor-core route promotes its partial sums into float32 totals
-# every PROMOTE_TILES k-tiles of 64 (csrc/abft_matmul.cu); 0 would keep
-# the whole K in the wgmma accumulator, which misses the accuracy bound
-# (chip_smoke.py reads it beside the kept value)
-PROMOTE_TILES = 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,7 +64,12 @@ def tc_route(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def _launch(a, a_sum, b, b_sum, *, route: bool,
-            chunk: int = PROMOTE_TILES) -> torch.Tensor:
+            promote: bool = True) -> torch.Tensor:
+    """One launch on the given route.  ``promote``: the tensor-core route
+    adds its partial sums into float32 totals every 8 k-tiles
+    (csrc/abft_matmul.cu); False keeps the whole K in the wgmma
+    accumulator, which misses the accuracy bound (chip_smoke.py reads it
+    beside the shipped route).  Counts no launch."""
     M, K = a.shape
     N = b.shape[1]
     a_row, lda = _layout(a, "a")
@@ -82,7 +82,8 @@ def _launch(a, a_sum, b, b_sum, *, route: bool,
                           dtype=torch.uint8, device=dev)
     err = fn(a.data_ptr(), a_sum.data_ptr(), b.data_ptr(), b_sum.data_ptr(),
              c.data_ptr(), scratch.data_ptr(), M, N, K, lda, ldb, a_dt,
-             a_row, b_dt, b_row, int(route), chunk, build.stream_ptr(dev))
+             a_row, b_dt, b_row, int(route), int(promote),
+             build.stream_ptr(dev))
     build.check(err, "abft_matmul_ext")
     return c
 
