@@ -35,7 +35,7 @@
 // accumulator starts afresh and is added into a float32 total with
 // ordinary FADDs, in k order, since the tensor cores do not round their
 // internal additions as an IEEE FADD does: with the whole K in the
-// accumulator dx and dw miss the bound, promoted every 1 to 8 k-tiles
+// accumulator dx and dw missed the bound, promoted every 1 to 8 k-tiles
 // all three contractions read as the SGEMM does (PERF.md).
 //
 // Design: 128 x 128 output tiles, two consumer warpgroups (64 rows each,
@@ -344,10 +344,8 @@ __device__ __forceinline__ float fold3(const float* v, int stride, int n) {
   return n == 1 ? v[0] : (v[0] + v[stride]) + v[2 * stride];
 }
 
-// kAK / kBK: the A / B tiles are K-major (else MN-major); kPr: promote a
-// partial sum every kChunk k-tiles (else the whole K stays in the wgmma
-// fragment)
-template <bool kAK, bool kBK, bool kPr>
+// kAK / kBK: the A / B tiles are K-major (else MN-major)
+template <bool kAK, bool kBK>
 __global__ void __launch_bounds__(kTcThreads, 1)
     abft_wgmma(const __grid_constant__ CUtensorMap ta,
                const __grid_constant__ CUtensorMap tb, const TcArgs p) {
@@ -412,12 +410,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const bool patch_a = p.xa != nullptr && p.Rx >= m0 && p.Rx < m0 + TBM;
   const bool patch_b = p.xb != nullptr && p.Cx >= n0 && p.Cx < n0 + TBN;
 
-  float acc[64];
-  float tot[kPr ? 64 : 1];
+  float acc[64];                             // the chunk's partial sum
+  float tot[64];                             // the promoted total
 #pragma unroll
   for (int e = 0; e < 64; ++e) acc[e] = 0.f;
 #pragma unroll
-  for (int e = 0; e < (kPr ? 64 : 1); ++e) tot[e] = 0.f;
+  for (int e = 0; e < 64; ++e) tot[e] = 0.f;
 
   int done = 0;                              // k-tiles released
   for (int kt = 0; kt < KT; ++kt) {
@@ -444,20 +442,18 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < TBK / 16; ++kk) {
-      const int first = kk == 0 && (kPr ? kt % kChunk == 0 : kt == 0);
+      const int first = kk == 0 && kt % kChunk == 0;
       wgmma_ss_n128_t<kAK ? 0 : 1, kBK ? 0 : 1>(
           acc, da + ((kAK ? 32 * kk : 2048 * kk) >> 4),
           db + ((kBK ? 32 * kk : 2048 * kk) >> 4), !first);
     }
     wgmma_commit();
     int ready;                               // k-tiles whose products are done
-    if (kPr && ((kt + 1) % kChunk == 0 || kt + 1 == KT)) {
+    if ((kt + 1) % kChunk == 0 || kt + 1 == KT) {
       wgmma_wait<0>();
       fence_regs(acc);
-      if constexpr (kPr) {
 #pragma unroll
-        for (int e = 0; e < 64; ++e) tot[e] += acc[e];
-      }
+      for (int e = 0; e < 64; ++e) tot[e] += acc[e];
       ready = kt + 1;
     } else {
       wgmma_wait<1>();
@@ -468,6 +464,9 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       if (lane == 0) mbar_arrive(empty(done % TST));
     }
   }
+  // The last chunk waited for every product already; this wait and fence
+  // (with acc and tot zeroed in separate loops) keep ptxas's schedule:
+  // without both the mainloop ran 15 % slower (PERF.md).
   wgmma_wait<0>();
   fence_regs(acc);
   for (; done < KT; ++done) {
@@ -486,10 +485,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       for (int h = 0; h < 2; ++h) {
         const int r = 64 * wg + 16 * warp + g + 8 * h, cc = 8 * j + 2 * t;
         const int e = 4 * j + 2 * h;
-        float2 v;
-        if constexpr (kPr) v = make_float2(tot[e], tot[e + 1]);
-        else v = make_float2(acc[e], acc[e + 1]);
-        *reinterpret_cast<float2*>(st + r * kStageLd + cc) = v;
+        *reinterpret_cast<float2*>(st + r * kStageLd + cc) =
+            make_float2(tot[e], tot[e + 1]);
       }
   }
   named_bar_sync(2 + wg, 128);               // this warpgroup's rows staged
@@ -520,21 +517,13 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 
 template <bool kAK, bool kBK>
 cudaError_t launch_wgmma(const CUtensorMap& ta, const CUtensorMap& tb,
-                         const TcArgs& args, int promote, cudaStream_t s) {
-  const unsigned blocks = static_cast<unsigned>(args.m_tiles) * args.n_tiles;
-  if (promote) {
-    auto kernel = abft_wgmma<kAK, kBK, true>;
-    static size_t allowed = 48 * 1024;
-    cudaError_t err = allow_smem(kernel, kTcSmem, allowed);
-    if (err != cudaSuccess) return err;
-    kernel<<<blocks, kTcThreads, kTcSmem, s>>>(ta, tb, args);
-  } else {
-    auto kernel = abft_wgmma<kAK, kBK, false>;
-    static size_t allowed = 48 * 1024;
-    cudaError_t err = allow_smem(kernel, kTcSmem, allowed);
-    if (err != cudaSuccess) return err;
-    kernel<<<blocks, kTcThreads, kTcSmem, s>>>(ta, tb, args);
-  }
+                         const TcArgs& args, cudaStream_t s) {
+  auto kernel = abft_wgmma<kAK, kBK>;
+  static size_t allowed = 48 * 1024;     // per instantiation
+  cudaError_t err = allow_smem(kernel, kTcSmem, allowed);
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(args.m_tiles) * args.n_tiles, kTcThreads,
+           kTcSmem, s>>>(ta, tb, args);
   return cudaGetLastError();
 }
 
@@ -543,8 +532,8 @@ cudaError_t launch_wgmma(const CUtensorMap& ta, const CUtensorMap& tb,
 // checksums (each region 256-byte aligned)
 struct TcLayout {
   int Kp, Rx, Cx;
-  long long ld3;                 // row pitch of the planes
-  long long planes, xa, xb, bytes;
+  long long ld3;                 // row pitch of the planes (at offset 0)
+  long long xa, xb, bytes;
 };
 
 TcLayout tc_layout(int M, int N, int K, int a_dtype, int b_dtype) {
@@ -552,7 +541,7 @@ TcLayout tc_layout(int M, int N, int K, int a_dtype, int b_dtype) {
   l.Kp = static_cast<int>(round_up(K, TBK));
   l.Rx = static_cast<int>(round_up(M, 8));
   l.Cx = static_cast<int>(round_up(N, 8));
-  long long at = 0, n = 0;
+  long long n = 0;
   if (a_dtype == DT_F32) {               // [A_hi | A_mid | A_lo], Rx + 1 rows
     l.ld3 = 3ll * l.Kp;
     n = (l.Rx + 1ll) * l.ld3;
@@ -562,8 +551,7 @@ TcLayout tc_layout(int M, int N, int K, int a_dtype, int b_dtype) {
   } else {
     l.ld3 = 0;
   }
-  l.planes = at;
-  at = round_up(at + 2 * n, 256);
+  long long at = round_up(2 * n, 256);
   l.xa = a_dtype == DT_BF16 ? at : -1;
   if (l.xa >= 0) at = round_up(at + 6ll * l.Kp, 256);
   l.xb = b_dtype == DT_BF16 ? at : -1;
@@ -579,8 +567,7 @@ bool tma_ok(const void* base, long long ld) {
 cudaError_t launch_tc(const void* a, const void* a_sum, const void* b,
                       const void* b_sum, void* c, void* scratch, int M, int N,
                       int K, long long lda, long long ldb, int a_dtype,
-                      int a_row, int b_dtype, int b_row, int promote,
-                      cudaStream_t s) {
+                      int a_row, int b_dtype, int b_row, cudaStream_t s) {
   const bool a_split = a_dtype == DT_F32, b_split = b_dtype == DT_F32;
   if ((a_dtype != DT_F32 && a_dtype != DT_BF16) ||
       (b_dtype != DT_F32 && b_dtype != DT_BF16) || (a_split && b_split) ||
@@ -589,7 +576,7 @@ cudaError_t launch_tc(const void* a, const void* a_sum, const void* b,
     return cudaErrorInvalidValue;
   const TcLayout l = tc_layout(M, N, K, a_dtype, b_dtype);
   uint8_t* base = static_cast<uint8_t*>(scratch);
-  auto* planes = reinterpret_cast<__nv_bfloat16*>(base + l.planes);
+  auto* planes = reinterpret_cast<__nv_bfloat16*>(base);
   auto* xa = a_split ? nullptr
                      : reinterpret_cast<__nv_bfloat16*>(base + l.xa);
   auto* xb = b_split ? nullptr
@@ -678,10 +665,10 @@ cudaError_t launch_tc(const void* a, const void* a_sum, const void* b,
   else
     err = matrix_map(&tb, b, K, N, ldb, TBN);
   if (err != cudaSuccess) return err;
-  if (ak && bk) return launch_wgmma<true, true>(ta, tb, args, promote, s);
-  if (ak) return launch_wgmma<true, false>(ta, tb, args, promote, s);
-  if (bk) return launch_wgmma<false, true>(ta, tb, args, promote, s);
-  return launch_wgmma<false, false>(ta, tb, args, promote, s);
+  if (ak && bk) return launch_wgmma<true, true>(ta, tb, args, s);
+  if (ak) return launch_wgmma<true, false>(ta, tb, args, s);
+  if (bk) return launch_wgmma<false, true>(ta, tb, args, s);
+  return launch_wgmma<false, false>(ta, tb, args, s);
 }
 
 }  // namespace
@@ -701,20 +688,19 @@ extern "C" long long repro_abft_scratch_bytes(int M, int N, int K,
 // route 0: the CUDA-core SGEMM (any operands; scratch unused); route 1:
 // the tensor cores (at least one bf16 operand, each bf16 one with a
 // 16-byte aligned base and ld a multiple of 8; M, N, K > 0), scratch of
-// repro_abft_scratch_bytes bytes, 256-byte aligned; promote 1 promotes
-// the partial sums every kChunk k-tiles, 0 keeps the whole K in the
-// wgmma accumulator.  Returns the cudaError_t of the launches.
+// repro_abft_scratch_bytes bytes, 256-byte aligned.  Returns the
+// cudaError_t of the launches.
 extern "C" int repro_abft_matmul(const void* a, const void* a_sum,
                                  const void* b, const void* b_sum, void* c,
                                  void* scratch, int M, int N, int K,
                                  long long lda, long long ldb, int a_dtype,
                                  int a_row, int b_dtype, int b_row,
-                                 int route, int promote, void* stream) {
+                                 int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M < 0 || N < 0 || K < 0) return cudaErrorInvalidValue;
   if (route == 1)
     return launch_tc(a, a_sum, b, b_sum, c, scratch, M, N, K, lda, ldb,
-                     a_dtype, a_row, b_dtype, b_row, promote, s);
+                     a_dtype, a_row, b_dtype, b_row, s);
   if (route != 0) return cudaErrorInvalidValue;
   if (a_dtype == DT_F32)
     return a_row ? launch_b<float, true>(a, a_sum, b, b_sum, c, M, N, K, lda,

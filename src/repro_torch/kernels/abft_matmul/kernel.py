@@ -16,14 +16,13 @@ import torch
 from repro_torch.kernels import build
 
 
-
 @functools.lru_cache(maxsize=None)
 def _entries():
     lib = build.library()
     fn = lib.repro_abft_matmul
     fn.argtypes = ([ctypes.c_void_p] * 6
                    + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     scratch = lib.repro_abft_scratch_bytes
     scratch.argtypes = [ctypes.c_int] * 5
@@ -63,13 +62,9 @@ def tc_route(a: torch.Tensor, b: torch.Tensor) -> bool:
     return True
 
 
-def _launch(a, a_sum, b, b_sum, *, route: bool,
-            promote: bool = True) -> torch.Tensor:
-    """One launch on the given route.  ``promote``: the tensor-core route
-    adds its partial sums into float32 totals every 8 k-tiles
-    (csrc/abft_matmul.cu); False keeps the whole K in the wgmma
-    accumulator, which misses the accuracy bound (chip_smoke.py reads it
-    beside the shipped route).  Counts no launch."""
+def _launch(a, a_sum, b, b_sum, *, route: bool) -> torch.Tensor:
+    """One launch on the given route (True: the tensor cores); counts no
+    launch.  The card tests force each route through it."""
     M, K = a.shape
     N = b.shape[1]
     a_row, lda = _layout(a, "a")
@@ -82,8 +77,7 @@ def _launch(a, a_sum, b, b_sum, *, route: bool,
                           dtype=torch.uint8, device=dev)
     err = fn(a.data_ptr(), a_sum.data_ptr(), b.data_ptr(), b_sum.data_ptr(),
              c.data_ptr(), scratch.data_ptr(), M, N, K, lda, ldb, a_dt,
-             a_row, b_dt, b_row, int(route), int(promote),
-             build.stream_ptr(dev))
+             a_row, b_dt, b_row, int(route), build.stream_ptr(dev))
     build.check(err, "abft_matmul_ext")
     return c
 
