@@ -31,7 +31,9 @@ ends the run with a non-zero exit code and no result line:
                  stay quiet;
 6. ``steps``   — one decode step and one prefill at the serve phase's
                  shapes, eager (as the engine runs them) against their
-                 device time alone (captured in a CUDA graph);
+                 device time alone (captured in a CUDA graph), and the
+                 decode step's device ms in the paged-attention and
+                 RMSNorm kernels beside the tree's before their redesign;
 7. ``train-tiny`` — tiny granite in float32 trained on the card through
                  ``run_with_recovery``: a run with a fail-stop and raw
                  saves ends bit-equal to an uninterrupted card run, and
@@ -97,6 +99,10 @@ version at one microbatch's ``w_in`` and its two backward contractions
 reading and time beside it), with the verifier's checks (a single error
 corrected, a checksum hit leaving the data intact, two errors detected
 and not corrected); the RMSNorm backward's two launches are bit-equal.
+Paged attention is bit-equal on a repeated call and through a 40-entry
+table, with its split pass and combine profiled; the RMSNorm forward is
+timed beside the harness's latency floor (a one-element ``zero_``); both
+also without programmatic dependent launch.
 
 Then the kernels summary (one JSON object, launches by path: serve,
 train, sdc, abft, serve_ssm), the ``nvidia-smi`` line, and the last line
@@ -155,6 +161,17 @@ GEN = 32
 MAX_LEN = max(PROMPT_LENS) + GEN                     # 288 = 18 pages
 MAX_ACTIVE = 8
 KILL_STEP = 5
+# the steps phases: the decode step's device ms in these kernel groups
+# (launch/profile_steps.GROUPS), beside the readings of the tree before
+# the redesign of the paged-attention kernel and the RMSNorm forward
+# (commit 0aafc35: one block a (row, kv head) walking its pages, a
+# two-pass RMSNorm), taken by its launch/profile_steps.py in the same
+# chip run as this tree's chip_smoke.py (H100 80GB HBM3, 700.00 W;
+# PERF.md §5)
+STEP_GROUPS = ("paged_attention", "rmsnorm")
+STEP_GROUPS_BEFORE = {
+    "steps": {"paged_attention": 1.5175, "rmsnorm": 0.2187},
+    "steps-ssm": {"paged_attention": 0.0, "rmsnorm": 0.1811}}
 
 # replaced TPU kernels (file:line of the function that reaches pallas_call)
 KERNELS = {
@@ -289,6 +306,17 @@ def phase_build():
           "library": str(lib.relative_to(ROOT))})
 
 
+def _no_pdl(measure, fn):
+    """``measure(fn)`` with programmatic dependent launch off."""
+    from repro_torch.kernels import build
+
+    build.set_pdl(False)
+    try:
+        return measure(fn)
+    finally:
+        build.set_pdl(True)
+
+
 def _rmsnorm_cases(gen, bw):
     from repro_torch.kernels.rmsnorm.kernel import rms_norm_2d
     from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
@@ -296,6 +324,10 @@ def _rmsnorm_cases(gen, bw):
     D = 4096
     w = (1.0 + 0.1 * torch.randn(D, generator=gen, device="cuda")
          ).to(torch.bfloat16)
+    # the latency floor of the harness: a one-element zero_, captured and
+    # replayed as the kernel is
+    one = torch.empty(1, device="cuda")
+    floor_ms = time_ms(one.zero_)
     out = []
     # the serve path's row counts, then the train path's (a microbatch of
     # TRAIN_SEQ tokens), where the forward also writes each row's rstd
@@ -310,19 +342,24 @@ def _rmsnorm_cases(gen, bw):
             want = torch.rsqrt(x.float().square().mean(-1) + 1e-6)
             err = max(err, check_close(f"rmsnorm rstd T={T}", rstd, want,
                                        FP32_TOL))
+        kernel_ms = time_ms(lambda: rms_norm_2d(x, w, rstd=rstd))
+        bound_ms = (T * D * 4 + D * 2 + (T * 4 if rstd is not None
+                                         else 0)) / bw * 1e3
         out.append({
             "shape": f"({T}, {D}) bf16" + (" rstd" if rstd is not None
                                            else ""),
             "main": T == MAX_ACTIVE, "max_abs_err": err,
             "tol": BF16_TOL if rstd is None else
             {"y": BF16_TOL, "rstd": FP32_TOL},
-            "kernel_ms": time_ms(lambda: rms_norm_2d(x, w, rstd=rstd)),
+            "kernel_ms": kernel_ms,
+            "kernel_ms_no_pdl": _no_pdl(
+                time_ms, lambda: rms_norm_2d(x, w, rstd=rstd)),
+            "floor_ms": floor_ms, "share_of_floor": floor_ms / kernel_ms,
+            "share_of_bound": bound_ms / kernel_ms,
             "plain_ms": time_ms(lambda: rms_norm_ref(x, w)),
             "library_ms": time_ms(lambda: torch.nn.functional.rms_norm(
                 x, (D,), w, eps=1e-6)),
-            "bound_ms": (T * D * 4 + D * 2 + (T * 4 if rstd is not None
-                                              else 0)) / bw * 1e3,
-            "bound_by": "bytes"})
+            "bound_ms": bound_ms, "bound_by": "bytes"})
     return out
 
 
@@ -421,8 +458,9 @@ def _flash_cases(gen, bw, flops):
 def _paged_cases(gen, bw):
     from repro_torch.kernels.paged_attention.kernel import \
         paged_attention_rhd
-    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    from repro_torch.launch.profile_steps import LENGTHS
+    from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
+                                                         split_positions)
+    from repro_torch.launch.profile_steps import LENGTHS, profile_step
 
     R, K, G, hd, ps = MAX_ACTIVE, 8, 4, 128, PAGE_SIZE
     mpr = -(-MAX_LEN // ps)
@@ -436,34 +474,57 @@ def _paged_cases(gen, bw):
             continue
         used = n // ps + 1
         table[r, :used] = perm[r * mpr:r * mpr + used].to(torch.int32)
+    # the same rows through a 40-entry table
+    wide = torch.zeros(R, 40, dtype=torch.int32, device="cuda")
+    wide[:, :mpr] = table
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     q = torch.randn(R, K * G, hd, generator=gen, device="cuda"
                     ).to(torch.bfloat16)
     kp, vp = (torch.randn(P, ps, K, hd, generator=gen, device="cuda"
                           ).to(torch.bfloat16) for _ in range(2))
+    C = split_positions(hd, q.dtype)
     out = []
     for window, softcap in ((0, 0.0), (64, 30.0)):
         kw = dict(window=window, softcap=softcap)
+
+        def kernel():
+            return paged_attention_rhd(q, kp, vp, table, lens, **kw)
 
         def plain():
             return paged_attention_ref(q[:, None], kp, vp, table, lens,
                                        **kw)[:, 0]
 
-        err = check_close(f"paged window={window} softcap={softcap}",
-                          paged_attention_rhd(q, kp, vp, table, lens, **kw),
+        got = kernel()
+        err = check_close(f"paged window={window} softcap={softcap}", got,
                           plain(), BF16_TOL)
+        if not torch.equal(kernel(), got):
+            raise AssertionError(f"paged window={window}: two calls differ")
+        if not torch.equal(paged_attention_rhd(q, kp, vp, wide, lens, **kw),
+                           got):
+            raise AssertionError(f"paged window={window}: a 40-entry table "
+                                 f"changed the bits of the {mpr}-entry one")
         kv_bytes = sum(min(n + 1, window) if window else n + 1
                        for n in lengths) * K * hd * 2 * 2
         io_bytes = 2 * R * K * G * hd * 2 + R * mpr * 4 + R * 4
+        bound_ms = (kv_bytes + io_bytes) / bw * 1e3
+        kernel_ms = time_ms(kernel)
+        # device ms of each kernel of one call (split pass, combine),
+        # profiled eagerly without programmatic dependent launch (with it a
+        # kernel's span includes its wait for the kernel before it)
+        split = _no_pdl(lambda f: profile_step(f, calls=5), kernel)[
+            "top_kernels_ms"]
         out.append({
             "shape": f"R={R} K={K} G={G} hd={hd} ps={ps} MPR={mpr} bf16 "
                      f"lengths={lengths} window={window} softcap={softcap}",
             "main": not window, "max_abs_err": err, "tol": BF16_TOL,
-            "kernel_ms": time_ms(
-                lambda: paged_attention_rhd(q, kp, vp, table, lens, **kw)),
+            "split_positions": C, "repeat_bit_equal": True,
+            "table_40_bit_equal": True,
+            "kernel_ms": kernel_ms,
+            "kernel_ms_no_pdl": _no_pdl(time_ms, kernel),
+            "kernels_ms": {_kernel_name(n): ms for n, ms in split.items()},
+            "share_of_bound": bound_ms / kernel_ms,
             "plain_ms": time_ms(plain), "library_ms": None,
-            "bound_ms": (kv_bytes + io_bytes) / bw * 1e3,
-            "bound_by": "bytes"})
+            "bound_ms": bound_ms, "bound_by": "bytes"})
     return out
 
 
@@ -1219,8 +1280,10 @@ def phase_steps(cfg, params, seed: int, calls: int = 10,
     (``launch/profile_steps.serve_steps``), each run eagerly and ended by
     a synchronize as the engine runs it (host clock), and captured in a
     CUDA graph (device time alone).  The difference is the host's share:
-    Python, dispatch and the launches the card waits for."""
-    from repro_torch.launch.profile_steps import serve_steps
+    Python, dispatch and the launches the card waits for.  Then the
+    decode step's device ms in the paged-attention and RMSNorm kernels
+    (``profile_step``'s groups) beside the parent tree's reading."""
+    from repro_torch.launch.profile_steps import profile_step, serve_steps
     from repro_torch.serve.engine import _supports_paging
 
     steps = serve_steps(cfg, params, device="cuda", seed=seed,
@@ -1242,6 +1305,12 @@ def phase_steps(cfg, params, seed: int, calls: int = 10,
             out.update({f"{name}_eager_ms": eager,
                         f"{name}_device_ms": device,
                         f"{name}_host_share": 1.0 - device / eager})
+        # the decode step's device ms in the two redesigned kernels,
+        # profiled without programmatic dependent launch (as _paged_cases)
+        groups = _no_pdl(profile_step, steps["decode"])["device_ms_by_group"]
+    out["decode_kernels_device_ms"] = {k: groups.get(k, 0.0)
+                                       for k in STEP_GROUPS}
+    out["decode_kernels_device_ms_before"] = STEP_GROUPS_BEFORE[phase]
     emit(out)
 
 

@@ -9,6 +9,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <utility>
+
 // dtype codes passed from the Python wrappers
 enum { DT_F32 = 0, DT_BF16 = 1 };
 
@@ -44,4 +46,52 @@ static cudaError_t allow_smem(K kernel, size_t bytes, size_t& allowed) {
       static_cast<int>(bytes));
   if (err == cudaSuccess) allowed = bytes;
   return err;
+}
+
+// ---- programmatic dependent launch (PDL) ------------------------------------
+// A kernel launched with the attribute (launch_kernel(..., pdl = true))
+// may start while the kernel before it on the stream is still running
+// (once that kernel has triggered, or its blocks have exited).  It must
+// call griddep_wait() before it reads anything the previous kernels wrote
+// and before it writes anything they may still read; everything after the
+// wait sees their writes.  Each kernel of the library that is launched so
+// waits first, then triggers its own dependents: a dependent launched
+// early sits in its wait until this grid has finished, so the launch
+// latency of the next kernel overlaps this one.  Both instructions are
+// no-ops in a kernel launched without the attribute.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Whether launch_kernel sets the attribute where it is asked for (on
+// unless repro_set_pdl(0) was called: the measurement of a kernel with and
+// without it).  One flag for the whole library: an inline function's
+// static is shared across its translation units.
+inline bool& pdl_flag() {
+  static bool on = true;
+  return on;
+}
+
+// kernel<<<grid, block, smem, s>>>(args...), with programmatic stream
+// serialization allowed when `pdl` (and the flag) is set; returns the
+// launch's error code.
+template <typename Kernel, typename... Args>
+static cudaError_t launch_kernel(bool pdl, Kernel kernel, dim3 grid,
+                                 dim3 block, size_t smem, cudaStream_t s,
+                                 Args&&... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl && pdl_flag() ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
 }

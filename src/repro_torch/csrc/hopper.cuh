@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the bf16 flash-attention kernels
 // (flash_attention.cu, flash_attention_bwd.cu) and the ABFT product
-// (abft_matmul.cu): TMA tile loads into a
+// (abft_matmul.cu), and the cp.async rings of rmsnorm.cu and
+// paged_attention.cu: TMA tile loads into a
 // 128/64/32-byte swizzled shared layout, mbarrier rings, wgmma products
 // with fp32 accumulation, and the host-side encoding of the tensor maps.
 //
@@ -45,6 +46,24 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // launchers request 1024 bytes of slack)
 __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
   return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// ---- cp.async: 16-byte copies into shared memory, in commit groups -----------
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's commit groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- mbarriers --------------------------------------------------------------

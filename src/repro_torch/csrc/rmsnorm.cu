@@ -3,13 +3,23 @@
 //
 // Replaces the TPU kernel src/repro/kernels/rmsnorm/kernel.py:rms_norm_2d.
 //
-// Bound on the H100: memory.  Each row of D elements is read, reduced and
-// written once (plus the weight, which stays in L1/L2); the arithmetic is
-// a few operations per byte.  Design: one block per row, 16-byte vector
-// loads (8 bf16 or 4 fp32 per thread per load, neighbouring threads on
-// neighbouring addresses), an fp32 sum of squares reduced by warp
-// shuffles and then across warps through shared memory, then a second
-// pass over the row (L1/L2-resident at D = 4096) that scales and stores.
+// Bound on the H100: memory at the train shape ((4096, 4096): each row
+// read and written once, a few operations a byte); latency at the serve
+// shape ((8, 4096): 64 KB, 41.6 ns of memory time, far below one launch).
+// Design (rmsnorm_row_kernel): one block of 256 threads a row; each
+// thread loads its NC 16-byte chunks of w and then of x (chunk c of the
+// row at thread c % 256, NC = D / (256 V) rounded up to 1, 2, 4 or 8, V
+// elements a chunk) into registers with one read, so all its loads are in
+// flight together; the fp32 sum of squares is reduced by warp shuffles,
+// one barrier publishes the eight warp sums, and every warp adds them in
+// the same order itself; then y is computed from the registers.  The
+// reduction order depends on D alone, so a row's bits do not depend on
+// the number of rows.  Rows of more than 2048 chunks, or whose length is
+// not a multiple of V, take rmsnorm_kernel (two passes over the row, a
+// block reduction with two barriers), chosen by D before the launch.
+// Both are launched with programmatic dependent launch (common.cuh):
+// each waits for the previous kernel before it reads x or w or writes y,
+// then lets the next kernel launch.
 // The TPU kernel's `rows = ROWS if R % ROWS == 0 else 1` tiling is a VMEM
 // artifact and does not carry over: every row is its own block.
 #include "common.cuh"
@@ -18,27 +28,93 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
-__device__ __forceinline__ float block_sum(float v) {
-  __shared__ float warp_sums[kThreads / 32];
-  __shared__ float total;
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float warp_sums[kWarps];
+  __shared__ float total;
+  v = warp_sum(v);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (lane == 0) warp_sums[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    float s = lane < kThreads / 32 ? warp_sums[lane] : 0.f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off);
+    float s = warp_sum(lane < kWarps ? warp_sums[lane] : 0.f);
     if (lane == 0) total = s;
   }
   __syncthreads();
   return total;
 }
 
+// NC 16-byte chunks a thread, the whole row in registers.
+template <typename T, int NC>
+__global__ void __launch_bounds__(kThreads)
+    rmsnorm_row_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                       T* __restrict__ y, float* __restrict__ rstd, int D,
+                       float eps) {
+  constexpr int V = 16 / sizeof(T);
+  __shared__ float warp_sums[kWarps];
+  const int nch = D / V;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long row = blockIdx.x;
+  const uint4* wc = reinterpret_cast<const uint4*>(w);
+  const uint4* xc = reinterpret_cast<const uint4*>(x) + row * nch;
+  uint4* yc = reinterpret_cast<uint4*>(y) + row * nch;
+
+  griddep_wait();
+  griddep_launch_dependents();
+  uint4 wv[NC], xv[NC];
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int c = tid + j * kThreads;
+    wv[j] = c < nch ? wc[c] : make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int c = tid + j * kThreads;
+    xv[j] = c < nch ? xc[c] : make_uint4(0u, 0u, 0u, 0u);
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const T* e = reinterpret_cast<const T*>(&xv[j]);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      const float f = to_f32(e[k]);
+      ss += f * f;
+    }
+  }
+  ss = warp_sum(ss);
+  if (lane == 0) warp_sums[warp] = ss;
+  __syncthreads();
+  float total = 0.f;
+#pragma unroll
+  for (int k = 0; k < kWarps; ++k) total += warp_sums[k];
+  const float r = rsqrtf(total / static_cast<float>(D) + eps);
+  // the training path keeps r for the backward; serving passes null
+  if (rstd != nullptr && tid == 0) rstd[row] = r;
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const int c = tid + j * kThreads;
+    if (c >= nch) continue;
+    const T* xe = reinterpret_cast<const T*>(&xv[j]);
+    const T* we = reinterpret_cast<const T*>(&wv[j]);
+    uint4 out;
+    T* oe = reinterpret_cast<T*>(&out);
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+      oe[k] = from_f32<T>((to_f32(xe[k]) * r) * to_f32(we[k]));
+    yc[c] = out;
+  }
+}
+
+// Any D: two passes over the row (the second from L1/L2).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -51,6 +127,8 @@ __global__ void __launch_bounds__(kThreads)
   // when D is a multiple of the vector width
   const bool vec = (D % V) == 0;
 
+  griddep_wait();
+  griddep_launch_dependents();
   float ss = 0.f;
   if (vec) {
     for (int i = threadIdx.x * V; i < D; i += kThreads * V) {
@@ -70,7 +148,6 @@ __global__ void __launch_bounds__(kThreads)
   }
   ss = block_sum(ss);
   const float r = rsqrtf(ss / static_cast<float>(D) + eps);
-  // the training path keeps r for the backward; serving passes null
   if (rstd != nullptr && threadIdx.x == 0) rstd[blockIdx.x] = r;
 
   if (vec) {
@@ -92,6 +169,34 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename T>
+cudaError_t launch_fwd(const void* xp, const void* wp, void* yp, void* rp,
+                       int rows, int D, float eps, cudaStream_t s) {
+  constexpr int V = 16 / sizeof(T);
+  const T* x = static_cast<const T*>(xp);
+  const T* w = static_cast<const T*>(wp);
+  T* y = static_cast<T*>(yp);
+  float* rstd = static_cast<float*>(rp);
+  const int nch = D / V;
+  const dim3 grid(rows), block(kThreads);
+  if (D % V == 0) {
+    if (nch <= kThreads)
+      return launch_kernel(true, rmsnorm_row_kernel<T, 1>, grid, block, 0,
+                           s, x, w, y, rstd, D, eps);
+    if (nch <= 2 * kThreads)
+      return launch_kernel(true, rmsnorm_row_kernel<T, 2>, grid, block, 0,
+                           s, x, w, y, rstd, D, eps);
+    if (nch <= 4 * kThreads)
+      return launch_kernel(true, rmsnorm_row_kernel<T, 4>, grid, block, 0,
+                           s, x, w, y, rstd, D, eps);
+    if (nch <= 8 * kThreads)
+      return launch_kernel(true, rmsnorm_row_kernel<T, 8>, grid, block, 0,
+                           s, x, w, y, rstd, D, eps);
+  }
+  return launch_kernel(true, rmsnorm_kernel<T>, grid, block, 0, s, x, w, y,
+                       rstd, D, eps);
+}
+
 }  // namespace
 
 // x, y: (rows, D) contiguous; w: (D,), all of one dtype; rstd: (rows,)
@@ -101,20 +206,16 @@ extern "C" int repro_rmsnorm_fwd(const void* x, const void* w, void* y,
                                  int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= 0) return cudaSuccess;
-  if (dtype == DT_BF16) {
-    rmsnorm_kernel<__nv_bfloat16><<<rows, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w),
-        static_cast<__nv_bfloat16*>(y), static_cast<float*>(rstd), D, eps);
-  } else if (dtype == DT_F32) {
-    rmsnorm_kernel<float><<<rows, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<float*>(y), static_cast<float*>(rstd), D, eps);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+  if (dtype == DT_BF16)
+    return launch_fwd<__nv_bfloat16>(x, w, y, rstd, rows, D, eps, s);
+  if (dtype == DT_F32)
+    return launch_fwd<float>(x, w, y, rstd, rows, D, eps, s);
+  return cudaErrorInvalidValue;
 }
+
+// Programmatic dependent launch on (1, the default) or off for every
+// launch of the library that asks for it: for measurements.
+extern "C" void repro_set_pdl(int on) { pdl_flag() = on != 0; }
 
 // ---------------------------------------------------------------------------
 // Backward.  With g = dL/dy and r = rsqrt(mean(x^2) + eps) per row:
@@ -149,21 +250,6 @@ template <typename T, int V>
 struct alignas(sizeof(T) * V) Chunk {
   T v[V];
 };
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Rows of a step (RP) and steps in flight (ST) for NC chunks a thread:
 // RP * NC * ST = 16 chunks of g and 16 of x a thread in flight (128 KB of

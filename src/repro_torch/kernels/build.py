@@ -107,6 +107,16 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def set_pdl(on: bool) -> None:
+    """Programmatic dependent launch on (the default) or off for every
+    kernel launched with it (``launch_pdl`` in ``csrc/common.cuh``): to
+    time a kernel both ways."""
+    fn = library().repro_set_pdl
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = None
+    fn(int(on))
+
+
 def check(err: int, name: str) -> None:
     """Raises if a C entry point reported a CUDA error."""
     if err != 0:

@@ -1,6 +1,7 @@
-"""Host wrapper of the CUDA paged decode-attention kernel
-(``csrc/paged_attention.cu``), which replaces the TPU kernel
-``repro/kernels/paged_attention/kernel.py:paged_attention_rkgd``."""
+"""Host wrapper of the CUDA paged decode-attention kernels
+(``csrc/paged_attention.cu``: a pass over fixed position splits, then a
+combine of each row's splits in ascending order), which replace the TPU
+kernel ``repro/kernels/paged_attention/kernel.py:paged_attention_rkgd``."""
 from __future__ import annotations
 
 import ctypes
@@ -9,14 +10,15 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.paged_attention.ref import split_positions
 
-MAX_GROUP_WIDTH = 1024        # G * hd per block (csrc: MAXA * NT)
+MAX_GROUP_WIDTH = 1024        # G * hd per block (csrc)
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
     fn = build.library().repro_paged_attention_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                       ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -29,7 +31,8 @@ def paged_attention_rhd(q: torch.Tensor, k_pages: torch.Tensor,
                         softcap: float = 0.0, scale=None) -> torch.Tensor:
     """q: (R, H, hd); k_pages/v_pages: (P, ps, K, hd) (the serve layout,
     read in place); page_tables: (R, MPR) int32; lengths: (R,) int32, the
-    query's position.  Contiguous CUDA tensors -> o: (R, H, hd)."""
+    query's position.  Contiguous CUDA tensors -> o: (R, H, hd).  One
+    call is one counted launch (the split pass and its combine)."""
     dev = q.device
     tensors = (k_pages, v_pages, page_tables, lengths)
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -61,11 +64,18 @@ def paged_attention_rhd(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("paged_attention_rhd reads the pages with 16-byte "
                          "loads: k_pages and v_pages must be 16-byte aligned")
     scale = scale if scale else hd ** -0.5
+    MPR = page_tables.shape[1]
+    C = split_positions(hd, q.dtype)
+    # the splits' fp32 partials: acc (R, K, NS, G, hd), then m and l
+    # (R, K, NS, G) each (the layout of csrc/paged_attention.cu)
+    NS = -(-MPR * ps // C)
+    partials = torch.empty(R * K * NS * G * (hd + 2), dtype=torch.float32,
+                           device=dev)
     o = torch.empty_like(q)
     err = _entry()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                    page_tables.data_ptr(), lengths.data_ptr(), o.data_ptr(),
-                   R, K, G, hd, ps, page_tables.shape[1], float(scale),
-                   int(window or 0), float(softcap or 0.0),
+                   partials.data_ptr(), R, K, G, hd, ps, MPR, C,
+                   float(scale), int(window or 0), float(softcap or 0.0),
                    build.dtype_code(q.dtype), build.stream_ptr(dev))
     build.check(err, "paged_attention_rhd")
     paged_attention_rhd.launches += 1

@@ -18,7 +18,10 @@ block hash are held byte for byte; the ABFT matmul, on either route
 cores), to 32 float32 ulps of each element's absolute mass against its
 float32 plain version, bit-equal from call to call.  The selective scan is held to its
 plain version within 1e-5 + 1e-5 |want| (tests/test_kernels.py), and the
-tiny Mamba engine on the card gives the CPU's greedy streams.
+tiny Mamba engine on the card gives the CPU's greedy streams.  Paged
+decode attention is also held bit for bit across the table's width, the
+batch, the row index, the page ids and NaN in every dead position, and
+the RMSNorm forward's first rows across row counts.
 """
 import dataclasses
 
@@ -41,7 +44,8 @@ from repro_torch.kernels.flash_attention.kernel import (
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention.kernel import paged_attention_rhd
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.paged_attention.ref import (
+    paged_attention_ref, paged_attention_split_ref, split_positions)
 from repro_torch.kernels.rmsnorm.kernel import rms_norm_2d, rms_norm_2d_bwd
 from repro_torch.kernels.rmsnorm.ops import rms_norm
 from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
@@ -174,6 +178,140 @@ def test_paged_row_does_not_depend_on_placement(cuda):
     q2[0] = q[r]
     o2 = paged_attention_rhd(q2, kp2, vp2, table2, lengths2)
     assert torch.equal(o2[0], o[r])
+
+
+def _split_case(rng, lengths, K, G, hd, ps, mpr, dtype, device):
+    """Rows of the given lengths, each mapping ``mpr`` distinct live pages
+    (no null page in a table unless a row is inactive: length 0 and a
+    zeroed table)."""
+    R = len(lengths)
+    P = R * mpr + 1
+    table = rng.permutation(np.arange(1, P))[:R * mpr].reshape(R, mpr)
+    table = table.astype(np.int32)
+    for r, n in enumerate(lengths):
+        if n == 0:
+            table[r] = 0
+    q = _randn(rng, (R, K * G, hd), dtype, device)
+    kp = _randn(rng, (P, ps, K, hd), dtype, device)
+    vp = _randn(rng, (P, ps, K, hd), dtype, device)
+    return (q, kp, vp, torch.from_numpy(table).to(device),
+            torch.tensor(lengths, dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize("G,hd", [(1, 64), (4, 128), (8, 128), (8, 64)])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (0, 30.0),
+                                            (40, 0.0), (70, 30.0)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_paged_split_edges_match_plain(cuda, G, hd, window, softcap, dtype):
+    """Lengths at the split edges (C - 1, C, C + 1, 2 C), an inactive
+    row, a full table; window 40 crosses a split boundary, window 70
+    leaves whole splits out of a long row."""
+    C = split_positions(hd, dtype)
+    ps, mpr = 16, 20
+    lengths = [0, C - 1, C, C + 1, 2 * C, 2 * C + 5, mpr * ps - 1]
+    rng = np.random.default_rng(20)
+    q, kp, vp, table, lens = _split_case(rng, lengths, 2, G, hd, ps, mpr,
+                                         dtype, cuda)
+    kw = dict(window=window, softcap=softcap)
+    o = paged_attention_rhd(q, kp, vp, table, lens, **kw)
+    torch.cuda.synchronize()
+    want = paged_attention_ref(q[:, None], kp, vp, table, lens, **kw)[:, 0]
+    _close(o, want, TOL[dtype])
+    model = paged_attention_split_ref(q[:, None], kp, vp, table, lens,
+                                      **kw)[:, 0]
+    _close(o, model, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [0, 64])
+def test_paged_row_bits_do_not_depend_on_table_or_batch(cuda, dtype,
+                                                        window):
+    """Token-identical failover: a row's bits stay the same when the table
+    grows (MPR 18 -> 24, 40), when R shrinks (8 -> each row alone), when
+    the row moves to another index and when its pages move to other
+    physical ids."""
+    rng = np.random.default_rng(21)
+    lengths = [0, 15, 16, 100, 200, 255, 287, 17]
+    q, kp, vp, table, lens = _split_case(rng, lengths, 8, 4, 128, 16, 18,
+                                         dtype, cuda)
+    kw = dict(window=window)
+    o = paged_attention_rhd(q, kp, vp, table, lens, **kw)
+    for mpr in (24, 40):
+        wide = torch.zeros(8, mpr, dtype=torch.int32, device=cuda)
+        wide[:, :18] = table
+        assert torch.equal(paged_attention_rhd(q, kp, vp, wide, lens, **kw),
+                           o), mpr
+    for r in range(8):
+        one = paged_attention_rhd(q[r:r + 1].contiguous(), kp, vp,
+                                  table[r:r + 1].contiguous(),
+                                  lens[r:r + 1].contiguous(), **kw)
+        assert torch.equal(one[0], o[r]), r
+    # row 6 to index 2 of a 3-row batch, its pages to fresh ids
+    P = kp.shape[0]
+    fresh = torch.arange(P, P + 18, dtype=torch.int32, device=cuda)
+    kp2 = torch.cat([kp, kp[table[6].long()]])
+    vp2 = torch.cat([vp, vp[table[6].long()]])
+    table2 = torch.stack([table[1], table[3], fresh])
+    q2 = torch.stack([q[1], q[3], q[6]])
+    lens2 = torch.stack([lens[1], lens[3], lens[6]])
+    o2 = paged_attention_rhd(q2, kp2, vp2, table2, lens2, **kw)
+    assert torch.equal(o2[2], o[6])
+    assert torch.equal(paged_attention_rhd(q, kp, vp, table, lens, **kw), o)
+
+
+@pytest.mark.parametrize("window", [0, 40])
+def test_paged_dead_positions_change_nothing(cuda, window):
+    """Every pool position that no row attends (past a length, before a
+    window's start, pages no table maps) set to NaN: the output's bits do
+    not move, so no dead position is read or reaches a sum."""
+    rng = np.random.default_rng(22)
+    lengths = [0, 63, 64, 65, 200, 287]
+    ps = 16
+    q, kp, vp, table, lens = _split_case(rng, lengths, 2, 4, 128, ps, 18,
+                                         torch.bfloat16, cuda)
+    o = paged_attention_rhd(q, kp, vp, table, lens, window=window)
+    live = torch.zeros(kp.shape[:2], dtype=torch.bool, device=cuda)
+    for r, n in enumerate(lengths):
+        lo = max(0, n - window + 1) if window else 0
+        for pos in range(lo, n + 1):
+            live[table[r, pos // ps].long(), pos % ps] = True
+    kn, vn = kp.clone(), vp.clone()
+    kn[~live] = float("nan")
+    vn[~live] = float("nan")
+    o2 = paged_attention_rhd(q, kn, vn, table, lens, window=window)
+    assert torch.isfinite(o2.float()).all()
+    assert torch.equal(o2, o)
+
+
+def test_paged_one_counted_launch_runs_both_kernels(cuda):
+    rng = np.random.default_rng(23)
+    q, kp, vp, table, lens = _split_case(rng, [5, 100, 287], 8, 4, 128, 16,
+                                         18, torch.bfloat16, cuda)
+    before = paged_attention_rhd.launches
+    names = _kernel_names(lambda: paged_attention_rhd(q, kp, vp, table,
+                                                      lens), calls=3)
+    assert paged_attention_rhd.launches == before + 3
+    assert any("paged_split_kernel" in n for n in names), names
+    assert any("paged_combine_kernel" in n for n in names), names
+    assert len(names) == 2, names
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [4096, 100])
+def test_rmsnorm_rows_do_not_depend_on_the_row_count(cuda, dtype, D):
+    """Rows 0-7 of a 288- and a 4096-row call are the 8-row call's bits
+    (the reduction order depends on D alone), with and without rstd."""
+    rng = np.random.default_rng(24)
+    x = _randn(rng, (4096, D), dtype, cuda)
+    w = _randn(rng, (D,), dtype, cuda)
+    rstd8 = torch.empty(8, dtype=torch.float32, device=cuda)
+    y8 = rms_norm_2d(x[:8].contiguous(), w, rstd=rstd8)
+    for rows in (288, 4096):
+        rstd = torch.empty(rows, dtype=torch.float32, device=cuda)
+        y = rms_norm_2d(x[:rows].contiguous(), w, rstd=rstd)
+        assert torch.equal(y[:8], y8), rows
+        assert torch.equal(rstd[:8], rstd8), rows
+        assert torch.equal(rms_norm_2d(x[:rows].contiguous(), w)[:8], y8)
 
 
 def test_kernels_raise_on_bad_inputs(cuda):
