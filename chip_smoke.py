@@ -84,13 +84,18 @@ ends the run with a non-zero exit code and no result line:
                  step 5: nothing dropped, streams identical, the sentinel
                  quiet fault-free (its entropy printed), launches held to
                  the path (a scan a layer a prefill, 65 RMSNorms a model
-                 call, no attention); then ``steps-ssm``, one decode step
-                 over the 4 slots and one 200-token prefill, eager against
-                 device time.
+                 call, no attention, every scan on the 16-byte-copy
+                 route); then ``steps-ssm``, one decode step over the 4
+                 slots and one 200-token prefill, eager against device
+                 time, and the prefill's 64 scan launches profiled beside
+                 its device time.
 
 The kernel phase also holds selective_scan to its plain version within
 1e-5 + 1e-5 |want| (tests/test_kernels.py) at the serve shape (B 1,
-S 256, Di 8192, N 16) with h0 zero and random, a ragged S, B 2 and N 4,
+S 256, Di 8192, N 16) with h0 zero and random, a ragged S, B 2, N 4 and
+a ragged Di (the 4-byte-copy route), each with its route, share of the
+bound and the bound's exponential, byte and fp32 legs, then the scan's
+registers, spills and shared memory from the build's ``-Xptxas -v`` log;
 and block_hash bit-equal to its plain version
 (the embed leaf, every element size, a ragged leaf, one grouped launch
 over the full-width train state) and abft_matmul to its float32 plain
@@ -111,6 +116,7 @@ train, sdc, abft, serve_ssm), the ``nvidia-smi`` line, and the last line
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import gc
 import json
@@ -172,6 +178,11 @@ STEP_GROUPS = ("paged_attention", "rmsnorm")
 STEP_GROUPS_BEFORE = {
     "steps": {"paged_attention": 1.5175, "rmsnorm": 0.2187},
     "steps-ssm": {"paged_attention": 0.0, "rmsnorm": 0.1811}}
+# steps-ssm: the 200-token falcon-mamba-7b prefill's device ms in its 64
+# selective_scan launches on the tree before the scan's redesign (commit
+# 009490d), read by its launch/profile_steps.py in the same chip run as
+# this tree's chip_smoke.py (PERF.md §6)
+PREFILL_SCAN_BEFORE = None
 
 # replaced TPU kernels (file:line of the function that reaches pallas_call)
 KERNELS = {
@@ -1009,6 +1020,29 @@ def _scan_inputs(gen, B, S, Di, N, h0_zero):
     return x, dt, bm, cm, a, h0
 
 
+def _scan_usage():
+    """Registers, spills and shared memory of the scan's instantiations
+    (``selective_scan_kernel<states a lane, wide route>``) from the
+    build's ``-Xptxas -v`` log; the ring is dynamic shared memory, so
+    its bytes come from the library (at N 16 and N 4)."""
+    import re
+
+    from repro_torch.kernels import build
+
+    lib = build.library()
+    lib.repro_selective_scan_smem.restype = ctypes.c_int
+    lib.repro_selective_scan_smem.argtypes = [ctypes.c_int]
+    out = {}
+    for name, use in build.ptxas_usage("selective_scan").items():
+        m = re.search(r"selective_scan_kernelI((?:L[a-z]\d+E)+)E", name)
+        if m:
+            args = ",".join(re.findall(r"L[a-z](\d+)E", m.group(1)))
+            out[f"selective_scan_kernel<{args}>"] = use
+    return {"kernels": out,
+            "dynamic_smem": {f"N={n}": lib.repro_selective_scan_smem(n)
+                             for n in (16, 4)}}
+
+
 def _scan_cases(gen, bw, fp32_flops, sfu):
     from repro_torch.kernels.selective_scan.kernel import \
         selective_scan_kernel
@@ -1016,14 +1050,22 @@ def _scan_cases(gen, bw, fp32_flops, sfu):
 
     out = []
     # the serve path's prefill (B 1, S 256, falcon-mamba-7b's Di and N)
-    # with a fresh and a carried state, a ragged S, two rows, the tiny N
+    # with a fresh and a carried state, a ragged S, two rows, the tiny N,
+    # and a ragged Di (the 4-byte route)
     for B, S, Di, N, h0_zero in ((1, 256, 8192, 16, True),
                                  (1, 256, 8192, 16, False),
                                  (1, 200, 8192, 16, False),
                                  (2, 256, 8192, 16, False),
-                                 (1, 256, 128, 4, False)):
+                                 (1, 256, 128, 4, False),
+                                 (1, 256, 8190, 16, False)):
         args = _scan_inputs(gen, B, S, Di, N, h0_zero)
+        wide = selective_scan_kernel.wide_launches
         y, h = selective_scan_kernel(*args)
+        route = ("wide" if selective_scan_kernel.wide_launches > wide
+                 else "4-byte")
+        if (route == "wide") != (Di % 4 == 0):
+            raise AssertionError(f"selective_scan Di={Di} took the {route} "
+                                 "route")
         yr, hr = selective_scan_ref(*args)
         label = f"selective_scan B={B} S={S} Di={Di} N={N}"
         err = max(check_close(label + " y", y, yr, SCAN_TOL),
@@ -1036,19 +1078,22 @@ def _scan_cases(gen, bw, fp32_flops, sfu):
         flop = 6 * exps + B * S * Di
         by_ops = max(exps / sfu, flop / fp32_flops)
         by_bytes = io_bytes / bw
+        kernel_ms = time_ms(lambda: selective_scan_kernel(*args))
+        bound_ms = max(by_ops, by_bytes) * 1e3
         out.append({
             "shape": f"B={B} S={S} Di={Di} N={N} fp32 h0="
                      + ("0" if h0_zero else "random"),
             "main": (B, S, Di, N, h0_zero) == (1, 256, 8192, 16, True),
-            "max_abs_err": err, "tol": SCAN_TOL,
-            "kernel_ms": time_ms(lambda: selective_scan_kernel(*args)),
+            "route": route, "max_abs_err": err, "tol": SCAN_TOL,
+            "kernel_ms": kernel_ms,
             "plain_ms": time_ms(lambda: selective_scan_ref(*args), iters=2,
                                 reps=3),
-            "library_ms": None,
-            "bound_ms": max(by_ops, by_bytes) * 1e3,
+            "library_ms": None, "bound_ms": bound_ms,
             "bound_by": "operations" if by_ops > by_bytes else "bytes",
+            "share_of_bound": bound_ms / kernel_ms,
             "bytes_ms": by_bytes * 1e3, "exp_ms": exps / sfu * 1e3,
             "fp32_ms": flop / fp32_flops * 1e3})
+    emit({"phase": "kernel", "name": "selective_scan", "ptxas": _scan_usage()})
     return out
 
 
@@ -1308,6 +1353,19 @@ def phase_steps(cfg, params, seed: int, calls: int = 10,
         # the decode step's device ms in the two redesigned kernels,
         # profiled without programmatic dependent launch (as _paged_cases)
         groups = _no_pdl(profile_step, steps["decode"])["device_ms_by_group"]
+        if phase == "steps-ssm":
+            # the prefill's scan group: a launch a layer
+            pre = _no_pdl(profile_step, steps["prefill"])
+            scans = pre["launches_by_group"].get("selective_scan", 0)
+            if scans != cfg.num_layers:
+                raise AssertionError(f"steps-ssm: {scans} scan launches in "
+                                     f"a prefill of {cfg.num_layers} layers")
+            out.update({
+                "prefill_profiled_device_ms": pre["device_ms"],
+                "prefill_scan_launches": scans,
+                "prefill_scan_device_ms":
+                    pre["device_ms_by_group"]["selective_scan"],
+                "prefill_scan_device_ms_before": PREFILL_SCAN_BEFORE})
     out["decode_kernels_device_ms"] = {k: groups.get(k, 0.0)
                                        for k in STEP_GROUPS}
     out["decode_kernels_device_ms_before"] = STEP_GROUPS_BEFORE[phase]
@@ -1412,9 +1470,11 @@ def phase_serve_ssm(seed: int):
     L = cfg.num_layers
     ceiling = 0.98 * math.log(cfg.padded_vocab)
     runs = {}
+    scan = counters["selective_scan"]
     for label, kill in (("fault_free", False), ("replica_kill", True)):
         for fn in counters.values():
             fn.launches = 0
+        scan.wide_launches = 0
         res = _serve(cfg, params, prompts, GEN, "cuda", kill=kill,
                      slots=SSM_SLOTS)
         launches = {k: fn.launches for k, fn in counters.items()}
@@ -1425,6 +1485,12 @@ def phase_serve_ssm(seed: int):
                                    launches["selective_scan"]) <= 0:
             raise AssertionError(f"serve-ssm {label}: launches {launches}, "
                                  f"the path implies {want}")
+        # B and C of a bf16 model reach the scan as slices of one
+        # contiguous float32 (B, S, 2N) tensor: every launch is wide
+        if scan.wide_launches != launches["selective_scan"]:
+            raise AssertionError(f"serve-ssm {label}: {scan.wide_launches} "
+                                 f"of {launches['selective_scan']} scans "
+                                 "took the 16-byte copies")
         if res["dropped"] or None in res["streams"]:
             raise AssertionError(f"serve-ssm {label}: dropped "
                                  f"{res['dropped']}")
@@ -1453,6 +1519,7 @@ def phase_serve_ssm(seed: int):
               "retried": res["retried"], "dropped": res["dropped"],
               "prefills": res["prefills"],
               "decode_calls": res["decode_calls"], "launches": launches,
+              "scan_wide_launches": scan.wide_launches,
               "entropy_ema": res["entropy_ema"],
               "sentinel_ceiling": ceiling,
               "resident_gb_before_weights": resident,

@@ -15,11 +15,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -105,6 +106,32 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             _lib = ctypes.CDLL(str(build()))
         return _lib
+
+
+def ptxas_usage(stem: str, log: Optional[Path] = None) -> Dict[str, Dict]:
+    """Each kernel's registers, spill bytes and static shared memory as
+    ``-Xptxas -v`` printed them in the build log of ``csrc/<stem>.cu``
+    (or in ``log``), by mangled name."""
+    text = (log or build_dir() / f"{stem}.log").read_text()
+    out: Dict[str, Dict] = {}
+    cur = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+    return out
 
 
 def set_pdl(on: bool) -> None:

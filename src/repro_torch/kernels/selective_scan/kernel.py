@@ -1,6 +1,11 @@
 """Host wrapper of the CUDA selective scan (``csrc/selective_scan.cu``),
 which replaces the TPU kernel
-``repro/kernels/selective_scan/kernel.py:selective_scan_kernel``."""
+``repro/kernels/selective_scan/kernel.py:selective_scan_kernel``.
+
+Two routes, chosen by ``wide_route`` before launch: the kernel's ring
+fills its tiles with 16-byte copies where every operand allows them, and
+with 4-byte copies elsewhere.  Both run the same arithmetic and give the
+same bits."""
 from __future__ import annotations
 
 import ctypes
@@ -17,21 +22,28 @@ def _entry():
     lib = build.library()
     fn = lib.repro_selective_scan
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     max_state = lib.repro_selective_scan_max_state
     max_state.restype = ctypes.c_int
     return fn, max_state()
 
 
-def selective_scan_kernel(x: torch.Tensor, dt: torch.Tensor,
-                          bm: torch.Tensor, cm: torch.Tensor,
-                          a: torch.Tensor, h0: torch.Tensor
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """float32 CUDA tensors: x, dt (B, S, Di) contiguous; bm, cm (B, S, N)
-    with unit stride along N (column slices of a wider tensor are read in
-    place through their strides); a (Di, N) and h0 (B, Di, N) contiguous.
-    Returns (y (B, S, Di), h_last (B, Di, N))."""
+def wide_route(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
+               cm: torch.Tensor) -> bool:
+    """The dispatch rule: the 16-byte copies take a scan when Di is a
+    multiple of 4 and x, dt, B and C start 16-byte aligned, with B's and
+    C's batch and time strides multiples of 4 floats (a stride of a
+    length-1 axis is never used).  Decided from the operands alone,
+    before launch."""
+    B, S, Di = x.shape
+    if Di % 4 or any(t.data_ptr() % 16 for t in (x, dt, bm, cm)):
+        return False
+    return all((B == 1 or t.stride(0) % 4 == 0)
+               and (S <= 1 or t.stride(1) % 4 == 0) for t in (bm, cm))
+
+
+def _check(x, dt, bm, cm, a, h0) -> None:
     ts = (x, dt, bm, cm, a, h0)
     if any(t.device.type != "cuda" or t.device != x.device for t in ts):
         raise ValueError("selective_scan runs on one CUDA device, got "
@@ -48,7 +60,7 @@ def selective_scan_kernel(x: torch.Tensor, dt: torch.Tensor,
         raise ValueError(f"shapes: x {tuple(x.shape)}, B {tuple(bm.shape)}, "
                          f"C {tuple(cm.shape)}, A {tuple(a.shape)}, "
                          f"h0 {tuple(h0.shape)}")
-    fn, max_state = _entry()
+    max_state = _entry()[1]
     if N > max_state:
         raise ValueError(f"selective_scan supports ssm_state up to "
                          f"{max_state}, got {N}")
@@ -60,15 +72,42 @@ def selective_scan_kernel(x: torch.Tensor, dt: torch.Tensor,
     if N > 1 and (bm.stride(2) != 1 or cm.stride(2) != 1):
         raise ValueError("selective_scan needs unit stride along N in B "
                          "and C")
+
+
+def _launch(x, dt, bm, cm, a, h0, *, wide: bool
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch on the given route (True: 16-byte copies) of checked
+    operands; counts no launch.  The card tests force each route through
+    it."""
+    B, S, Di = x.shape
+    N = a.shape[-1]
     y = torch.empty_like(x)
     h_last = torch.empty_like(h0)
-    err = fn(x.data_ptr(), dt.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-             a.data_ptr(), h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-             B, S, Di, N, bm.stride(0), bm.stride(1), cm.stride(0),
-             cm.stride(1), build.stream_ptr(x.device))
+    err = _entry()[0](
+        x.data_ptr(), dt.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+        a.data_ptr(), h0.data_ptr(), y.data_ptr(), h_last.data_ptr(), B, S,
+        Di, N, bm.stride(0), bm.stride(1), cm.stride(0), cm.stride(1),
+        int(wide), build.stream_ptr(x.device))
     build.check(err, "selective_scan")
-    selective_scan_kernel.launches += 1
     return y, h_last
 
 
+def selective_scan_kernel(x: torch.Tensor, dt: torch.Tensor,
+                          bm: torch.Tensor, cm: torch.Tensor,
+                          a: torch.Tensor, h0: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 CUDA tensors: x, dt (B, S, Di) contiguous; bm, cm (B, S, N)
+    with unit stride along N (column slices of a wider tensor are read in
+    place through their strides); a (Di, N) and h0 (B, Di, N) contiguous.
+    Returns (y (B, S, Di), h_last (B, Di, N)).  ``launches`` counts the
+    calls, ``wide_launches`` those that took the 16-byte copies."""
+    _check(x, dt, bm, cm, a, h0)
+    wide = wide_route(x, dt, bm, cm)
+    out = _launch(x, dt, bm, cm, a, h0, wide=wide)
+    selective_scan_kernel.launches += 1
+    selective_scan_kernel.wide_launches += int(wide)
+    return out
+
+
 selective_scan_kernel.launches = 0
+selective_scan_kernel.wide_launches = 0

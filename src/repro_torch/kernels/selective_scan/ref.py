@@ -23,3 +23,62 @@ def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     if not ys:
         return x.new_zeros(x.shape), h
     return torch.stack(ys, dim=1), h
+
+
+# The kernel's lanes a channel and time steps a ring stage (``kLanes``,
+# ``kT`` in csrc/selective_scan.cu), and log2(e) as the kernel rounds it
+# (hopper.cuh's REPRO_LOG2E).
+LANES = 8
+TILE = 32
+LOG2E = 1.4426950408889634
+
+
+def states_per_lane(n: int, lanes: int = LANES) -> int:
+    """A lane's states: ceil(n / lanes), rounded up to 1, 2 or 4."""
+    per = -(-n // lanes)
+    return 1 if per <= 1 else 2 if per == 2 else 4
+
+
+def lane_tree_ref(p: torch.Tensor) -> torch.Tensor:
+    """The kernel's butterfly over the last axis (the lanes' partial sums
+    of one step): the upper half added to the lower half until one value
+    is left, ((p0 + p4) + (p2 + p6)) + ((p1 + p5) + (p3 + p7)) for 8."""
+    while p.shape[-1] > 1:
+        half = p.shape[-1] // 2
+        p = p[..., :half] + p[..., half:]
+    return p[..., 0]
+
+
+def selective_scan_lanes_ref(x: torch.Tensor, dt: torch.Tensor,
+                             bm: torch.Tensor, cm: torch.Tensor,
+                             a: torch.Tensor, h0: torch.Tensor,
+                             lanes: int = LANES
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel's arithmetic in float32, for the CPU tests: the
+    decay as exp2(dt * fl32(A log2 e)); the states split over ``lanes``
+    lanes of ``states_per_lane`` each (zero-padded past N); each lane's
+    partial sum of C h over its states in increasing n; the lanes' sums
+    folded by ``lane_tree_ref``.  Same contract as
+    ``selective_scan_ref``."""
+    x, dt, bm, cm, a = (t.float() for t in (x, dt, bm, cm, a))
+    B, S, Di = x.shape
+    N = a.shape[-1]
+    npl = states_per_lane(N, lanes)
+    pad = (0, lanes * npl - N)
+    a2 = torch.nn.functional.pad(a, pad) * torch.tensor(LOG2E,
+                                                        dtype=torch.float32)
+    bm, cm = (torch.nn.functional.pad(t, pad) for t in (bm, cm))
+    h = torch.nn.functional.pad(h0.float(), pad)
+    ys = []
+    for t in range(S):
+        decay = torch.exp2(dt[:, t, :, None] * a2)            # (B, Di, P)
+        h = decay * h + (dt[:, t] * x[:, t])[..., None] * bm[:, t, None, :]
+        prod = (cm[:, t, None, :] * h).reshape(B, Di, lanes, npl)
+        part = prod[..., 0]
+        for j in range(1, npl):
+            part = part + prod[..., j]
+        ys.append(lane_tree_ref(part))
+    h = h[..., :N].contiguous()
+    if not ys:
+        return x.new_zeros(x.shape), h
+    return torch.stack(ys, dim=1), h

@@ -98,13 +98,16 @@ def _group(name: str) -> str:
     return "matmul" if any(m in low for m in MATMUL_MARKS) else "other"
 
 
-def _kernel_times(prof) -> Dict[str, float]:
-    """Device microseconds by kernel name (device events only)."""
-    out: Dict[str, float] = collections.defaultdict(float)
+def _kernel_times(prof):
+    """Device microseconds and launches by kernel name (device events
+    only)."""
+    us: Dict[str, float] = collections.defaultdict(float)
+    count: Dict[str, int] = collections.defaultdict(int)
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
-            out[evt.name] += evt.time_range.elapsed_us()
-    return out
+            us[evt.name] += evt.time_range.elapsed_us()
+            count[evt.name] += 1
+    return us, count
 
 
 def profile_step(fn: Callable[[], object], calls: int = 3) -> Dict:
@@ -118,21 +121,21 @@ def profile_step(fn: Callable[[], object], calls: int = 3) -> Dict:
             fn()
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) / calls * 1e3
-    kernels = _kernel_times(prof)
+    kernels, counts = _kernel_times(prof)
     device_ms = sum(kernels.values()) / calls / 1e3
     if device_ms <= 0:
         raise RuntimeError("the profiler recorded no device time")
     groups: Dict[str, float] = collections.defaultdict(float)
+    launches: Dict[str, float] = collections.defaultdict(float)
     for name, us in kernels.items():
         groups[_group(name)] += us / calls / 1e3
+        launches[_group(name)] += counts[name] / calls
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "idle_share": 1.0 - device_ms / wall_ms,
-            "kernels_per_call": sum(1 for e in prof.events()
-                                    if e.device_type
-                                    == torch.autograd.DeviceType.CUDA)
-            / calls,
+            "kernels_per_call": sum(counts.values()) / calls,
             "device_ms_by_group": dict(sorted(groups.items())),
+            "launches_by_group": dict(sorted(launches.items())),
             "top_kernels_ms": {n[:96]: us / calls / 1e3 for n, us in top}}
 
 

@@ -17,8 +17,11 @@ block hash are held byte for byte; the ABFT matmul, on either route
 (exact bf16 pieces on the tensor cores, or true float32 on the CUDA
 cores), to 32 float32 ulps of each element's absolute mass against its
 float32 plain version, bit-equal from call to call.  The selective scan is held to its
-plain version within 1e-5 + 1e-5 |want| (tests/test_kernels.py), and the
-tiny Mamba engine on the card gives the CPU's greedy streams.  Paged
+plain version within 1e-5 + 1e-5 |want| (tests/test_kernels.py) on each
+route (16-byte and 4-byte copies, with the route's counter) around its
+ring's tile, and bit for bit across the routes, on a repeated call and
+across a scan split in two through h_last; the tiny Mamba engine on the
+card gives the CPU's greedy streams.  Paged
 decode attention is also held bit for bit across the table's width, the
 batch, the row index, the page ids and NaN in every dead position, and
 the RMSNorm forward's first rows across row counts.
@@ -49,9 +52,11 @@ from repro_torch.kernels.paged_attention.ref import (
 from repro_torch.kernels.rmsnorm.kernel import rms_norm_2d, rms_norm_2d_bwd
 from repro_torch.kernels.rmsnorm.ops import rms_norm
 from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
+from repro_torch.kernels.selective_scan import kernel as scan_kernel
 from repro_torch.kernels.selective_scan.kernel import selective_scan_kernel
 from repro_torch.kernels.selective_scan.ops import selective_scan
-from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+from repro_torch.kernels.selective_scan.ref import (TILE as SCAN_TILE,
+                                                    selective_scan_ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -867,6 +872,101 @@ def test_selective_scan_refuses_what_it_cannot_take(cuda):
     x, dt, bm, cm, a, h0 = _scan_inputs(rng, 1, 8, 32, 4, cuda)
     with pytest.raises(TypeError, match="float32"):
         selective_scan_kernel(x.bfloat16(), dt, bm, cm, a, h0)
+
+
+def _scan_bc(rng, B, S, Di, N, device, b_at, c_at, width):
+    """x, dt, A, h0 as _scan_inputs draws them; B and C as column slices
+    of one (B, S, width) tensor starting at columns ``b_at`` and
+    ``c_at``."""
+    x, dt, _, _, a, h0 = _scan_inputs(rng, B, S, Di, N, device)
+    bcd = torch.from_numpy(rng.standard_normal((B, S, width)).astype(
+        np.float32)).to(device)
+    return (x, dt, bcd[..., b_at:b_at + N], bcd[..., c_at:c_at + N], a, h0)
+
+
+def _scan_counts():
+    return (selective_scan_kernel.launches,
+            selective_scan_kernel.wide_launches)
+
+
+@pytest.mark.parametrize("S", [1, SCAN_TILE - 1, SCAN_TILE, SCAN_TILE + 1,
+                               2 * SCAN_TILE + 1, 300])
+@pytest.mark.parametrize("N", [1, 3, 8, 15, 16])
+def test_selective_scan_routes_at_tile_edges(cuda, S, N):
+    """S around the ring's tile, Di 100 (not a multiple of the block's 32
+    channels), N 1-16, B 1-3: the wide route (its counter shows it ran)
+    within 1e-5 of the plain version, and the 4-byte route forced on the
+    same operands gives the same bits."""
+    B = 1 + S % 3
+    rng = np.random.default_rng(S * 17 + N)
+    args = _scan_bc(rng, B, S, 100, N, cuda, b_at=0, c_at=16, width=32)
+    assert scan_kernel.wide_route(*args[:4])
+    before = _scan_counts()
+    y, h = selective_scan_kernel(*args)
+    torch.cuda.synchronize()
+    assert _scan_counts() == (before[0] + 1, before[1] + 1)
+    yr, hr = selective_scan_ref(*args)
+    torch.testing.assert_close(y, yr, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h, hr, atol=1e-5, rtol=1e-5)
+    y4, h4 = scan_kernel._launch(*args, wide=False)
+    assert torch.equal(y4, y) and torch.equal(h4, h)
+    assert _scan_counts() == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("B,S,Di,N,b_at,c_at,width", [
+    (1, 256, 99, 16, 0, 16, 32), (3, 65, 33, 5, 0, 5, 10),
+    (2, 90, 64, 16, 3, 19, 40), (2, 33, 128, 16, 8, 24, 42),
+    (1, 300, 4, 3, 1, 4, 7)])
+def test_selective_scan_narrow_route_matches_plain(cuda, B, S, Di, N, b_at,
+                                                   c_at, width):
+    """Operands the 16-byte copies cannot take (Di not a multiple of 4, B
+    and C off 16-byte alignment or at a time stride of 4 k + 2 floats)
+    take the 4-byte route: its counter shows it, within 1e-5 of the plain
+    version."""
+    rng = np.random.default_rng(Di + S)
+    args = _scan_bc(rng, B, S, Di, N, cuda, b_at, c_at, width)
+    assert not scan_kernel.wide_route(*args[:4])
+    before = _scan_counts()
+    y, h = selective_scan_kernel(*args)
+    torch.cuda.synchronize()
+    assert _scan_counts() == (before[0] + 1, before[1])
+    yr, hr = selective_scan_ref(*args)
+    torch.testing.assert_close(y, yr, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(h, hr, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,Di,N", [(1, 256, 8192, 16), (3, 77, 100, 15)])
+def test_selective_scan_repeats_bit_for_bit(cuda, B, S, Di, N):
+    rng = np.random.default_rng(B + S)
+    args = _scan_inputs(rng, B, S, Di, N, cuda)
+    first = selective_scan_kernel(*args)
+    second = selective_scan_kernel(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("S1", [1, SCAN_TILE - 3, SCAN_TILE, 45,
+                                2 * SCAN_TILE + 1])
+@pytest.mark.parametrize("wide", [True, False])
+def test_selective_scan_split_is_one_scan(cuda, S1, wide):
+    """S1 steps, then the rest from h_last, give the bits of one scan of
+    all 200 steps: a step's arithmetic does not depend on where its tile
+    starts."""
+    rng = np.random.default_rng(S1)
+    x, dt, bm, cm, a, h0 = _scan_inputs(rng, 2, 200, 96, 16, cuda)
+    y, h = scan_kernel._launch(x, dt, bm, cm, a, h0, wide=wide)
+    cut = [t[:, :S1].contiguous() for t in (x, dt, bm, cm)]
+    rest = [t[:, S1:].contiguous() for t in (x, dt, bm, cm)]
+    y1, h1 = scan_kernel._launch(*cut, a, h0, wide=wide)
+    y2, h2 = scan_kernel._launch(*rest, a, h1, wide=wide)
+    assert torch.equal(torch.cat([y1, y2], dim=1), y)
+    assert torch.equal(h2, h)
+
+
+def test_selective_scan_refuses_a_wide_launch_it_cannot_take(cuda):
+    rng = np.random.default_rng(8)
+    args = _scan_inputs(rng, 1, 8, 33, 4, cuda)
+    with pytest.raises(RuntimeError, match="selective_scan"):
+        scan_kernel._launch(*args, wide=True)
 
 
 def _to(tree, device):
