@@ -84,8 +84,7 @@ ends the run with a non-zero exit code and no result line:
                  step 5: nothing dropped, streams identical, the sentinel
                  quiet fault-free (its entropy printed), launches held to
                  the path (a scan a layer a prefill, 65 RMSNorms a model
-                 call, no attention, every scan on the 16-byte-copy
-                 route); then ``steps-ssm``, one decode step over the 4
+                 call, no attention, every scan on the TMA route); then ``steps-ssm``, one decode step over the 4
                  slots and one 200-token prefill, eager against device
                  time, and the prefill's 64 scan launches profiled beside
                  its device time.
@@ -181,8 +180,8 @@ STEP_GROUPS_BEFORE = {
 # steps-ssm: the 200-token falcon-mamba-7b prefill's device ms in its 64
 # selective_scan launches on the tree before the scan's redesign (commit
 # 009490d), read by its launch/profile_steps.py in the same chip run as
-# this tree's chip_smoke.py (PERF.md §6)
-PREFILL_SCAN_BEFORE = None
+# this tree's chip_smoke.py (H100 80GB HBM3, 700.00 W; PERF.md §6)
+PREFILL_SCAN_BEFORE = 2.1098
 
 # replaced TPU kernels (file:line of the function that reaches pallas_call)
 KERNELS = {
@@ -1021,26 +1020,23 @@ def _scan_inputs(gen, B, S, Di, N, h0_zero):
 
 
 def _scan_usage():
-    """Registers, spills and shared memory of the scan's instantiations
-    (``selective_scan_kernel<states a lane, wide route>``) from the
-    build's ``-Xptxas -v`` log; the ring is dynamic shared memory, so
-    its bytes come from the library (at N 16 and N 4)."""
+    """Registers and spills of the scan's instantiations
+    (``selective_scan_kernel<states a part, TMA route>``) from the
+    build's ``-Xptxas -v`` log, and its dynamic shared memory from the
+    library."""
     import re
 
     from repro_torch.kernels import build
 
     lib = build.library()
     lib.repro_selective_scan_smem.restype = ctypes.c_int
-    lib.repro_selective_scan_smem.argtypes = [ctypes.c_int]
     out = {}
     for name, use in build.ptxas_usage("selective_scan").items():
         m = re.search(r"selective_scan_kernelI((?:L[a-z]\d+E)+)E", name)
         if m:
             args = ",".join(re.findall(r"L[a-z](\d+)E", m.group(1)))
             out[f"selective_scan_kernel<{args}>"] = use
-    return {"kernels": out,
-            "dynamic_smem": {f"N={n}": lib.repro_selective_scan_smem(n)
-                             for n in (16, 4)}}
+    return {"kernels": out, "dynamic_smem": lib.repro_selective_scan_smem()}
 
 
 def _scan_cases(gen, bw, fp32_flops, sfu):
@@ -1051,7 +1047,7 @@ def _scan_cases(gen, bw, fp32_flops, sfu):
     out = []
     # the serve path's prefill (B 1, S 256, falcon-mamba-7b's Di and N)
     # with a fresh and a carried state, a ragged S, two rows, the tiny N,
-    # and a ragged Di (the 4-byte route)
+    # and a ragged Di (the 4-byte-copy route)
     for B, S, Di, N, h0_zero in ((1, 256, 8192, 16, True),
                                  (1, 256, 8192, 16, False),
                                  (1, 200, 8192, 16, False),
@@ -1059,11 +1055,11 @@ def _scan_cases(gen, bw, fp32_flops, sfu):
                                  (1, 256, 128, 4, False),
                                  (1, 256, 8190, 16, False)):
         args = _scan_inputs(gen, B, S, Di, N, h0_zero)
-        wide = selective_scan_kernel.wide_launches
+        tma = selective_scan_kernel.tma_launches
         y, h = selective_scan_kernel(*args)
-        route = ("wide" if selective_scan_kernel.wide_launches > wide
+        route = ("tma" if selective_scan_kernel.tma_launches > tma
                  else "4-byte")
-        if (route == "wide") != (Di % 4 == 0):
+        if (route == "tma") != (Di % 4 == 0):
             raise AssertionError(f"selective_scan Di={Di} took the {route} "
                                  "route")
         yr, hr = selective_scan_ref(*args)
@@ -1474,7 +1470,7 @@ def phase_serve_ssm(seed: int):
     for label, kill in (("fault_free", False), ("replica_kill", True)):
         for fn in counters.values():
             fn.launches = 0
-        scan.wide_launches = 0
+        scan.tma_launches = 0
         res = _serve(cfg, params, prompts, GEN, "cuda", kill=kill,
                      slots=SSM_SLOTS)
         launches = {k: fn.launches for k, fn in counters.items()}
@@ -1486,11 +1482,11 @@ def phase_serve_ssm(seed: int):
             raise AssertionError(f"serve-ssm {label}: launches {launches}, "
                                  f"the path implies {want}")
         # B and C of a bf16 model reach the scan as slices of one
-        # contiguous float32 (B, S, 2N) tensor: every launch is wide
-        if scan.wide_launches != launches["selective_scan"]:
-            raise AssertionError(f"serve-ssm {label}: {scan.wide_launches} "
+        # contiguous float32 (B, S, 2N) tensor: every launch takes TMA
+        if scan.tma_launches != launches["selective_scan"]:
+            raise AssertionError(f"serve-ssm {label}: {scan.tma_launches} "
                                  f"of {launches['selective_scan']} scans "
-                                 "took the 16-byte copies")
+                                 "took the TMA route")
         if res["dropped"] or None in res["streams"]:
             raise AssertionError(f"serve-ssm {label}: dropped "
                                  f"{res['dropped']}")
@@ -1519,7 +1515,7 @@ def phase_serve_ssm(seed: int):
               "retried": res["retried"], "dropped": res["dropped"],
               "prefills": res["prefills"],
               "decode_calls": res["decode_calls"], "launches": launches,
-              "scan_wide_launches": scan.wide_launches,
+              "scan_tma_launches": scan.tma_launches,
               "entropy_ema": res["entropy_ema"],
               "sentinel_ceiling": ceiling,
               "resident_gb_before_weights": resident,

@@ -2,10 +2,10 @@
 which replaces the TPU kernel
 ``repro/kernels/selective_scan/kernel.py:selective_scan_kernel``.
 
-Two routes, chosen by ``wide_route`` before launch: the kernel's ring
-fills its tiles with 16-byte copies where every operand allows them, and
-with 4-byte copies elsewhere.  Both run the same arithmetic and give the
-same bits."""
+Two routes, chosen by ``tma_route`` before launch: the kernel's ring
+takes its tiles as TMA boxes where every operand allows them, and as
+4-byte cp.async copies elsewhere.  Both run the same arithmetic and give
+the same bits."""
 from __future__ import annotations
 
 import ctypes
@@ -29,13 +29,13 @@ def _entry():
     return fn, max_state()
 
 
-def wide_route(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
-               cm: torch.Tensor) -> bool:
-    """The dispatch rule: the 16-byte copies take a scan when Di is a
-    multiple of 4 and x, dt, B and C start 16-byte aligned, with B's and
-    C's batch and time strides multiples of 4 floats (a stride of a
-    length-1 axis is never used).  Decided from the operands alone,
-    before launch."""
+def tma_route(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
+              cm: torch.Tensor) -> bool:
+    """The dispatch rule: TMA takes a scan when Di is a multiple of 4 and
+    x, dt, B and C start 16-byte aligned, with B's and C's batch and time
+    strides multiples of 4 floats (a tensor map's strides are whole
+    16-byte chunks; a stride of a length-1 axis is never used).  Decided
+    from the operands alone, before launch."""
     B, S, Di = x.shape
     if Di % 4 or any(t.data_ptr() % 16 for t in (x, dt, bm, cm)):
         return False
@@ -74,11 +74,10 @@ def _check(x, dt, bm, cm, a, h0) -> None:
                          "and C")
 
 
-def _launch(x, dt, bm, cm, a, h0, *, wide: bool
+def _launch(x, dt, bm, cm, a, h0, *, tma: bool
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch on the given route (True: 16-byte copies) of checked
-    operands; counts no launch.  The card tests force each route through
-    it."""
+    """One launch on the given route (True: TMA) of checked operands;
+    counts no launch.  The card tests force each route through it."""
     B, S, Di = x.shape
     N = a.shape[-1]
     y = torch.empty_like(x)
@@ -87,7 +86,7 @@ def _launch(x, dt, bm, cm, a, h0, *, wide: bool
         x.data_ptr(), dt.data_ptr(), bm.data_ptr(), cm.data_ptr(),
         a.data_ptr(), h0.data_ptr(), y.data_ptr(), h_last.data_ptr(), B, S,
         Di, N, bm.stride(0), bm.stride(1), cm.stride(0), cm.stride(1),
-        int(wide), build.stream_ptr(x.device))
+        int(tma), build.stream_ptr(x.device))
     build.check(err, "selective_scan")
     return y, h_last
 
@@ -100,14 +99,14 @@ def selective_scan_kernel(x: torch.Tensor, dt: torch.Tensor,
     with unit stride along N (column slices of a wider tensor are read in
     place through their strides); a (Di, N) and h0 (B, Di, N) contiguous.
     Returns (y (B, S, Di), h_last (B, Di, N)).  ``launches`` counts the
-    calls, ``wide_launches`` those that took the 16-byte copies."""
+    calls, ``tma_launches`` those that took the TMA route."""
     _check(x, dt, bm, cm, a, h0)
-    wide = wide_route(x, dt, bm, cm)
-    out = _launch(x, dt, bm, cm, a, h0, wide=wide)
+    tma = tma_route(x, dt, bm, cm)
+    out = _launch(x, dt, bm, cm, a, h0, tma=tma)
     selective_scan_kernel.launches += 1
-    selective_scan_kernel.wide_launches += int(wide)
+    selective_scan_kernel.tma_launches += int(tma)
     return out
 
 
 selective_scan_kernel.launches = 0
-selective_scan_kernel.wide_launches = 0
+selective_scan_kernel.tma_launches = 0

@@ -25,46 +25,46 @@ def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     return torch.stack(ys, dim=1), h
 
 
-# The kernel's lanes a channel and time steps a ring stage (``kLanes``,
-# ``kT`` in csrc/selective_scan.cu), and log2(e) as the kernel rounds it
-# (hopper.cuh's REPRO_LOG2E).
-LANES = 8
+# The kernel's parts (warps) a channel's states are split over and time
+# steps a ring stage (``kParts``, ``kT`` in csrc/selective_scan.cu), and
+# log2(e) as the kernel rounds it (hopper.cuh's REPRO_LOG2E).
+PARTS = 8
 TILE = 32
 LOG2E = 1.4426950408889634
 
 
-def states_per_lane(n: int, lanes: int = LANES) -> int:
-    """A lane's states: ceil(n / lanes), rounded up to 1, 2 or 4."""
-    per = -(-n // lanes)
-    return 1 if per <= 1 else 2 if per == 2 else 4
+def states_per_part(n: int, parts: int = PARTS) -> int:
+    """A part's states: ceil(n / parts), rounded up to a power of two."""
+    per = -(-n // parts)
+    return 1 << (per - 1).bit_length()
 
 
-def lane_tree_ref(p: torch.Tensor) -> torch.Tensor:
-    """The kernel's butterfly over the last axis (the lanes' partial sums
-    of one step): the upper half added to the lower half until one value
-    is left, ((p0 + p4) + (p2 + p6)) + ((p1 + p5) + (p3 + p7)) for 8."""
+def part_tree_ref(p: torch.Tensor) -> torch.Tensor:
+    """The kernel's fold of the parts' partial sums of y (the last axis):
+    the upper half added to the lower half until one value is left,
+    ((p0 + p4) + (p2 + p6)) + ((p1 + p5) + (p3 + p7)) for 8."""
     while p.shape[-1] > 1:
         half = p.shape[-1] // 2
         p = p[..., :half] + p[..., half:]
     return p[..., 0]
 
 
-def selective_scan_lanes_ref(x: torch.Tensor, dt: torch.Tensor,
+def selective_scan_parts_ref(x: torch.Tensor, dt: torch.Tensor,
                              bm: torch.Tensor, cm: torch.Tensor,
                              a: torch.Tensor, h0: torch.Tensor,
-                             lanes: int = LANES
+                             parts: int = PARTS
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The CUDA kernel's arithmetic in float32, for the CPU tests: the
-    decay as exp2(dt * fl32(A log2 e)); the states split over ``lanes``
-    lanes of ``states_per_lane`` each (zero-padded past N); each lane's
-    partial sum of C h over its states in increasing n; the lanes' sums
-    folded by ``lane_tree_ref``.  Same contract as
+    decay as exp2(dt * fl32(A log2 e)); the states split into ``parts``
+    parts of ``states_per_part`` each (zero-padded past N); each part's
+    partial sum of C h over its states in increasing n; the parts' sums
+    folded by ``part_tree_ref``.  Same contract as
     ``selective_scan_ref``."""
     x, dt, bm, cm, a = (t.float() for t in (x, dt, bm, cm, a))
     B, S, Di = x.shape
     N = a.shape[-1]
-    npl = states_per_lane(N, lanes)
-    pad = (0, lanes * npl - N)
+    npl = states_per_part(N, parts)
+    pad = (0, parts * npl - N)
     a2 = torch.nn.functional.pad(a, pad) * torch.tensor(LOG2E,
                                                         dtype=torch.float32)
     bm, cm = (torch.nn.functional.pad(t, pad) for t in (bm, cm))
@@ -73,11 +73,11 @@ def selective_scan_lanes_ref(x: torch.Tensor, dt: torch.Tensor,
     for t in range(S):
         decay = torch.exp2(dt[:, t, :, None] * a2)            # (B, Di, P)
         h = decay * h + (dt[:, t] * x[:, t])[..., None] * bm[:, t, None, :]
-        prod = (cm[:, t, None, :] * h).reshape(B, Di, lanes, npl)
+        prod = (cm[:, t, None, :] * h).reshape(B, Di, parts, npl)
         part = prod[..., 0]
         for j in range(1, npl):
             part = part + prod[..., j]
-        ys.append(lane_tree_ref(part))
+        ys.append(part_tree_ref(part))
     h = h[..., :N].contiguous()
     if not ys:
         return x.new_zeros(x.shape), h

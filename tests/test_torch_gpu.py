@@ -886,7 +886,7 @@ def _scan_bc(rng, B, S, Di, N, device, b_at, c_at, width):
 
 def _scan_counts():
     return (selective_scan_kernel.launches,
-            selective_scan_kernel.wide_launches)
+            selective_scan_kernel.tma_launches)
 
 
 @pytest.mark.parametrize("S", [1, SCAN_TILE - 1, SCAN_TILE, SCAN_TILE + 1,
@@ -894,13 +894,13 @@ def _scan_counts():
 @pytest.mark.parametrize("N", [1, 3, 8, 15, 16])
 def test_selective_scan_routes_at_tile_edges(cuda, S, N):
     """S around the ring's tile, Di 100 (not a multiple of the block's 32
-    channels), N 1-16, B 1-3: the wide route (its counter shows it ran)
-    within 1e-5 of the plain version, and the 4-byte route forced on the
-    same operands gives the same bits."""
+    channels), N 1-16, B 1-3: the TMA route (its counter shows it ran)
+    within 1e-5 of the plain version, and the 4-byte-copy route forced on
+    the same operands gives the same bits."""
     B = 1 + S % 3
     rng = np.random.default_rng(S * 17 + N)
     args = _scan_bc(rng, B, S, 100, N, cuda, b_at=0, c_at=16, width=32)
-    assert scan_kernel.wide_route(*args[:4])
+    assert scan_kernel.tma_route(*args[:4])
     before = _scan_counts()
     y, h = selective_scan_kernel(*args)
     torch.cuda.synchronize()
@@ -908,7 +908,7 @@ def test_selective_scan_routes_at_tile_edges(cuda, S, N):
     yr, hr = selective_scan_ref(*args)
     torch.testing.assert_close(y, yr, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(h, hr, atol=1e-5, rtol=1e-5)
-    y4, h4 = scan_kernel._launch(*args, wide=False)
+    y4, h4 = scan_kernel._launch(*args, tma=False)
     assert torch.equal(y4, y) and torch.equal(h4, h)
     assert _scan_counts() == (before[0] + 1, before[1] + 1)
 
@@ -919,13 +919,13 @@ def test_selective_scan_routes_at_tile_edges(cuda, S, N):
     (1, 300, 4, 3, 1, 4, 7)])
 def test_selective_scan_narrow_route_matches_plain(cuda, B, S, Di, N, b_at,
                                                    c_at, width):
-    """Operands the 16-byte copies cannot take (Di not a multiple of 4, B
-    and C off 16-byte alignment or at a time stride of 4 k + 2 floats)
-    take the 4-byte route: its counter shows it, within 1e-5 of the plain
+    """Operands TMA cannot read in place (Di not a multiple of 4, B and C
+    off 16-byte alignment or at a time stride of 4 k + 2 floats) take the
+    4-byte-copy route: its counter shows it, within 1e-5 of the plain
     version."""
     rng = np.random.default_rng(Di + S)
     args = _scan_bc(rng, B, S, Di, N, cuda, b_at, c_at, width)
-    assert not scan_kernel.wide_route(*args[:4])
+    assert not scan_kernel.tma_route(*args[:4])
     before = _scan_counts()
     y, h = selective_scan_kernel(*args)
     torch.cuda.synchronize()
@@ -946,27 +946,27 @@ def test_selective_scan_repeats_bit_for_bit(cuda, B, S, Di, N):
 
 @pytest.mark.parametrize("S1", [1, SCAN_TILE - 3, SCAN_TILE, 45,
                                 2 * SCAN_TILE + 1])
-@pytest.mark.parametrize("wide", [True, False])
-def test_selective_scan_split_is_one_scan(cuda, S1, wide):
+@pytest.mark.parametrize("tma", [True, False])
+def test_selective_scan_split_is_one_scan(cuda, S1, tma):
     """S1 steps, then the rest from h_last, give the bits of one scan of
     all 200 steps: a step's arithmetic does not depend on where its tile
     starts."""
     rng = np.random.default_rng(S1)
     x, dt, bm, cm, a, h0 = _scan_inputs(rng, 2, 200, 96, 16, cuda)
-    y, h = scan_kernel._launch(x, dt, bm, cm, a, h0, wide=wide)
+    y, h = scan_kernel._launch(x, dt, bm, cm, a, h0, tma=tma)
     cut = [t[:, :S1].contiguous() for t in (x, dt, bm, cm)]
     rest = [t[:, S1:].contiguous() for t in (x, dt, bm, cm)]
-    y1, h1 = scan_kernel._launch(*cut, a, h0, wide=wide)
-    y2, h2 = scan_kernel._launch(*rest, a, h1, wide=wide)
+    y1, h1 = scan_kernel._launch(*cut, a, h0, tma=tma)
+    y2, h2 = scan_kernel._launch(*rest, a, h1, tma=tma)
     assert torch.equal(torch.cat([y1, y2], dim=1), y)
     assert torch.equal(h2, h)
 
 
-def test_selective_scan_refuses_a_wide_launch_it_cannot_take(cuda):
+def test_selective_scan_refuses_a_tma_launch_it_cannot_take(cuda):
     rng = np.random.default_rng(8)
     args = _scan_inputs(rng, 1, 8, 33, 4, cuda)
     with pytest.raises(RuntimeError, match="selective_scan"):
-        scan_kernel._launch(*args, wide=True)
+        scan_kernel._launch(*args, tma=True)
 
 
 def _to(tree, device):
