@@ -87,7 +87,33 @@ ends the run with a non-zero exit code and no result line:
                  call, no attention, every scan on the TMA route); then ``steps-ssm``, one decode step over the 4
                  slots and one 200-token prefill, eager against device
                  time, and the prefill's 64 scan launches profiled beside
-                 its device time.
+                 its device time;
+14. ``tiny-fwi`` — the FWI case study at tests/test_torch_fwi.py's size
+                 in float32 on the card and on the CPU from the same
+                 observed data: the misfit trajectories within 1e-4
+                 relative, the models within 1 m/s where the gradient is
+                 not near 0;
+15. ``fwi``    — the paper's FWI case study at the Marmousi model's
+                 extent (300 x 920 cells of 10 m, nt 2000, 16 shots in
+                 2 groups of 8): one iteration's eager and device ms,
+                 host share and peak memory; the main path, a survey in
+                 local scope over 4 shot shards with async saves every
+                 iteration and a fail-stop at iteration 2 (4 shard files
+                 restored and remapped, the misfit falling, no kernel
+                 launched); the paper's eq.-2 overhead of sync, async and
+                 async int8 saves every iteration, the median of 3 runs
+                 each; every protected run's model, and the recovered
+                 run's whole state, bit-equal to the unprotected run's;
+16. ``train-tiny-ssm`` — ``train-tiny`` for tiny falcon-mamba;
+17. ``train-ssm`` — falcon-mamba-7b at full width (4 layers) trained as
+                 the train phase trains granite: two identical steps
+                 bit-equal, the step's eager and device ms, tokens/s and
+                 the scan forward and backward device ms; a protected run
+                 with raw saves bit-equal to an uninterrupted run; the
+                 train phase's protected run (int8 device codec, async
+                 saves every 2, a fail-stop at step 5), launch counters
+                 held to the path (a scan forward a layer twice and a
+                 scan backward once a microbatch).
 
 The kernel phase also holds selective_scan to its plain version within
 1e-5 + 1e-5 |want| (tests/test_kernels.py) at the serve shape (B 1,
@@ -95,6 +121,11 @@ S 256, Di 8192, N 16) with h0 zero and random, a ragged S, B 2, N 4 and
 a ragged Di (the 4-byte-copy route), each with its route, share of the
 bound and the bound's exponential, byte and fp32 legs, then the scan's
 registers, spills and shared memory from the build's ``-Xptxas -v`` log;
+and the scan's backward kernel against its plain reverse scan at one
+train-ssm microbatch (B 2, S 2048, Di 8192, N 16) and at a ragged S and
+Di with a carried state: every gradient within 1e-4 of its largest
+magnitude, two launches bit-equal, its time beside its bound (bytes and
+exponentials) and its registers, spills and shared memory;
 and block_hash bit-equal to its plain version
 (the embed leaf, every element size, a ragged leaf, one grouped launch
 over the full-width train state) and abft_matmul to its float32 plain
@@ -109,7 +140,8 @@ timed beside the harness's latency floor (a one-element ``zero_``); both
 also without programmatic dependent launch.
 
 Then the kernels summary (one JSON object, launches by path: serve,
-train, sdc, abft, serve_ssm), the ``nvidia-smi`` line, and the last line
+train, sdc, abft, serve_ssm, fwi, train_ssm), the ``nvidia-smi`` line,
+and the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -160,6 +192,26 @@ TRAIN_STEPS = 6
 TRAIN_EVERY = 2
 TRAIN_FAIL = 5
 TRAIN_ROWS = TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ   # tokens a microbatch
+# train-ssm: falcon-mamba-7b at full width, depth cut to 4 layers as the
+# train phase's (64 layers of float32 weights and AdamW moments come to
+# ~117 GB), the train phase's batch, steps, saves and fail-stop
+SSM_TRAIN_LAYERS = 4
+# the fwi phase: the extent of the Marmousi model (9.2 km x 3.0 km;
+# Versteeg 1994, The Leading Edge 13(9)) at the reference's physics (dx
+# 10 m, dt 1 ms, 12 Hz Ricker): nz 300, nx 920, nt 2000 (a 2 s record;
+# CFL 3200 * 1e-3 / 10 = 0.32).  16 shots (the paper spread 50 over 32
+# cores: cut to 16 for this script's time limit) in 2 groups of 8 (an
+# iteration's autograd record keeps nz * nx * 4 B a step a shot, 2.2 GB
+# a shot), 3 iterations a run, a fail-stop at iteration 2 in local scope
+# over 4 shot shards, 3 timed runs a configuration for eq. 2
+FWI_SIZE = dict(nz=300, nx=920, nt=2000, n_shots=16)
+FWI_GROUP = 8
+FWI_ITERS = 3
+FWI_FAIL = 2
+FWI_WIDTH = 4
+FWI_RUNS = 3
+# tiny-fwi: tests/test_torch_fwi.py's size and its trajectory tolerance
+TINY_FWI = dict(nz=50, nx=50, nt=300, n_shots=2, iterations=6)
 PAGE_SIZE = 16
 PROMPT_LENS = (128, 200, 256)
 GEN = 32
@@ -207,6 +259,10 @@ KERNELS = {
                     "src/repro/kernels/abft_matmul/kernel.py:36"),
     "selective_scan": ("csrc/selective_scan.cu",
                        "src/repro/kernels/selective_scan/kernel.py:52"),
+    # the TPU scan has no backward: this supplies the gradient of the one
+    # above
+    "selective_scan_bwd": ("csrc/selective_scan_bwd.cu",
+                           "src/repro/kernels/selective_scan/kernel.py:52"),
 }
 
 
@@ -1093,6 +1149,93 @@ def _scan_cases(gen, bw, fp32_flops, sfu):
     return out
 
 
+def _scan_bwd_usage():
+    """Registers, spills and static shared memory of the scan backward's
+    kernels from the build's ``-Xptxas -v`` log, and the main kernel's
+    dynamic shared memory at N 16."""
+    import re
+
+    from repro_torch.kernels import build
+
+    lib = build.library()
+    lib.repro_selective_scan_bwd_smem.argtypes = [ctypes.c_int]
+    lib.repro_selective_scan_bwd_smem.restype = ctypes.c_int
+    out = {}
+    for name, use in build.ptxas_usage("selective_scan_bwd").items():
+        m = re.search(r"(selective_scan_bwd_(?:kernel|reduce))(?:ILi(\d+)E)?",
+                      name)
+        if m:
+            out[m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")] = use
+    return {"kernels": out,
+            "dynamic_smem_n16": lib.repro_selective_scan_bwd_smem(16)}
+
+
+def _scan_bwd_cases(gen, bw, fp32_flops, sfu):
+    """The scan's backward kernel against the plain reverse scan
+    (``ref.selective_scan_bwd_ref``) on the same inputs: every gradient
+    within GRAD_TOL of its largest magnitude, two launches bit-equal, at
+    one microbatch of train-ssm (B 2, S 2048, Di 8192, N 16, h0 = 0, no
+    dh_last, B and C as column slices as the layer passes them) and at a
+    ragged S and Di with a carried state and dh_last."""
+    from repro_torch.kernels.selective_scan.kernel import \
+        selective_scan_bwd_kernel
+    from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref
+
+    out = []
+    for B, S, Di, N, carried in ((2, TRAIN_SEQ, 8192, 16, False),
+                                 (1, 1000, 8190, 16, True)):
+        x, dt, bm, cm, a, h0 = _scan_inputs(gen, B, S, Di, N,
+                                            h0_zero=not carried)
+        bcd = torch.cat([bm, cm], dim=-1)
+        bm, cm = bcd[..., :N], bcd[..., N:]
+        dy = torch.randn((B, S, Di), generator=gen, device="cuda")
+        dh = (torch.randn((B, Di, N), generator=gen, device="cuda")
+              if carried else None)
+        args = (x, dt, bm, cm, a, h0, dy, dh)
+        got = selective_scan_bwd_kernel(*args)
+        again = selective_scan_bwd_kernel(*args)
+        label = f"selective_scan_bwd B={B} S={S} Di={Di} N={N}"
+        if not all(torch.equal(p, q) for p, q in zip(got, again)):
+            raise AssertionError(f"{label}: two launches differ")
+        want = selective_scan_bwd_ref(*args)
+        errs = {name: check_grad(f"{label} {name}", g, w,
+                                 GRAD_TOL[torch.float32])
+                for name, g, w in zip(("dx", "ddt", "dB", "dC", "dA", "dh0"),
+                                      got, want)}
+        del got, again, want
+        io_bytes = 4 * (5 * B * S * Di + 4 * B * S * N + 2 * Di * N
+                        + (3 if carried else 2) * B * Di * N)
+        exps = B * S * Di * N
+        # per (b, t, d, n): the state's recompute (dt*A, dx*B, a multiply-
+        # add) and the reverse step (g, the four products of dC, dB, u and
+        # q, dA's multiply-add, q*A, r, the sums over n and d)
+        flop = 20 * exps
+        by_ops = max(exps / sfu, flop / fp32_flops)
+        by_bytes = io_bytes / bw
+        kernel_ms = time_ms(lambda: selective_scan_bwd_kernel(*args),
+                            iters=5, reps=5)
+        bound_ms = max(by_ops, by_bytes) * 1e3
+        out.append({
+            "shape": f"B={B} S={S} Di={Di} N={N} fp32 h0="
+                     + ("random, dh_last random" if carried
+                        else "0, no dh_last") + ", B/C column slices",
+            "main": not carried, "max_abs_err": max(errs.values()),
+            "errors": errs, "tol": GRAD_TOL[torch.float32],
+            "two_launches_bit_equal": True, "kernel_ms": kernel_ms,
+            "plain_ms": time_ms(lambda: selective_scan_bwd_ref(*args),
+                                iters=1, reps=2),
+            "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": "operations" if by_ops > by_bytes else "bytes",
+            "share_of_bound": bound_ms / kernel_ms,
+            "bytes_ms": by_bytes * 1e3, "exp_ms": exps / sfu * 1e3,
+            "fp32_ms": flop / fp32_flops * 1e3})
+        del x, dt, bm, cm, bcd, a, h0, dy, dh, args
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel", "name": "selective_scan_bwd",
+          "ptxas": _scan_bwd_usage()})
+    return out
+
+
 def phase_kernels(seed: int, bw: float, flops: float, fp32_flops: float):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
@@ -1108,7 +1251,9 @@ def phase_kernels(seed: int, bw: float, flops: float, fp32_flops: float):
                "block_hash": _block_hash_cases(gen, bw, seed),
                "abft_matmul": _abft_cases(gen, bw, flops, fp32_flops),
                "selective_scan": _scan_cases(gen, bw, fp32_flops,
-                                             sfu_rate())}
+                                             sfu_rate()),
+               "selective_scan_bwd": _scan_bwd_cases(gen, bw, fp32_flops,
+                                                     sfu_rate())}
     for name, cases in results.items():
         for case in cases:
             emit({"phase": "kernel", "name": name, **case})
@@ -1231,8 +1376,8 @@ def _counters():
         paged_attention_rhd
     from repro_torch.kernels.rmsnorm.kernel import (rms_norm_2d,
                                                     rms_norm_2d_bwd)
-    from repro_torch.kernels.selective_scan.kernel import \
-        selective_scan_kernel
+    from repro_torch.kernels.selective_scan.kernel import (
+        selective_scan_bwd_kernel, selective_scan_kernel)
 
     return {"rmsnorm": rms_norm_2d, "flash_attention": flash_attention_bshd,
             "paged_attention": paged_attention_rhd,
@@ -1241,7 +1386,8 @@ def _counters():
             "ckpt_quantize": quantize_blocks,
             "ckpt_dequantize": dequantize_blocks,
             "block_hash": hash_leaves, "abft_matmul": abft_matmul_ext,
-            "selective_scan": selective_scan_kernel}
+            "selective_scan": selective_scan_kernel,
+            "selective_scan_bwd": selective_scan_bwd_kernel}
 
 
 def phase_serve(seed: int):
@@ -1600,8 +1746,9 @@ def _protected_run(state, data, step_fn, ckpt_dir, *, steps, fail_at=None,
     return out, info, dep, calls[0], metrics
 
 
-def phase_train_tiny(seed: int):
-    """Tiny granite in float32 on the card: a run with a fail-stop and raw
+def phase_train_tiny(seed: int, arch: str = "granite-3-8b",
+                     phase: str = "train-tiny"):
+    """Tiny ``arch`` in float32 on the card: a run with a fail-stop and raw
     saves ends bit-equal to an uninterrupted card run; the card's losses
     match the CPU's (plain versions) to float32 tolerance (1e-4 relative:
     the two sum in different orders)."""
@@ -1611,7 +1758,7 @@ def phase_train_tiny(seed: int):
     from repro_torch.train.step import metrics_to_host
 
     steps = 9
-    cfg = dataclasses.replace(get_config("granite-3-8b", tiny=True),
+    cfg = dataclasses.replace(get_config(arch, tiny=True),
                               dtype=torch.float32)
     cpu_state = init_state(cfg, seed=seed, device="cpu")
     step_fn = make_train_step(cfg, total_steps=steps, warmup_steps=1)
@@ -1626,7 +1773,7 @@ def phase_train_tiny(seed: int):
     uninterrupted = state
     for a, b in zip(losses["cuda"], losses["cpu"]):
         if not abs(a - b) <= 1e-4 * max(1.0, abs(b)):
-            raise AssertionError(f"tiny train: card losses {losses['cuda']}"
+            raise AssertionError(f"{phase}: card losses {losses['cuda']}"
                                  f" vs CPU {losses['cpu']}")
     tmp = tempfile.mkdtemp(dir=_ckpt_root())
     try:
@@ -1636,24 +1783,28 @@ def phase_train_tiny(seed: int):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if not _tree_equal(out, uninterrupted):
-        raise AssertionError("tiny train: the recovered run's state differs "
+        raise AssertionError(f"{phase}: the recovered run's state differs "
                              "from the uninterrupted run's")
-    emit({"phase": "train-tiny", "arch": cfg.name, "dtype": "float32",
+    emit({"phase": phase, "arch": cfg.name, "dtype": "float32",
           "steps": steps, "fail_stop_at": TRAIN_FAIL,
           "restarts": info["restarts"], "recovered_bit_equal": True,
           "card_losses": losses["cuda"], "cpu_losses": losses["cpu"]})
 
 
-def _train_launches(L: int, microbatches: int, calls: int):
+def _train_launches(L: int, microbatches: int, calls: int,
+                    ssm: bool = False):
     """Launches the train path implies: per microbatch each of L layers
-    runs its 2 RMSNorms and 1 attention forward twice (the forward and the
-    recomputation of the backward), the final norm once; each backward
-    once."""
-    return {"rmsnorm": calls * microbatches * (4 * L + 1),
-            "rmsnorm_bwd": calls * microbatches * (2 * L + 1),
-            "flash_attention": calls * microbatches * 2 * L,
-            "flash_attention_bwd": calls * microbatches * L,
-            "selective_scan": 0}
+    runs its 2 RMSNorms and 1 attention forward (an SSM layer: 1 RMSNorm
+    and 1 scan) twice (the forward and the recomputation of the
+    backward), the final norm once; each backward once."""
+    mb = calls * microbatches
+    norms = 1 if ssm else 2
+    return {"rmsnorm": mb * (2 * norms * L + 1),
+            "rmsnorm_bwd": mb * (norms * L + 1),
+            "flash_attention": 0 if ssm else mb * 2 * L,
+            "flash_attention_bwd": 0 if ssm else mb * L,
+            "selective_scan": mb * 2 * L if ssm else 0,
+            "selective_scan_bwd": mb * L if ssm else 0}
 
 
 def phase_train(seed: int):
@@ -2133,6 +2284,290 @@ def phase_train_abft(seed: int):
     return launches
 
 
+def phase_train_ssm(seed: int):
+    """falcon-mamba-7b at full width (depth cut to SSM_TRAIN_LAYERS)
+    trained through the facade: two identical steps bit-equal, the step's
+    eager and device time, a protected run with raw async saves bit-equal
+    to an uninterrupted run, then the train phase's protected run (the
+    int8 device codec, async saves every 2, a fail-stop at step 5) with
+    the launch counters held to the path."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.profile_steps import profile_step
+    from repro_torch.models import get_config
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.train.step import metrics_to_host
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"),
+                              num_layers=SSM_TRAIN_LAYERS)
+    L = cfg.num_layers
+    tmp = tempfile.mkdtemp(dir=_ckpt_root())
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        state = init_state(cfg, seed=seed, device="cuda")
+        n_params = sum(t.numel() for t in leaves(state["params"]))
+        eligible = sum(1 for t in leaves(state)
+                       if t.is_floating_point() and t.numel() >= 1024)
+        step_fn = make_train_step(cfg, microbatches=TRAIN_MICRO,
+                                  total_steps=TRAIN_STEPS)
+
+        def pipeline():
+            return make_pipeline(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+
+        batch = pipeline().peek_batch(0)
+        s1, m1 = step_fn(state, batch)
+        h1 = metrics_to_host(m1)
+        t0 = time.perf_counter()
+        s2, m2 = step_fn(state, batch)
+        h2 = metrics_to_host(m2)
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        same = _tree_equal(s1, s2)
+        if not (same and h1["loss"] == h2["loss"]
+                and h1["grad_norm"] == h2["grad_norm"]
+                and math.isfinite(h1["loss"])):
+            raise AssertionError(f"train-ssm: two identical steps differ: "
+                                 f"{h1} vs {h2}, states equal: {same}")
+        emit({"phase": "train-ssm", "check": "two identical steps",
+              "loss": [h1["loss"], h2["loss"]],
+              "grad_norm": [h1["grad_norm"], h2["grad_norm"]],
+              "states_bit_equal": same})
+        del s1, s2, m1, m2
+        prof = profile_step(lambda: step_fn(state, batch), calls=1)
+        groups = prof["device_ms_by_group"]
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        emit({"phase": "train-ssm", "check": "step", "arch": cfg.name,
+              "layers": L, "d_model": cfg.d_model, "d_inner": cfg.d_inner,
+              "ssm_state": cfg.ssm_state, "params": n_params,
+              "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+              "microbatches": TRAIN_MICRO, "eager_ms": eager_ms,
+              "profiled_wall_ms": prof["wall_ms"],
+              "device_ms": prof["device_ms"],
+              "host_share": 1.0 - prof["device_ms"] / eager_ms,
+              "tokens_per_s": tokens / (eager_ms / 1e3),
+              "kernels_per_step": prof["kernels_per_call"],
+              "device_ms_by_group": groups,
+              "launches_by_group": prof["launches_by_group"],
+              "scan_fwd_ms": groups.get("selective_scan", 0.0),
+              "scan_bwd_ms": groups.get("selective_scan_bwd", 0.0),
+              "top_kernels_ms": prof["top_kernels_ms"],
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+        # the uninterrupted run, kept on the host
+        ref, data = state, pipeline()
+        for _ in range(TRAIN_STEPS):
+            ref, _ = step_fn(ref, data.next_batch())
+        ref = _tree_to(ref, "cpu")
+        counters = _counters()
+        runs = {}
+        for label, config in (("raw", {"keep": 2}),
+                              ("device_int8", {"device_codec": True})):
+            run_dir = tempfile.mkdtemp(dir=tmp)
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            out, info, dep, calls, metrics = _protected_run(
+                state, pipeline(), step_fn, run_dir, steps=TRAIN_STEPS,
+                fail_at=TRAIN_FAIL, async_save=True, **config)
+            wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in counters.items()}
+            saves, restores = len(dep.save_history), len(dep.restore_seconds)
+            codec = label == "device_int8"
+            want = {**_train_launches(L, TRAIN_MICRO, calls, ssm=True),
+                    "paged_attention": 0, "block_hash": 0,
+                    "abft_matmul": 0,
+                    "ckpt_quantize": eligible * saves if codec else 0,
+                    "ckpt_dequantize": eligible * restores if codec else 0}
+            if launches != want or min(launches[k] for k in want
+                                       if want[k]) <= 0:
+                raise AssertionError(f"train-ssm {label}: launches "
+                                     f"{launches}, the path implies {want}")
+            if int(out["step"]) != TRAIN_STEPS:
+                raise AssertionError(f"train-ssm {label}: ended at step "
+                                     f"{int(out['step'])}")
+            bit_equal = _tree_equal(_tree_to(out, "cpu"), ref)
+            if label == "raw" and not bit_equal:
+                raise AssertionError("train-ssm: the recovered run's state "
+                                     "differs from the uninterrupted run's")
+            emit({"phase": "train-ssm", "check": f"protected run, {label}",
+                  "status": info["status"], "restarts": info["restarts"],
+                  "events": [h["event"] for h in info["history"]
+                             if "event" in h],
+                  "train_step_calls": calls,
+                  "steps_losses": [(m["step"], m["loss"]) for m in metrics],
+                  "recovered_bit_equal_to_uninterrupted": bit_equal,
+                  "wall_s": wall,
+                  "saves": [{"step": st.step, "bytes": st.bytes_written,
+                             "snapshot_s": st.snapshot_seconds,
+                             "write_s": st.write_seconds}
+                            for st in dep.save_history],
+                  "restore_s": dep.restore_seconds,
+                  "eligible_leaves": eligible, "launches": launches,
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+            runs[label] = launches
+            del out
+            shutil.rmtree(run_dir, ignore_errors=True)
+        del state, ref
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return runs["device_int8"]
+
+
+def _fwi_device_time(fn):
+    """One call of ``fn`` under the profiler (device activity only): the
+    device ms of its kernels, their count, and the ms of the 6 longest
+    kernel names."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    count = 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.name] = (by_name.get(evt.name, 0.0)
+                                 + evt.time_range.elapsed_us() / 1e3)
+            count += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return sum(by_name.values()), count, {n[:80]: ms for n, ms in top}
+
+
+def phase_tiny_fwi():
+    """tests/test_torch_fwi.py's FWI (50 x 50, nt 300, 2 shots, 6
+    iterations) in float32 on the card and on the CPU from the same
+    observed data: the misfits within 1e-4 relative, the models within 1
+    m/s where the CPU's first gradient is at least 1e-6 of its largest
+    (elsewhere 2 lr an iteration: Adam's step amplifies rounding where
+    the gradient is near 0), as the tests hold the port to the
+    reference."""
+    from repro_torch.apps.fwi import (FWIConfig, fwi_value_and_grad,
+                                      init_fwi_state, make_observed_data,
+                                      run_fwi)
+
+    cfg = FWIConfig(**TINY_FWI)
+    d_obs = make_observed_data(cfg, "cpu")["baseline"]
+    runs = {}
+    for device in ("cpu", "cuda"):
+        st, hist = run_fwi(cfg, d_obs, device=device)
+        runs[device] = (st["params"]["c"].cpu(), [h["loss"] for h in hist])
+    _, g = fwi_value_and_grad(init_fwi_state(cfg, "cpu")["params"]["c"],
+                              d_obs, cfg)
+    quiet = g.abs() < 1e-6 * g.abs().max()
+    diff = (runs["cuda"][0] - runs["cpu"][0]).abs()
+    card, cpu = runs["cuda"][1], runs["cpu"][1]
+    near = diff[~quiet].max().item()
+    far = diff[quiet].max().item() if quiet.any() else 0.0
+    if not (all(abs(a - b) <= 1e-4 * abs(b) for a, b in zip(card, cpu))
+            and near <= 1.0 and far <= 2 * cfg.lr * cfg.iterations
+            and card[-1] < 0.5 * card[0]):
+        raise AssertionError(f"tiny-fwi: card misfits {card} vs CPU {cpu}, "
+                             f"max |dc| {near} (quiet cells {far})")
+    emit({"phase": "tiny-fwi", "grid": [cfg.nz, cfg.nx], "nt": cfg.nt,
+          "shots": cfg.n_shots, "iterations": cfg.iterations,
+          "card_misfits": card, "cpu_misfits": cpu,
+          "max_abs_dc_m_per_s": near, "quiet_cells": int(quiet.sum()),
+          "max_abs_dc_quiet_cells": far})
+
+
+def phase_fwi():
+    """The paper's FWI case study at the Marmousi model's extent
+    (FWI_SIZE, FWI_GROUP shots a pass): one iteration timed (eager and
+    device ms, host share, peak memory); the main path, a baseline
+    survey in local scope over FWI_WIDTH shot shards with async saves
+    every iteration and a fail-stop at FWI_FAIL (launch counters zeroed
+    before it: the path runs none of the port's kernels); then eq. 2's
+    overhead for sync, async and async int8 saves every iteration, the
+    median of FWI_RUNS runs each, whose final models must equal the
+    unprotected run's bit for bit, as must the recovered run's state."""
+    from repro_torch.apps.fwi import (FWIConfig, init_fwi_state,
+                                      make_fwi_step, make_observed_data)
+    from repro_torch.apps.fwi_case_study import overhead, survey
+
+    cuda = torch.device("cuda")
+    cfg = FWIConfig(**FWI_SIZE, iterations=FWI_ITERS)
+    groups = -(-cfg.n_shots // FWI_GROUP)
+    t0 = time.perf_counter()
+    d_obs = make_observed_data(cfg, cuda, shot_group=FWI_GROUP)["baseline"]
+    torch.cuda.synchronize()
+    synth_s = time.perf_counter() - t0
+    step = make_fwi_step(cfg, FWI_GROUP)
+    state = init_fwi_state(cfg, cuda)
+    batch = {"d_obs": d_obs}
+    step(state, batch)                                # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, m = step(state, batch)
+    float(m["loss"])
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    device_ms, kernels, top = _fwi_device_time(lambda: step(state, batch))
+    emit({"phase": "fwi", "check": "iteration", "grid": [cfg.nz, cfg.nx],
+          "dx_m": cfg.dx, "nt": cfg.nt, "dt_s": cfg.dt, "f0_hz": cfg.f0,
+          "shots": cfg.n_shots, "shot_group": FWI_GROUP,
+          "shot_groups": groups,
+          "cut": "16 shots (the paper spread 50 over 32 cores): this "
+                 "script's time limit",
+          "observed_data_s": synth_s, "eager_ms": eager_ms,
+          "device_ms": device_ms, "host_share": 1.0 - device_ms / eager_ms,
+          "kernels_per_iteration": kernels, "top_kernels_ms": top,
+          "peak_mem_gb": peak_gb,
+          "saved_field_gb_per_shot": cfg.nz * cfg.nx * 4 * cfg.nt / 1e9})
+    if groups < 2:
+        raise AssertionError("fwi: the shots must run in 2 groups or more")
+
+    # the main path, counters zeroed just before it
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    losses = []
+    tmp = tempfile.mkdtemp(dir=_ckpt_root())
+    try:
+        t0 = time.perf_counter()
+        run = survey(cfg, d_obs, dp_width=FWI_WIDTH, fail_at=FWI_FAIL,
+                     device=cuda, ckpt_dir=tmp, shot_group=FWI_GROUP,
+                     on_metrics=lambda st, rec: losses.append(
+                         (st, rec["loss"])))
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"fwi: launches {launches}; the FWI path runs "
+                             "none of the port's kernels")
+    if (run["events"] != ["failure:fail-stop"]
+            or len(run["shard_files"]) != FWI_WIDTH
+            or len(run["remapped"]["spans"]) != max(1, FWI_WIDTH // 2)
+            or int(run["state"]["step"]) != FWI_ITERS):
+        raise AssertionError(f"fwi: protected run {run['events']}, shard "
+                             f"files {run['shard_files']}, remapped "
+                             f"{run['remapped']}")
+    if not losses[-1][1] < losses[0][1]:
+        raise AssertionError(f"fwi: the misfit did not fall: {losses}")
+
+    # eq. 2, and the unprotected run the recovered one must equal
+    report, base = overhead(cfg, d_obs, runs=FWI_RUNS, device=cuda,
+                            shot_group=FWI_GROUP, ckpt_root=str(_ckpt_root()))
+    recovered_equal = _tree_equal(run["state"], base)
+    if not (recovered_equal and all(report[k]["c_bit_equal"] for k in report
+                                    if isinstance(report[k], dict)
+                                    and "c_bit_equal" in report[k])):
+        raise AssertionError(f"fwi: recovered state equal: "
+                             f"{recovered_equal}; {report}")
+    emit({"phase": "fwi", "check": "protected run",
+          "status": "done", "events": run["events"],
+          "dp_width": FWI_WIDTH, "shard_files": run["shard_files"],
+          "shard_spans": run["spans"], "remapped": run["remapped"],
+          "fail_stop_at": FWI_FAIL, "iterations": FWI_ITERS,
+          "misfits": losses, "wall_s": run["wall_s"],
+          "recovered_bit_equal_to_unprotected": recovered_equal,
+          "launches": launches})
+    emit({"phase": "fwi", "check": "overhead (paper eq. 2)", **report})
+    del run, base, d_obs, state
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -2172,6 +2607,16 @@ def main(argv=None) -> int:
     phase_train_tiny_sdc(args.seed)
     sdc = phase_train_sdc(args.seed)
     abft = phase_train_abft(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_tiny_fwi()
+    fwi = phase_fwi()
+    emit({"phase": "fwi-time", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    phase_train_tiny(args.seed, "falcon-mamba-7b", "train-tiny-ssm")
+    train_ssm = phase_train_ssm(args.seed)
+    emit({"phase": "train-ssm-time", "seconds": time.perf_counter() - t0})
 
     summary = []
     for kname, case_list in cases.items():
@@ -2180,7 +2625,8 @@ def main(argv=None) -> int:
         by_path = {"serve": serve.get(kname, 0),
                    "train": train.get(kname, 0), "sdc": sdc[kname],
                    "abft": abft[kname],
-                   "serve_ssm": serve_ssm.get(kname, 0)}
+                   "serve_ssm": serve_ssm.get(kname, 0),
+                   "fwi": fwi[kname], "train_ssm": train_ssm[kname]}
         summary.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/{source}", "replaces": replaces,

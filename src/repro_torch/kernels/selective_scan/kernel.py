@@ -1,16 +1,17 @@
-"""Host wrapper of the CUDA selective scan (``csrc/selective_scan.cu``),
+"""Host wrappers of the CUDA selective scan (``csrc/selective_scan.cu``),
 which replaces the TPU kernel
-``repro/kernels/selective_scan/kernel.py:selective_scan_kernel``.
+``repro/kernels/selective_scan/kernel.py:selective_scan_kernel``, and of
+its backward (``csrc/selective_scan_bwd.cu``; the TPU kernel has none).
 
-Two routes, chosen by ``tma_route`` before launch: the kernel's ring
-takes its tiles as TMA boxes where every operand allows them, and as
-4-byte cp.async copies elsewhere.  Both run the same arithmetic and give
-the same bits."""
+Two routes of the forward, chosen by ``tma_route`` before launch: the
+kernel's ring takes its tiles as TMA boxes where every operand allows
+them, and as 4-byte cp.async copies elsewhere.  Both run the same
+arithmetic and give the same bits."""
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -110,3 +111,64 @@ def selective_scan_kernel(x: torch.Tensor, dt: torch.Tensor,
 
 selective_scan_kernel.launches = 0
 selective_scan_kernel.tma_launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_entry():
+    lib = build.library()
+    fn = lib.repro_selective_scan_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    scratch = lib.repro_selective_scan_bwd_scratch
+    scratch.argtypes = [ctypes.c_int] * 4
+    scratch.restype = ctypes.c_longlong
+    return fn, scratch
+
+
+def selective_scan_bwd_kernel(x: torch.Tensor, dt: torch.Tensor,
+                              bm: torch.Tensor, cm: torch.Tensor,
+                              a: torch.Tensor, h0: torch.Tensor,
+                              dy: torch.Tensor,
+                              dh_last: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, ...]:
+    """The scan's backward on the card.  The forward's operands as
+    ``selective_scan_kernel`` takes them, ``dy`` (B, S, Di) and
+    ``dh_last`` (B, Di, N, or ``None`` for 0) float32 contiguous.
+    Returns (dx, ddt, dB, dC, dA, dh0), float32 and contiguous, shaped as
+    the inputs.  Deterministic: no atomics, every sum in a fixed order.
+    ``launches`` counts the calls (each runs the scan kernel and the
+    fixed-order reduce of its per-block sums)."""
+    _check(x, dt, bm, cm, a, h0)
+    if dy.shape != x.shape or dy.dtype != torch.float32 \
+            or dy.device != x.device or not dy.is_contiguous():
+        raise ValueError(f"dy must be float32 contiguous {tuple(x.shape)} "
+                         f"on {x.device}")
+    if dh_last is not None and (
+            dh_last.shape != h0.shape or dh_last.dtype != torch.float32
+            or dh_last.device != x.device or not dh_last.is_contiguous()):
+        raise ValueError(f"dh_last must be float32 contiguous "
+                         f"{tuple(h0.shape)} on {x.device}")
+    B, S, Di = x.shape
+    N = a.shape[-1]
+    fn, scratch_floats = _bwd_entry()
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    dbm = torch.empty((B, S, N), dtype=torch.float32, device=x.device)
+    dcm = torch.empty_like(dbm)
+    da = torch.empty_like(a)
+    dh0 = torch.empty_like(h0)
+    scratch = torch.empty(scratch_floats(B, S, Di, N), dtype=torch.float32,
+                          device=x.device)
+    err = fn(x.data_ptr(), dt.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+             a.data_ptr(), h0.data_ptr(), dy.data_ptr(),
+             None if dh_last is None else dh_last.data_ptr(),
+             dx.data_ptr(), ddt.data_ptr(), dbm.data_ptr(), dcm.data_ptr(),
+             da.data_ptr(), dh0.data_ptr(), scratch.data_ptr(), B, S, Di, N,
+             bm.stride(0), bm.stride(1), cm.stride(0), cm.stride(1),
+             build.stream_ptr(x.device))
+    build.check(err, "selective_scan_bwd")
+    selective_scan_bwd_kernel.launches += 1
+    return dx, ddt, dbm, dcm, da, dh0
+
+
+selective_scan_bwd_kernel.launches = 0

@@ -1,8 +1,11 @@
-"""Plain PyTorch version of the selective-scan kernel: the direct
-sequential recurrence of the reference's ``selective_scan_ref``."""
+"""Plain PyTorch versions of the selective-scan kernels: the direct
+sequential recurrence of the reference's ``selective_scan_ref``, and its
+backward as an explicit reverse scan (the reference trains through
+autodiff of ``models/mamba.py:_ssm_chunked``; its Pallas scan has no
+backward)."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,6 +26,51 @@ def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     if not ys:
         return x.new_zeros(x.shape), h
     return torch.stack(ys, dim=1), h
+
+
+def selective_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
+                           bm: torch.Tensor, cm: torch.Tensor,
+                           a: torch.Tensor, h0: torch.Tensor,
+                           dy: torch.Tensor,
+                           dh_last: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, ...]:
+    """Gradients of ``selective_scan_ref``'s (y, h_last) against ``dy``
+    (B, S, Di) and ``dh_last`` (B, Di, N; ``None`` = 0): (dx, ddt, dB,
+    dC, dA, dh0), float32, shaped as the inputs.  With ``e_t =
+    exp(dt_t a)``, the reverse scan runs ``g_t = r_t + C_t dy_t`` (the
+    gradient in ``h_t``), ``r_{t-1} = e_t g_t`` from ``r_{S-1} =
+    dh_last``; then ``dC_t = sum_d dy_t h_t``, ``dB_t = sum_d g_t dt_t
+    x_t``, ``u_t = sum_n g_t B_t`` gives ``dx_t = u_t dt_t``, and ``q_t =
+    g_t h_{t-1} e_t`` gives ``ddt_t = sum_n q_t a + u_t x_t`` and ``dA =
+    sum_{b,t} q_t dt_t``; ``dh0 = r_{-1}``.  The forward's states are kept
+    whole (S x B x Di x N floats)."""
+    x, dt, bm, cm, a, dy = (t.float() for t in (x, dt, bm, cm, a, dy))
+    B, S, Di = x.shape
+    N = a.shape[-1]
+    h = h0.float()
+    hs, es = [h], []
+    for t in range(S):
+        e = torch.exp(dt[:, t, :, None] * a)                  # (B, Di, N)
+        h = e * h + (dt[:, t] * x[:, t])[..., None] * bm[:, t, None, :]
+        es.append(e)
+        hs.append(h)
+    r = (dh_last.float() if dh_last is not None
+         else torch.zeros(B, Di, N, dtype=torch.float32, device=x.device))
+    dx, ddt = torch.zeros_like(x), torch.zeros_like(x)
+    dbm = torch.zeros(B, S, N, dtype=torch.float32, device=x.device)
+    dcm = torch.zeros_like(dbm)
+    da = torch.zeros(Di, N, dtype=torch.float32, device=x.device)
+    for t in reversed(range(S)):
+        g = r + dy[:, t, :, None] * cm[:, t, None, :]
+        dcm[:, t] = torch.einsum("bdn,bd->bn", hs[t + 1], dy[:, t])
+        dbm[:, t] = torch.einsum("bdn,bd->bn", g, dt[:, t] * x[:, t])
+        u = torch.einsum("bdn,bn->bd", g, bm[:, t])
+        q = g * hs[t] * es[t]
+        ddt[:, t] = (q * a).sum(-1) + u * x[:, t]
+        dx[:, t] = u * dt[:, t]
+        da = da + torch.einsum("bdn,bd->dn", q, dt[:, t])
+        r = es[t] * g
+    return dx, ddt, dbm, dcm, da, r
 
 
 # The kernel's parts (warps) a channel's states are split over and time

@@ -43,6 +43,7 @@ LENGTHS = (0, 15, 16, 100, 200, 255, 287, 17)
 GROUPS = (("rmsnorm_bwd", "rmsnorm_bwd"), ("rmsnorm", "rmsnorm_"),
           ("flash_attention", "flash_fwd"),
           ("paged_attention", "paged_"),      # the split pass and combine
+          ("selective_scan_bwd", "selective_scan_bwd"),
           ("selective_scan", "selective_scan_kernel"),
           ("flash_attention_bwd", "flash_bwd"),
           ("ckpt_codec", "quantize_kernel"), ("abft_matmul", "abft_"))

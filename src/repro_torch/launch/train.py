@@ -11,6 +11,13 @@ delta saves of the blocks that changed), termination-signal detection,
 optional UDP heartbeats, straggler watchdog, and automatic
 restore-on-restart.  ``--inject-failure N`` simulates a fail-stop at step
 N and recovers.  The model runs on the card unless ``--device cpu``.
+Attention stacks and Mamba-1 stacks train (``--arch falcon-mamba-7b``:
+the selective scan and its backward kernel on the card):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \
+        --tiny --device cpu --steps 12 --seq-len 32 --global-batch 4 \
+        --microbatches 2 --policy every_n --every-n 4 --async-save \
+        --inject-failure 6 --ckpt-dir /tmp/ckpt_ssm
 
 SDC guard: ``--scrub``/``--sentinel`` turn on the tier-2/3 detectors,
 ``--abft`` routes the projection matmuls through the checksummed kernel

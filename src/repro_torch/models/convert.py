@@ -1,11 +1,14 @@
 """Weights and train states carried across from the JAX package.
 
 ``params_from_jax`` takes the reference's ``init_params`` pytree as numpy
-arrays (``jax.device_get``) and returns the port's serving parameters,
-cast as ``load_weight`` casts them (an SSM layer's ``A_log`` and ``D``
-stay float32).  ``state_from_jax`` takes the reference's whole train state (``params``,
-``opt.{m,v,count}``, ``rng``, ``step``) and returns the port's, which
-keeps the reference's stacked layout leaf for leaf.  The
+arrays (``jax.device_get``), or the port's own train parameters
+(``init_train_params``, the same stacked layout, tensors), and returns
+the port's serving parameters, cast as ``load_weight`` casts them (an
+SSM layer's ``A_log`` and ``D`` stay float32): a model trained in
+either package serves in the port.  ``state_from_jax`` takes the
+reference's whole train state (``params``, ``opt.{m,v,count}``, ``rng``,
+``step``) and returns the port's, which keeps the reference's stacked
+layout leaf for leaf.  The
 reference stacks homogeneous blocks for ``scan``: ``{"embed": {"tok"},
 "blocks": {"l<p>": {...}}, "final_norm"}`` with a leading G axis on every
 block leaf, layer ``g * len(pattern) + p``.  The unstacked layout
@@ -27,10 +30,13 @@ from repro_torch.tree import tree_map
 def _tree(cfg, x, index, device, name=""):
     if isinstance(x, dict):
         return {k: _tree(cfg, v, index, device, k) for k, v in x.items()}
-    a = np.asarray(x)
-    if index is not None:
-        a = a[index]
-    t = torch.from_numpy(np.array(a, dtype=np.float32))
+    if isinstance(x, torch.Tensor):
+        t = (x if index is None else x[index]).detach().float()
+    else:
+        a = np.asarray(x)
+        if index is not None:
+            a = a[index]
+        t = torch.from_numpy(np.array(a, dtype=np.float32))
     return load_weight(cfg, t.to(device=device, dtype=cfg.param_dtype),
                        name)
 

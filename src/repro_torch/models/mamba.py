@@ -6,8 +6,10 @@ h_t + D x_t`` with diagonal A, per-channel dt.  A prompt of more than one
 token is scanned by ``kernels/selective_scan`` (the CUDA kernel on the
 card, its plain version on the CPU) from the cache row's state; one token
 against a cache is a single elementwise step, as in the reference, and
-launches no scan.  Training (the reference's chunked scan under autodiff)
-waits for its slice.
+launches no scan.  Training runs the same scan with its backward as the
+gradient (``ops.SelectiveScanFunction``: the scan-backward kernel on the
+card, the plain reverse scan on the CPU), where the reference takes
+autodiff of its chunked scan.
 
 The dtype points are the reference's: the projections run in the compute
 dtype; the depthwise conv sums in float32 from the compute-dtype weights

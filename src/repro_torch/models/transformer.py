@@ -1,9 +1,9 @@
 """The decoder stack, PyTorch port of the reference's
 ``models/transformer.py`` FULL/LOCAL attention path (GQA, sliding window,
 attention and final logit soft-caps, tied or untied embeddings, padded
-vocab) and its Mamba-1 SSM layers (``models/mamba.py``, serving modes
-only).  A Python loop over layers replaces the reference's ``scan``; the
-sharding constraints have no counterpart on one card and are dropped.
+vocab) and its Mamba-1 SSM layers (``models/mamba.py``).  A Python loop
+over layers replaces the reference's ``scan``; the sharding constraints
+have no counterpart on one card and are dropped.
 
 Modes of ``forward``:
   ``train``        — logits for every position from the train state's
@@ -14,8 +14,8 @@ Modes of ``forward``:
                      recomputed in the backward.  ``impl="abft"`` routes
                      the q/k/v/o and MLP projections through the
                      checksummed matmul (SDC tier 1); the attention core
-                     stays on the flash kernel.  Attention stacks only
-                     (Mamba training waits for its slice).
+                     stays on the flash kernel (attention layers; an SSM
+                     layer's projections stay plain matmuls).
   ``prefill``      — logits for every position; with ``cache`` (a fresh
                      row from ``init_cache``) the row's k/v/pos, or an SSM
                      layer's conv and scan state, are filled in place.
@@ -60,20 +60,15 @@ Params = Dict[str, Any]
 _KEEP_FP32 = ("A_log", "D", "lam")
 
 
-def _check_kinds(cfg: ModelConfig, ssm: bool = True) -> None:
-    """``ssm``: the mode runs Mamba layers (serving); training does not."""
-    ok = (FULL, LOCAL, BIDIR) + ((SSM,) if ssm else ())
-    bad = sorted({k for k in cfg.layer_kinds() if k not in ok})
-    if not bad:
-        return
-    if SSM in bad and not ssm:
+def _check_kinds(cfg: ModelConfig) -> None:
+    """The port serves and trains attention and Mamba-1 stacks."""
+    bad = sorted({k for k in cfg.layer_kinds()
+                  if k not in (FULL, LOCAL, BIDIR, SSM)})
+    if bad:
         raise NotImplementedError(
-            f"{cfg.name} has SSM layers; the port serves Mamba stacks but "
-            "does not train them yet (the Mamba-training slice: the scan's "
-            "backward as a kernel, ROADMAP item 12)")
-    raise NotImplementedError(
-        f"{cfg.name} has {bad} layers; the port runs attention and Mamba "
-        "stacks (REC waits for the model-families slice, ROADMAP item 12)")
+            f"{cfg.name} has {bad} layers; the port runs attention and Mamba "
+            "stacks (REC waits for the model-families slice, ROADMAP item "
+            "12, second half)")
 
 
 # --------------------------------------------------------------------------
@@ -156,7 +151,7 @@ def init_train_params(cfg: ModelConfig, *, seed: int, device=None) -> Params:
     {...}}, "final_norm"[, "lm_head"]}`` where every block leaf has a
     leading axis of ``num_layers / len(pattern)`` (layer ``g * len(pattern)
     + p``).  Same shapes and scales as the reference's ``init_params``."""
-    _check_kinds(cfg, ssm=False)
+    _check_kinds(cfg)
     device = resolve_device(device)
     P_ = len(cfg.pattern)
     if cfg.num_layers % P_:
@@ -177,12 +172,20 @@ def init_train_params(cfg: ModelConfig, *, seed: int, device=None) -> Params:
     def ones(*shape):
         return torch.ones(shape, device=device, dtype=pd)
 
+    def const(name, w):
+        return w.to(device=device, dtype=pd).expand((G,) + tuple(w.shape)) \
+            .contiguous()
+
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.num_heads, cfg.num_kv_heads
     params: Params = {"embed": {"tok": normal((cfg.padded_vocab, d),
                                               d ** -0.5)}}
     blocks = {}
     for p in range(P_):
+        if cfg.pattern[p] == SSM:
+            blocks[f"l{p}"] = {"ln": ones(G, d),
+                               "ssm": ssm_init(cfg, stacked, const)}
+            continue
         attn = {"wq": stacked((d, h, hd), d ** -0.5),
                 "wk": stacked((d, kv, hd), d ** -0.5),
                 "wv": stacked((d, kv, hd), d ** -0.5),
@@ -348,8 +351,9 @@ def _train_weights(cfg: ModelConfig,
     leaf unbound into per-layer views (one stack in the backward)."""
     cd = cfg.dtype
 
-    def cast(w):
-        if w.dtype == torch.float32 and cd != torch.float32:
+    def cast(w, name=""):
+        if (w.dtype == torch.float32 and cd != torch.float32
+                and name.rsplit(".", 1)[-1] not in _KEEP_FP32):
             return w.to(cd)
         return w
 
@@ -358,7 +362,7 @@ def _train_weights(cfg: ModelConfig,
     layers: List[Params] = [None] * cfg.num_layers
     for p in range(P_):
         blk = params["blocks"][f"l{p}"]
-        parts = [cast(w).unbind(0) for _, w in flatten_named(blk)]
+        parts = [cast(w, name).unbind(0) for name, w in flatten_named(blk)]
         for g in range(G):
             layers[g * P_ + p] = unflatten(blk, [pt[g] for pt in parts])
     top: Params = {"embed": {"tok": cast(params["embed"]["tok"])},
@@ -370,7 +374,10 @@ def _train_weights(cfg: ModelConfig,
 
 def _train_block(x, layers, kinds, cfg, positions, impl):
     for p, kind in zip(layers, kinds):
-        x = _attn_apply(p, x, kind, cfg, positions, impl=impl)
+        if kind == SSM:
+            x = ssm_apply(p, x, cfg)
+        else:
+            x = _attn_apply(p, x, kind, cfg, positions, impl=impl)
     return x
 
 
@@ -410,7 +417,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     ``page_tables`` (R, MPR) int32.  ``impl="abft"`` (train mode)
     checksums the projections."""
     kinds = cfg.layer_kinds()
-    _check_kinds(cfg, ssm=mode != "train")
+    _check_kinds(cfg)
     if mode == "train":
         return _forward_train(cfg, params, batch, impl), None
     if impl is not None:

@@ -21,7 +21,11 @@ plain version within 1e-5 + 1e-5 |want| (tests/test_kernels.py) on each
 route (16-byte and 4-byte copies, with the route's counter) around its
 ring's tile, and bit for bit across the routes, on a repeated call and
 across a scan split in two through h_last; the tiny Mamba engine on the
-card gives the CPU's greedy streams.  Paged
+card gives the CPU's greedy streams.  The scan's backward kernel is held
+to the plain reverse scan (``ref.selective_scan_bwd_ref``) within 1e-4
+of each gradient's largest magnitude, around its 32-step chunks, ragged
+Di and N, B and C read in place, bit for bit on a repeated call; tiny
+falcon-mamba trains on the card as on the CPU.  Paged
 decode attention is also held bit for bit across the table's width, the
 batch, the row index, the page ids and NaN in every dead position, and
 the RMSNorm forward's first rows across row counts.
@@ -53,9 +57,11 @@ from repro_torch.kernels.rmsnorm.kernel import rms_norm_2d, rms_norm_2d_bwd
 from repro_torch.kernels.rmsnorm.ops import rms_norm
 from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
 from repro_torch.kernels.selective_scan import kernel as scan_kernel
-from repro_torch.kernels.selective_scan.kernel import selective_scan_kernel
+from repro_torch.kernels.selective_scan.kernel import (
+    selective_scan_bwd_kernel, selective_scan_kernel)
 from repro_torch.kernels.selective_scan.ops import selective_scan
 from repro_torch.kernels.selective_scan.ref import (TILE as SCAN_TILE,
+                                                    selective_scan_bwd_ref,
                                                     selective_scan_ref)
 
 pytestmark = pytest.mark.gpu
@@ -1003,3 +1009,108 @@ def test_tiny_mamba_engine_on_the_card_matches_the_cpu(cuda):
             assert (selective_scan_kernel.launches - before
                     == cfg.num_layers * sum(len(p) > 1 for p in prompts))
     assert streams[0] == streams[1]
+
+
+def _scan_bwd_args(rng, B, S, Di, N, device, carried, strided=False):
+    """_scan_inputs's draws, dy ~ N(0, 1) and (``carried``) a random h0
+    and dh_last; ``strided``: B and C as column slices of one tensor."""
+    x, dt, bm, cm, a, h0 = _scan_inputs(rng, B, S, Di, N, device,
+                                        h0_zero=not carried)
+    if strided:
+        bcd = torch.cat([torch.zeros_like(bm[..., :3]), bm, cm], dim=-1)
+        bm, cm = bcd[..., 3:3 + N], bcd[..., 3 + N:]
+    dy = torch.from_numpy(rng.standard_normal((B, S, Di)).astype(
+        np.float32)).to(device)
+    dh = (torch.from_numpy(rng.standard_normal((B, Di, N)).astype(
+        np.float32)).to(device) if carried else None)
+    return (x, dt, bm, cm, a, h0, dy, dh)
+
+
+@pytest.mark.parametrize("B,S,Di,N,carried,strided", [
+    (2, 256, 8192, 16, False, True), (1, 200, 256, 16, True, False),
+    (2, 1, 64, 16, True, False), (1, 33, 100, 4, True, True),
+    (3, 65, 33, 5, False, False), (1, 95, 40, 1, True, False),
+    (2, 64, 96, 8, True, True)])
+def test_selective_scan_bwd_kernel_matches_plain(cuda, B, S, Di, N, carried,
+                                                 strided):
+    rng = np.random.default_rng(B * 1000 + S + Di + N)
+    args = _scan_bwd_args(rng, B, S, Di, N, cuda, carried, strided)
+    before = selective_scan_bwd_kernel.launches
+    got = selective_scan_bwd_kernel(*args)
+    torch.cuda.synchronize()
+    assert selective_scan_bwd_kernel.launches == before + 1
+    want = selective_scan_bwd_ref(*args)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.is_contiguous()
+        _close_grad(g, w, 1e-4)
+
+
+def test_selective_scan_bwd_repeats_bit_for_bit(cuda):
+    rng = np.random.default_rng(11)
+    args = _scan_bwd_args(rng, 2, 300, 512, 16, cuda, True, True)
+    first = selective_scan_bwd_kernel(*args)
+    second = selective_scan_bwd_kernel(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_selective_scan_bwd_refuses_what_it_cannot_take(cuda):
+    rng = np.random.default_rng(12)
+    x, dt, bm, cm, a, h0, dy, _ = _scan_bwd_args(rng, 1, 8, 32, 4, cuda,
+                                                 False)
+    with pytest.raises(ValueError, match="dy"):
+        selective_scan_bwd_kernel(x, dt, bm, cm, a, h0, dy[:, :4])
+    with pytest.raises(ValueError, match="dh_last"):
+        selective_scan_bwd_kernel(x, dt, bm, cm, a, h0, dy, h0[:, :4])
+
+
+def test_scan_gradient_on_the_card_runs_the_kernels(cuda):
+    """``selective_scan`` under autograd on CUDA tensors: the forward
+    kernel and the backward kernel, one launch each, the plain version's
+    gradients."""
+    rng = np.random.default_rng(13)
+    x, dt, bm, cm, a, h0, dy, _ = _scan_bwd_args(rng, 2, 70, 64, 16, cuda,
+                                                 False)
+    ins = [t.clone().requires_grad_(True) for t in (x, dt, bm, cm, a)]
+    f0, b0 = selective_scan_kernel.launches, selective_scan_bwd_kernel.launches
+    y, _ = selective_scan(*ins, h0)
+    grads = torch.autograd.grad((y * dy).sum(), ins)
+    assert selective_scan_kernel.launches == f0 + 1
+    assert selective_scan_bwd_kernel.launches == b0 + 1
+    want = selective_scan_bwd_ref(x, dt, bm, cm, a, h0, dy)
+    for g, w in zip(grads, want[:5]):
+        _close_grad(g, w, 1e-4)
+
+
+def test_tiny_mamba_training_on_the_card_matches_the_cpu(cuda):
+    """Tiny falcon-mamba in float32: three train steps on the card (the
+    scan kernels) and on the CPU (plain versions) give the same losses
+    within 1e-4, and two identical card steps the same bits."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import get_config
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.train.step import metrics_to_host
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b", tiny=True),
+                              dtype=torch.float32)
+    step_fn = make_train_step(cfg, total_steps=3, warmup_steps=1,
+                              microbatches=2)
+    cpu_state = init_state(cfg, seed=0, device="cpu")
+    losses = {}
+    for device in ("cpu", "cuda"):
+        state = _to(cpu_state, device)
+        data = make_pipeline(cfg, 64, 4, seed=0)
+        before = selective_scan_bwd_kernel.launches
+        losses[device] = []
+        for _ in range(3):
+            state, m = step_fn(state, data.next_batch())
+            losses[device].append(metrics_to_host(m)["loss"])
+        if device == "cuda":
+            assert (selective_scan_bwd_kernel.launches - before
+                    == 3 * 2 * cfg.num_layers)
+            batch = make_pipeline(cfg, 64, 4, seed=1).next_batch()
+            s1, _ = step_fn(state, batch)
+            s2, _ = step_fn(state, batch)
+            for a, b in zip(leaves(s1), leaves(s2)):
+                assert torch.equal(a, b)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

@@ -246,13 +246,18 @@ def test_causal_conv_keeps_the_last_inputs():
 
 
 def test_modes_the_mamba_slice_refuses():
+    """What the port still refuses of a Mamba stack (training it no
+    longer: train mode runs on the train layout; REC layers wait for the
+    model-families slice)."""
     _, tcfg = _configs("float32")
     params = init_params(tcfg, seed=0, device="cpu")
     toks = torch.tensor([[1, 2, 3, 4]])
-    with pytest.raises(NotImplementedError, match="Mamba-training"):
-        forward(tcfg, params, {"tokens": toks}, mode="train")
-    with pytest.raises(NotImplementedError, match="Mamba-training"):
-        init_train_params(tcfg, seed=0, device="cpu")
+    logits, _ = forward(tcfg, init_train_params(tcfg, seed=0, device="cpu"),
+                        {"tokens": toks}, mode="train")
+    assert logits.shape == (1, 4, tcfg.padded_vocab)
+    with pytest.raises(NotImplementedError, match="item 12, second half"):
+        init_train_params(dataclasses.replace(tcfg, pattern=("rec",)),
+                          seed=0, device="cpu")
     with pytest.raises(ValueError, match="prompt's own length"):
         forward(tcfg, params, {"tokens": toks, "length": 2}, mode="prefill",
                 cache=init_cache(tcfg, 1, 0, "cpu"))
