@@ -2413,25 +2413,6 @@ def phase_train_ssm(seed: int):
     return runs["device_int8"]
 
 
-def _fwi_device_time(fn):
-    """One call of ``fn`` under the profiler (device activity only): the
-    device ms of its kernels, their count, and the ms of the 6 longest
-    kernel names."""
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    by_name = {}
-    count = 0
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[evt.name] = (by_name.get(evt.name, 0.0)
-                                 + evt.time_range.elapsed_us() / 1e3)
-            count += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return sum(by_name.values()), count, {n[:80]: ms for n, ms in top}
-
-
 def phase_tiny_fwi():
     """tests/test_torch_fwi.py's FWI (50 x 50, nt 300, 2 shots, 6
     iterations) in float32 on the card and on the CPU from the same
@@ -2478,10 +2459,15 @@ def phase_fwi():
     before it: the path runs none of the port's kernels); then eq. 2's
     overhead for sync, async and async int8 saves every iteration, the
     median of FWI_RUNS runs each, whose final models must equal the
-    unprotected run's bit for bit, as must the recovered run's state."""
+    unprotected run's bit for bit, as must the recovered run's state.
+    Eq. 2 from the medians is marked unresolved where the runs of every
+    configuration spread more than it; the saves' held share is its
+    estimate."""
     from repro_torch.apps.fwi import (FWIConfig, init_fwi_state,
                                       make_fwi_step, make_observed_data)
-    from repro_torch.apps.fwi_case_study import overhead, survey
+    from repro_torch.apps.fwi_case_study import (SAVE_CONFIGS, overhead,
+                                                 survey)
+    from repro_torch.launch.profile_steps import profile_step
 
     cuda = torch.device("cuda")
     cfg = FWIConfig(**FWI_SIZE, iterations=FWI_ITERS)
@@ -2493,15 +2479,15 @@ def phase_fwi():
     step = make_fwi_step(cfg, FWI_GROUP)
     state = init_fwi_state(cfg, cuda)
     batch = {"d_obs": d_obs}
-    step(state, batch)                                # warm-up
-    torch.cuda.synchronize()
+    # a warm-up call, then one under the profiler (the card's activity)
+    prof = profile_step(lambda: step(state, batch), calls=1, host=False)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     _, m = step(state, batch)
     float(m["loss"])
     eager_ms = (time.perf_counter() - t0) * 1e3
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    device_ms, kernels, top = _fwi_device_time(lambda: step(state, batch))
+    device_ms = prof["device_ms"]
     emit({"phase": "fwi", "check": "iteration", "grid": [cfg.nz, cfg.nx],
           "dx_m": cfg.dx, "nt": cfg.nt, "dt_s": cfg.dt, "f0_hz": cfg.f0,
           "shots": cfg.n_shots, "shot_group": FWI_GROUP,
@@ -2510,7 +2496,8 @@ def phase_fwi():
                  "script's time limit",
           "observed_data_s": synth_s, "eager_ms": eager_ms,
           "device_ms": device_ms, "host_share": 1.0 - device_ms / eager_ms,
-          "kernels_per_iteration": kernels, "top_kernels_ms": top,
+          "kernels_per_iteration": prof["kernels_per_call"],
+          "top_kernels_ms": prof["top_kernels_ms"],
           "peak_mem_gb": peak_gb,
           "saved_field_gb_per_shot": cfg.nz * cfg.nx * 4 * cfg.nt / 1e9})
     if groups < 2:
@@ -2562,7 +2549,15 @@ def phase_fwi():
           "misfits": losses, "wall_s": run["wall_s"],
           "recovered_bit_equal_to_unprotected": recovered_equal,
           "launches": launches})
-    emit({"phase": "fwi", "check": "overhead (paper eq. 2)", **report})
+    # the runs spread more than the saves cost: eq. 2 is read as the share
+    # the saves held the loop, within the bound an async writer's time
+    # beside it sets; eq. 2 from the medians where it clears the spread
+    emit({"phase": "fwi", "check": "overhead (paper eq. 2)",
+          "eq2_estimate": {k: report[k]["held_share"] for k in SAVE_CONFIGS},
+          "eq2_bound": {k: report[k]["eq2_bound"] for k in SAVE_CONFIGS},
+          "eq2_raw": {k: (report[k]["eq2_raw"] if report[k]["eq2_resolved"]
+                          else "unresolved") for k in SAVE_CONFIGS},
+          **report})
     del run, base, d_obs, state
     torch.cuda.empty_cache()
     return launches

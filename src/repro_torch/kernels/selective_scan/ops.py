@@ -1,9 +1,9 @@
 """Public selective-scan entries: the plain versions for CPU tensors, the
 CUDA kernels for CUDA tensors.  Inputs are taken in float32 (as the
 reference's ``ops.selective_scan`` casts them); B and C may be column
-slices of the ``x_proj`` output, read in place.  Where autograd needs a
-gradient (the train step), the scan runs inside ``SelectiveScanFunction``,
-whose backward is ``selective_scan_bwd``."""
+slices of the ``x_proj`` output, read in place.  The scan runs inside
+``SelectiveScanFunction``, whose backward is ``selective_scan_bwd``; it
+records a graph only where autograd records (the train step)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -66,7 +66,4 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     """Mamba-1 scan.  x, dt: (B, S, Di); bm, cm: (B, S, N); a: (Di, N);
     h0: (B, Di, N).  Returns (y, h_last), both float32; differentiable in
     every input when autograd records."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, bm, cm, a, h0)):
-        return SelectiveScanFunction.apply(x, dt, bm, cm, a, h0)
-    return _scan(x, dt, bm, cm, a, h0)
+    return SelectiveScanFunction.apply(x, dt, bm, cm, a, h0)

@@ -111,11 +111,16 @@ def _kernel_times(prof):
     return us, count
 
 
-def profile_step(fn: Callable[[], object], calls: int = 3) -> Dict:
+def profile_step(fn: Callable[[], object], calls: int = 3,
+                 host: bool = True) -> Dict:
+    """``fn`` once to warm up, then ``calls`` times under the profiler;
+    ``host=False`` records the card's activity alone (for a call of ~10^5
+    launches, as an FWI iteration is)."""
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if host:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):

@@ -294,16 +294,48 @@ def test_reference_checkpoint_restores_into_port(tmp_path, observed, ref_run,
 
 
 def test_case_study_module_runs(capsys):
-    assert fwi_case_study.main(
-        ["--device", "cpu", "--nz", "30", "--nx", "30", "--nt", "120",
-         "--shots", "2", "--iterations", "4", "--dp-width", "2",
-         "--fail-at", "3", "--runs", "1", "--overhead-iters", "1"]) == 0
+    small = fwi.FWIConfig(nz=30, nx=30, nt=120, n_shots=3,
+                          iterations=fwi_case_study.FAIL_AT + 1)
+    assert fwi_case_study.main(["--device", "cpu"], cfg=small) == 0
     out = capsys.readouterr().out
-    assert "recovered from fail-stop at iter 3" in out
-    assert "2 shard files" in out and "4D difference image" in out
+    assert (f"recovered from fail-stop at iter {fwi_case_study.FAIL_AT}"
+            in out)
+    assert (f"{fwi_case_study.DP_WIDTH} shard files" in out
+            and "4D difference image" in out)
     for name in fwi_case_study.SAVE_CONFIGS:
         assert f"{name}: median" in out
-        assert "unprotected run: True" in out.split(f"{name}:")[1]
+        line = out.split(f"{name}:")[1].splitlines()[0]
+        assert "resolved: runs spread" in line
+        assert "unprotected run: True" in line
+
+
+def test_case_study_takes_only_the_device():
+    with pytest.raises(SystemExit):
+        fwi_case_study.main(["--device", "cpu", "--nz", "30"])
+
+
+def test_overhead_reports_eq2_against_the_runs_spread():
+    """eq. 2 from the medians is resolved only beyond the spread of every
+    run against the unprotected median; the held share (the estimate)
+    lies inside its bound, and only the async configurations run a
+    writer beside the loop."""
+    small = fwi.FWIConfig(nz=30, nx=30, nt=120, n_shots=2, iterations=2)
+    d_obs = fwi.make_observed_data(small, "cpu")["baseline"]
+    rep, _ = fwi_case_study.overhead(small, d_obs, runs=2,
+                                     device=torch.device("cpu"))
+    base = rep["without"]
+    assert len(base["seconds"]) == 2
+    every = base["seconds"] + [t for name in fwi_case_study.SAVE_CONFIGS
+                               for t in rep[name]["seconds"]]
+    assert rep["spread"] == pytest.approx(
+        (max(every) - min(every)) / base["median_s"])
+    for name, config in fwi_case_study.SAVE_CONFIGS.items():
+        r = rep[name]
+        assert len(r["seconds"]) == 2
+        assert r["eq2_resolved"] == (abs(r["eq2_raw"]) > rep["spread"])
+        assert 0 < r["held_share"] <= r["eq2_bound"] < 1
+        assert (r["writer_share"] > 0) == config["async_save"]
+        assert r["c_bit_equal"]
 
 
 def test_default_device_is_the_card():
