@@ -1150,9 +1150,10 @@ def _scan_cases(gen, bw, fp32_flops, sfu):
 
 
 def _scan_bwd_usage():
-    """Registers, spills and static shared memory of the scan backward's
-    kernels from the build's ``-Xptxas -v`` log, and the main kernel's
-    dynamic shared memory at N 16."""
+    """Registers, spills, stack frame and static shared memory of the scan
+    backward's kernels (``selective_scan_bwd_kernel<states a part, TMA
+    route>`` and the reduce) from the build's ``-Xptxas -v`` log, and the
+    main kernel's dynamic shared memory at N 16."""
     import re
 
     from repro_torch.kernels import build
@@ -1162,10 +1163,12 @@ def _scan_bwd_usage():
     lib.repro_selective_scan_bwd_smem.restype = ctypes.c_int
     out = {}
     for name, use in build.ptxas_usage("selective_scan_bwd").items():
-        m = re.search(r"(selective_scan_bwd_(?:kernel|reduce))(?:ILi(\d+)E)?",
-                      name)
+        m = re.search(r"selective_scan_bwd_kernelI((?:L[a-z]\d+E)+)E", name)
         if m:
-            out[m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")] = use
+            args = ",".join(re.findall(r"L[a-z](\d+)E", m.group(1)))
+            out[f"selective_scan_bwd_kernel<{args}>"] = use
+        elif "selective_scan_bwd_reduce" in name:
+            out["selective_scan_bwd_reduce"] = use
     return {"kernels": out,
             "dynamic_smem_n16": lib.repro_selective_scan_bwd_smem(16)}
 
@@ -1175,11 +1178,16 @@ def _scan_bwd_cases(gen, bw, fp32_flops, sfu):
     (``ref.selective_scan_bwd_ref``) on the same inputs: every gradient
     within GRAD_TOL of its largest magnitude, two launches bit-equal, at
     one microbatch of train-ssm (B 2, S 2048, Di 8192, N 16, h0 = 0, no
-    dh_last, B and C as column slices as the layer passes them) and at a
-    ragged S and Di with a carried state and dh_last."""
+    dh_last, B and C as column slices as the layer passes them; the TMA
+    route) and at a ragged S and Di with a carried state and dh_last (the
+    4-byte route).  Beside each time: the split of a call between the
+    scan kernel and the reduce of its per-block sums (profiled), and the
+    device scratch a call allocates."""
+    from repro_torch.kernels.selective_scan import kernel as scan_kernel
     from repro_torch.kernels.selective_scan.kernel import \
         selective_scan_bwd_kernel
     from repro_torch.kernels.selective_scan.ref import selective_scan_bwd_ref
+    from repro_torch.launch.profile_steps import profile_step
 
     out = []
     for B, S, Di, N, carried in ((2, TRAIN_SEQ, 8192, 16, False),
@@ -1192,7 +1200,13 @@ def _scan_bwd_cases(gen, bw, fp32_flops, sfu):
         dh = (torch.randn((B, Di, N), generator=gen, device="cuda")
               if carried else None)
         args = (x, dt, bm, cm, a, h0, dy, dh)
+        tma = selective_scan_bwd_kernel.tma_launches
         got = selective_scan_bwd_kernel(*args)
+        route = ("tma" if selective_scan_bwd_kernel.tma_launches > tma
+                 else "4-byte")
+        if (route == "tma") != (Di % 4 == 0):
+            raise AssertionError(f"selective_scan_bwd Di={Di} took the "
+                                 f"{route} route")
         again = selective_scan_bwd_kernel(*args)
         label = f"selective_scan_bwd B={B} S={S} Di={Di} N={N}"
         if not all(torch.equal(p, q) for p, q in zip(got, again)):
@@ -1214,14 +1228,21 @@ def _scan_bwd_cases(gen, bw, fp32_flops, sfu):
         by_bytes = io_bytes / bw
         kernel_ms = time_ms(lambda: selective_scan_bwd_kernel(*args),
                             iters=5, reps=5)
+        # device ms of each kernel of one call (the scan, the reduce),
+        # profiled eagerly
+        split = profile_step(lambda: selective_scan_bwd_kernel(*args),
+                             calls=3)["top_kernels_ms"]
         bound_ms = max(by_ops, by_bytes) * 1e3
         out.append({
             "shape": f"B={B} S={S} Di={Di} N={N} fp32 h0="
                      + ("random, dh_last random" if carried
                         else "0, no dh_last") + ", B/C column slices",
-            "main": not carried, "max_abs_err": max(errs.values()),
+            "main": not carried, "route": route,
+            "max_abs_err": max(errs.values()),
             "errors": errs, "tol": GRAD_TOL[torch.float32],
             "two_launches_bit_equal": True, "kernel_ms": kernel_ms,
+            "kernels_ms": {_kernel_name(n): ms for n, ms in split.items()},
+            "scratch_bytes": scan_kernel.scratch_bytes(B, S, Di, N),
             "plain_ms": time_ms(lambda: selective_scan_bwd_ref(*args),
                                 iters=1, reps=2),
             "library_ms": None, "bound_ms": bound_ms,

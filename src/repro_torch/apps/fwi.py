@@ -71,9 +71,15 @@ def ricker(cfg: FWIConfig, device=None) -> torch.Tensor:
 def shot_positions(cfg: FWIConfig, device=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Source x-positions (one a shot, z = 2) and receiver x-positions
-    (every 2nd column from 2, z = 2), int64.  The sources are the
-    reference's ``linspace(5, nx - 6, n_shots)`` truncated, in exact
-    integer arithmetic."""
+    (every 2nd column from 2, z = 2), int64.  The sources are ``5 + k (nx
+    - 11) // (n_shots - 1)``, exact integer arithmetic.  That equals the
+    reference's float32 ``linspace(5, nx - 6, n_shots)`` truncated at
+    every size this repository runs or tests: nx 50 with 2 shots, 70 with
+    3, 90 with 4, 30 with 2 and 3, 920 with 16 and 50.  It is not the
+    reference's everywhere: where the float32 linspace lands just below
+    an integer, its truncation is one less (nx 73 with 32 shots: shots 7
+    to 30 sit one column left in the reference; tests/test_torch_fwi.py
+    pins that departure)."""
     span = cfg.nx - 11
     den = max(cfg.n_shots - 1, 1)
     sx = torch.tensor([5 + k * span // den for k in range(cfg.n_shots)],

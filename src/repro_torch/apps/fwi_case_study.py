@@ -61,10 +61,13 @@ def _sync(device: torch.device) -> None:
 
 
 def protect(ckpt_dir: str, **config) -> Dependability:
-    """A started facade saving every iteration into ``ckpt_dir``."""
+    """A started facade saving every iteration into ``ckpt_dir``, with
+    termination-signal detection on as in the reference's case study and
+    overhead benchmark: its handlers are installed until ``stop()``, so
+    call it from the main thread (``signal.signal`` takes no other)."""
     return Dependability(DependabilityConfig(
         checkpoint_dir=ckpt_dir, policy_mode="every_n", every_n=1,
-        heartbeat=False, signal_detection=False, **config)).start()
+        heartbeat=False, signal_detection=True, **config)).start()
 
 
 def timed_run(cfg: FWIConfig, d_obs, *, device,

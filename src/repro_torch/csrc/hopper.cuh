@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the bf16 flash-attention kernels
 // (flash_attention.cu, flash_attention_bwd.cu) and the ABFT product
-// (abft_matmul.cu), and the cp.async rings of rmsnorm.cu and
-// paged_attention.cu: TMA tile loads into a
+// (abft_matmul.cu), the cp.async rings of rmsnorm.cu and
+// paged_attention.cu, and the rings of the selective scan and its
+// backward: TMA tile loads into a
 // 128/64/32-byte swizzled shared layout, mbarrier rings, wgmma products
 // with fp32 accumulation, and the host-side encoding of the tensor maps.
 //
@@ -64,6 +65,46 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- cp.async: 4-byte copies completing on an mbarrier (the scan rings) ------
+
+// 4 bytes from global to shared, or 4 zero bytes when !ok
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// the mbarrier at `bar` takes one arrival of this thread once all of its
+// earlier cp.async copies have landed
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+// K consecutive floats of shared memory: one load of 4 K bytes (K <= 4),
+// or K / 4 loads of 16 bytes
+template <int K>
+__device__ __forceinline__ void load_vec(float* r, const float* p) {
+  if constexpr (K == 1) {
+    r[0] = *p;
+  } else if constexpr (K == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    r[0] = v.x;
+    r[1] = v.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < K; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + i);
+      r[i] = v.x;
+      r[i + 1] = v.y;
+      r[i + 2] = v.z;
+      r[i + 3] = v.w;
+    }
+  }
 }
 
 // ---- mbarriers --------------------------------------------------------------
@@ -401,6 +442,36 @@ static inline cudaError_t matrix_map(CUtensorMap* map, const void* base,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a float32 (d0, d1, d2) tensor read in place, rows of
+// d0 elements s1 bytes apart, planes s2 bytes apart (both multiples of
+// 16), boxes of (box0, box1, 1) without swizzle; TMA zero-fills a box
+// past any extent.  The selective scan's operands.
+static inline cudaError_t f32_map(CUtensorMap* map, const void* base,
+                                  long long d0, long long d1, long long d2,
+                                  long long s1, long long s2, int box0,
+                                  int box1) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0),
+                        static_cast<cuuint64_t>(d1),
+                        static_cast<cuuint64_t>(d2)};
+  cuuint64_t strides[2] = {static_cast<cuuint64_t>(s1),
+                           static_cast<cuuint64_t>(s2)};
+  cuuint32_t box[3] = {static_cast<cuuint32_t>(box0),
+                       static_cast<cuuint32_t>(box1), 1u};
+  cuuint32_t elem[3] = {1u, 1u, 1u};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                  const_cast<void*>(base), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+static inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 static inline int sm_count() {

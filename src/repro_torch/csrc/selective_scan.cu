@@ -105,44 +105,6 @@ constexpr size_t kSmemBytes =
 constexpr uint32_t kStageBytes = sizeof(float) * kStage;
 static_assert(kStageBytes % 128 == 0, "TMA boxes 128-byte aligned");
 
-// 4 bytes from global to shared, or 4 zero bytes when !ok
-__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-// the mbarrier at `bar` takes one arrival of this thread once all of its
-// earlier cp.async copies have landed
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   bar)
-               : "memory");
-}
-
-// K consecutive floats of shared memory: one load of 4 K bytes (K <= 4),
-// or K / 4 loads of 16 bytes
-template <int K>
-__device__ __forceinline__ void load_vec(float* r, const float* p) {
-  if constexpr (K == 1) {
-    r[0] = *p;
-  } else if constexpr (K == 2) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    r[0] = v.x;
-    r[1] = v.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < K; i += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(p + i);
-      r[i] = v.x;
-      r[i + 1] = v.y;
-      r[i + 2] = v.z;
-      r[i + 3] = v.w;
-    }
-  }
-}
-
 // y from the parts' partial sums v[0 .. kParts): the upper half added to
 // the lower half until one is left, ((v0 + v4) + (v2 + v6)) + ((v1 + v5)
 // + (v3 + v7)) for 8 parts
@@ -394,31 +356,6 @@ __global__ void __launch_bounds__(kThreads)
   SCAN_STAMP(kClockEvents - 1);
 }
 
-// The tensor map of a float32 (d0, d1, d2) tensor read in place, rows of
-// d0 elements s1 bytes apart, planes s2 bytes apart (both multiples of
-// 16), boxes of (box0, box1, 1) without swizzle; TMA zero-fills a box
-// past any extent.
-cudaError_t f32_map(CUtensorMap* map, const void* base, long long d0,
-                    long long d1, long long d2, long long s1, long long s2,
-                    int box0, int box1) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0),
-                        static_cast<cuuint64_t>(d1),
-                        static_cast<cuuint64_t>(d2)};
-  cuuint64_t strides[2] = {static_cast<cuuint64_t>(s1),
-                           static_cast<cuuint64_t>(s2)};
-  cuuint32_t box[3] = {static_cast<cuuint32_t>(box0),
-                       static_cast<cuuint32_t>(box1), 1u};
-  cuuint32_t elem[3] = {1u, 1u, 1u};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
-                  const_cast<void*>(base), dims, strides, box, elem,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int NPL, bool kTma>
 cudaError_t launch(const CUtensorMap (&maps)[4], const ScanArgs& a, int B,
                    cudaStream_t s) {
@@ -448,10 +385,6 @@ cudaError_t dispatch(bool tma, const CUtensorMap (&maps)[4],
   }
   return tma ? launch<NPL, true>(maps, a, B, s)
               : launch<NPL, false>(maps, a, B, s);
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace

@@ -109,8 +109,9 @@ def library() -> ctypes.CDLL:
 
 
 def ptxas_usage(stem: str, log: Optional[Path] = None) -> Dict[str, Dict]:
-    """Each kernel's registers, spill bytes and static shared memory as
-    ``-Xptxas -v`` printed them in the build log of ``csrc/<stem>.cu``
+    """Each kernel's registers, spill bytes, stack frame (local memory:
+    arrays the compiler did not keep in registers) and static shared
+    memory as ``-Xptxas -v`` printed them in the build log of ``csrc/<stem>.cu``
     (or in ``log``), by mangled name."""
     text = (log or build_dir() / f"{stem}.log").read_text()
     out: Dict[str, Dict] = {}
@@ -126,6 +127,8 @@ def ptxas_usage(stem: str, log: Optional[Path] = None) -> Dict[str, Dict]:
                       line)
         if m:
             cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+            m = re.search(r"(\d+) bytes stack frame", line)
+            cur["stack_frame"] = int(m.group(1)) if m else 0
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur["registers"] = int(m.group(1))

@@ -3,10 +3,10 @@ which replaces the TPU kernel
 ``repro/kernels/selective_scan/kernel.py:selective_scan_kernel``, and of
 its backward (``csrc/selective_scan_bwd.cu``; the TPU kernel has none).
 
-Two routes of the forward, chosen by ``tma_route`` before launch: the
-kernel's ring takes its tiles as TMA boxes where every operand allows
-them, and as 4-byte cp.async copies elsewhere.  Both run the same
-arithmetic and give the same bits."""
+Two routes of each, chosen by ``tma_route`` (``bwd_tma_route``) before
+launch: the kernel's ring takes its tiles as TMA boxes where every
+operand allows them, and as 4-byte cp.async copies elsewhere.  Both run
+the same arithmetic and give the same bits."""
 from __future__ import annotations
 
 import ctypes
@@ -118,7 +118,7 @@ def _bwd_entry():
     lib = build.library()
     fn = lib.repro_selective_scan_bwd
     fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong] * 4 + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     scratch = lib.repro_selective_scan_bwd_scratch
     scratch.argtypes = [ctypes.c_int] * 4
@@ -126,19 +126,14 @@ def _bwd_entry():
     return fn, scratch
 
 
-def selective_scan_bwd_kernel(x: torch.Tensor, dt: torch.Tensor,
-                              bm: torch.Tensor, cm: torch.Tensor,
-                              a: torch.Tensor, h0: torch.Tensor,
-                              dy: torch.Tensor,
-                              dh_last: Optional[torch.Tensor] = None
-                              ) -> Tuple[torch.Tensor, ...]:
-    """The scan's backward on the card.  The forward's operands as
-    ``selective_scan_kernel`` takes them, ``dy`` (B, S, Di) and
-    ``dh_last`` (B, Di, N, or ``None`` for 0) float32 contiguous.
-    Returns (dx, ddt, dB, dC, dA, dh0), float32 and contiguous, shaped as
-    the inputs.  Deterministic: no atomics, every sum in a fixed order.
-    ``launches`` counts the calls (each runs the scan kernel and the
-    fixed-order reduce of its per-block sums)."""
+def bwd_tma_route(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
+                  cm: torch.Tensor, dy: torch.Tensor) -> bool:
+    """The backward's dispatch rule: the forward's (``tma_route``), and
+    ``dy`` 16-byte aligned."""
+    return tma_route(x, dt, bm, cm) and dy.data_ptr() % 16 == 0
+
+
+def _bwd_check(x, dt, bm, cm, a, h0, dy, dh_last) -> None:
     _check(x, dt, bm, cm, a, h0)
     if dy.shape != x.shape or dy.dtype != torch.float32 \
             or dy.device != x.device or not dy.is_contiguous():
@@ -149,6 +144,19 @@ def selective_scan_bwd_kernel(x: torch.Tensor, dt: torch.Tensor,
             or dh_last.device != x.device or not dh_last.is_contiguous()):
         raise ValueError(f"dh_last must be float32 contiguous "
                          f"{tuple(h0.shape)} on {x.device}")
+
+
+def scratch_bytes(B: int, S: int, Di: int, N: int) -> int:
+    """Device scratch of one backward launch: the states saved every
+    tile, the blocks' partial sums of dB and dC, the rows' dA."""
+    return 4 * _bwd_entry()[1](B, S, Di, N)
+
+
+def _bwd_launch(x, dt, bm, cm, a, h0, dy, dh_last=None, *, tma: bool
+                ) -> Tuple[torch.Tensor, ...]:
+    """One backward launch on the given route (True: TMA) of checked
+    operands; counts no launch.  The card tests force each route
+    through it."""
     B, S, Di = x.shape
     N = a.shape[-1]
     fn, scratch_floats = _bwd_entry()
@@ -165,10 +173,32 @@ def selective_scan_bwd_kernel(x: torch.Tensor, dt: torch.Tensor,
              dx.data_ptr(), ddt.data_ptr(), dbm.data_ptr(), dcm.data_ptr(),
              da.data_ptr(), dh0.data_ptr(), scratch.data_ptr(), B, S, Di, N,
              bm.stride(0), bm.stride(1), cm.stride(0), cm.stride(1),
-             build.stream_ptr(x.device))
+             int(tma), build.stream_ptr(x.device))
     build.check(err, "selective_scan_bwd")
-    selective_scan_bwd_kernel.launches += 1
     return dx, ddt, dbm, dcm, da, dh0
 
 
+def selective_scan_bwd_kernel(x: torch.Tensor, dt: torch.Tensor,
+                              bm: torch.Tensor, cm: torch.Tensor,
+                              a: torch.Tensor, h0: torch.Tensor,
+                              dy: torch.Tensor,
+                              dh_last: Optional[torch.Tensor] = None
+                              ) -> Tuple[torch.Tensor, ...]:
+    """The scan's backward on the card.  The forward's operands as
+    ``selective_scan_kernel`` takes them, ``dy`` (B, S, Di) and
+    ``dh_last`` (B, Di, N, or ``None`` for 0) float32 contiguous.
+    Returns (dx, ddt, dB, dC, dA, dh0), float32 and contiguous, shaped as
+    the inputs.  Deterministic: no atomics, every sum in a fixed order.
+    ``launches`` counts the calls (each runs the scan kernel and the
+    fixed-order reduce of its per-block sums), ``tma_launches`` those
+    whose ring took the TMA route (``bwd_tma_route``)."""
+    _bwd_check(x, dt, bm, cm, a, h0, dy, dh_last)
+    tma = bwd_tma_route(x, dt, bm, cm, dy)
+    out = _bwd_launch(x, dt, bm, cm, a, h0, dy, dh_last, tma=tma)
+    selective_scan_bwd_kernel.launches += 1
+    selective_scan_bwd_kernel.tma_launches += int(tma)
+    return out
+
+
 selective_scan_bwd_kernel.launches = 0
+selective_scan_bwd_kernel.tma_launches = 0

@@ -130,3 +130,81 @@ def selective_scan_parts_ref(x: torch.Tensor, dt: torch.Tensor,
     if not ys:
         return x.new_zeros(x.shape), h
     return torch.stack(ys, dim=1), h
+
+
+# channels a block of either kernel (``kChan``): one a lane
+CHANNELS = 32
+
+
+def _seq_sum(v: torch.Tensor) -> torch.Tensor:
+    """The last axis summed in increasing index, one add at a time."""
+    s = v[..., 0]
+    for j in range(1, v.shape[-1]):
+        s = s + v[..., j]
+    return s
+
+
+def _block_sum(v: torch.Tensor, chan: int) -> torch.Tensor:
+    """v (B, Di, P) summed over Di as the backward kernel sums dB and dC:
+    each block's ``chan`` channels (zeros past Di) folded by
+    ``part_tree_ref``, then the blocks' sums in block order.  (B, P)."""
+    B, Di, P = v.shape
+    blocks = -(-Di // chan)
+    v = torch.nn.functional.pad(v, (0, 0, 0, blocks * chan - Di))
+    v = v.reshape(B, blocks, chan, P).transpose(2, 3)    # (B, blk, P, chan)
+    return _seq_sum(part_tree_ref(v).transpose(1, 2))
+
+
+def selective_scan_bwd_parts_ref(x: torch.Tensor, dt: torch.Tensor,
+                                 bm: torch.Tensor, cm: torch.Tensor,
+                                 a: torch.Tensor, h0: torch.Tensor,
+                                 dy: torch.Tensor,
+                                 dh_last: Optional[torch.Tensor] = None,
+                                 parts: int = PARTS, chan: int = CHANNELS
+                                 ) -> Tuple[torch.Tensor, ...]:
+    """The backward CUDA kernel's order of operations in float32, for the
+    CPU tests (same contract as ``selective_scan_bwd_ref``).  The states
+    are recomputed with the forward kernel's decay, exp2(dt * fl32(A
+    log2 e)), and split into ``parts`` parts of ``states_per_part``
+    (zero-padded past N).  A step's u and sum_n q A are summed over a
+    part's states in increasing n; each part's dx (its u times dt) and
+    ddt (its u times x plus its sum of q A) are folded over the parts by
+    ``part_tree_ref``.  dB and dC are each block's ``chan`` channels
+    folded by ``part_tree_ref``, then the blocks in block order
+    (``_block_sum``); dA is summed over time in reverse within a batch
+    row, then over the rows in row order."""
+    x, dt, bm, cm, a, dy = (t.float() for t in (x, dt, bm, cm, a, dy))
+    B, S, Di = x.shape
+    N = a.shape[-1]
+    npl = states_per_part(N, parts)
+    pad = (0, parts * npl - N)
+    a = torch.nn.functional.pad(a, pad)
+    a2 = a * torch.tensor(LOG2E, dtype=torch.float32)
+    bm, cm = (torch.nn.functional.pad(t, pad) for t in (bm, cm))
+    h = torch.nn.functional.pad(h0.float(), pad)
+    hs, es = [h], []
+    for t in range(S):
+        e = torch.exp2(dt[:, t, :, None] * a2)               # (B, Di, P)
+        h = e * h + (dt[:, t] * x[:, t])[..., None] * bm[:, t, None, :]
+        es.append(e)
+        hs.append(h)
+    r = (torch.nn.functional.pad(dh_last.float(), pad)
+         if dh_last is not None else torch.zeros_like(h))
+    dx, ddt = torch.zeros_like(x), torch.zeros_like(x)
+    dbm = torch.zeros(B, S, N, dtype=torch.float32, device=x.device)
+    dcm = torch.zeros_like(dbm)
+    da = torch.zeros_like(h)                                  # (B, Di, P)
+    for t in reversed(range(S)):
+        g = cm[:, t, None, :] * dy[:, t, :, None] + r
+        r = es[t] * g
+        q = hs[t] * r                           # g h_{t-1} e = h_{t-1} r_{t-1}
+        da = da + q * dt[:, t, :, None]
+        u = _seq_sum((g * bm[:, t, None, :]).reshape(B, Di, parts, npl))
+        s2 = _seq_sum((q * a).reshape(B, Di, parts, npl))
+        dx[:, t] = part_tree_ref(u * dt[:, t, :, None])
+        ddt[:, t] = part_tree_ref(u * x[:, t, :, None] + s2)
+        dxv = (dt[:, t] * x[:, t])[..., None]
+        dbm[:, t] = _block_sum(g * dxv, chan)[..., :N]
+        dcm[:, t] = _block_sum(dy[:, t, :, None] * hs[t + 1], chan)[..., :N]
+    dA = _seq_sum(da.permute(1, 2, 0))[..., :N]
+    return dx, ddt, dbm, dcm, dA.contiguous(), r[..., :N].contiguous()

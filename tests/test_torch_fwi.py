@@ -22,8 +22,12 @@ Within the port: the facade (saves every 2 iterations), a fail-stop and
 local scope are bit-equal to the uninterrupted run, shard states remap
 across widths (the cases of ``tests/test_fwi.py``), a checkpoint the
 reference wrote restores into the port and continues, and the case study
-runs as a module."""
+runs as a module, its facade with termination-signal detection on as the
+reference's.  The shot positions agree with the reference's at every size
+the repository runs; one known departure (nx 73, 32 shots) is pinned."""
 import os
+import signal
+import time
 
 import jax
 import numpy as np
@@ -291,6 +295,43 @@ def test_reference_checkpoint_restores_into_port(tmp_path, observed, ref_run,
     np.testing.assert_allclose([h["loss"] for h in hist], ref_run[1][4:],
                                rtol=1e-4)
     assert np.abs(st["params"]["c"].numpy() - ref_run[0]).max() <= 1.0
+
+
+def test_shot_positions_depart_from_the_reference_at_nx_73_with_32_shots():
+    """A known departure: the port's exact 5 + 2 k (62 // 31 = 2), where
+    the reference's float32 linspace truncates shots 7 to 30 one column
+    lower.  Every size the repository runs agrees (the test above)."""
+    sx, _ = fwi.shot_positions(fwi.FWIConfig(nx=73, n_shots=32))
+    assert sx.tolist() == [5 + 2 * k for k in range(32)]
+    rsx = np.asarray(ref.shot_positions(
+        ref.FWIConfig(nx=73, n_shots=32))[0]).tolist()
+    assert rsx != sx.tolist()
+    assert [k for k in range(32) if rsx[k] != sx[k]] == list(range(7, 31))
+    assert all(rsx[k] == sx[k] - 1 for k in range(7, 31))
+
+
+def test_protect_detects_termination_signals_as_the_reference(tmp_path):
+    """The case study's facade runs with signal detection on, as the
+    reference's case study and overhead benchmark do: its handler is
+    installed while the facade runs (a SIGUSR1 is latched, not fatal)
+    and the previous handlers come back after ``stop``."""
+    sigs = (signal.SIGTERM, signal.SIGUSR1)
+    before = {s: signal.getsignal(s) for s in sigs}
+    dep = fwi_case_study.protect(str(tmp_path))
+    try:
+        assert dep.config.signal_detection and dep.signals is not None
+        for s in sigs:
+            assert signal.getsignal(s) == dep.signals._handler
+        os.kill(os.getpid(), signal.SIGUSR1)
+        for _ in range(200):
+            if dep.signals.triggered():
+                break
+            time.sleep(0.01)
+        assert dep.signals.received == signal.SIGUSR1
+    finally:
+        dep.stop()
+    for s, handler in before.items():
+        assert signal.getsignal(s) == handler
 
 
 def test_case_study_module_runs(capsys):

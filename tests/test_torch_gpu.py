@@ -23,9 +23,10 @@ ring's tile, and bit for bit across the routes, on a repeated call and
 across a scan split in two through h_last; the tiny Mamba engine on the
 card gives the CPU's greedy streams.  The scan's backward kernel is held
 to the plain reverse scan (``ref.selective_scan_bwd_ref``) within 1e-4
-of each gradient's largest magnitude, around its 32-step chunks, ragged
-Di and N, B and C read in place, bit for bit on a repeated call; tiny
-falcon-mamba trains on the card as on the CPU.  Paged
+of each gradient's largest magnitude, around its 8-step tiles, ragged
+Di and N, B and C read in place, on each route (TMA and 4-byte copies,
+with the route's counter), bit for bit on a repeated call and across
+the routes; tiny falcon-mamba trains on the card as on the CPU.  Paged
 decode attention is also held bit for bit across the table's width, the
 batch, the row index, the page ids and NaN in every dead position, and
 the RMSNorm forward's first rows across row counts.
@@ -1051,6 +1052,55 @@ def test_selective_scan_bwd_repeats_bit_for_bit(cuda):
     first = selective_scan_bwd_kernel(*args)
     second = selective_scan_bwd_kernel(*args)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# (B, S, Di, N, carried, strided): S around the backward's 8-step tiles
+# (1, 7, 9, 65), Di off the block's 32 channels (33, 100, 4100), one, two
+# and four states a thread (N 1, 4, 5, 8, 15, 16), a carried state over
+# three batch rows
+BWD_EDGES = [(1, 1, 64, 16, True, False), (2, 7, 96, 16, False, True),
+             (3, 9, 33, 5, True, False), (3, 65, 100, 4, True, True),
+             (1, 77, 4100, 15, True, True), (2, 64, 64, 1, False, False),
+             (3, 40, 256, 8, True, True), (2, 130, 4096, 16, True, True)]
+
+
+@pytest.mark.parametrize("B,S,Di,N,carried,strided", BWD_EDGES)
+def test_selective_scan_bwd_routes_match_plain_and_each_other(
+        cuda, B, S, Di, N, carried, strided):
+    """Each route the operands allow (TMA boxes where Di % 4 == 0 and B,
+    C are 16-byte aligned, 4-byte copies always) against the plain
+    reverse scan, two launches of each bit-equal, and the routes
+    bit-equal to each other; the wrapper takes the route its rule
+    picks and counts it."""
+    rng = np.random.default_rng(B * 7 + S * 5 + Di + N)
+    args = _scan_bwd_args(rng, B, S, Di, N, cuda, carried, strided)
+    want = selective_scan_bwd_ref(*args)
+    tma_ok = scan_kernel.bwd_tma_route(*args[:4], args[6])
+    outs = []
+    for tma in ((True, False) if tma_ok else (False,)):
+        got = scan_kernel._bwd_launch(*args, tma=tma)
+        again = scan_kernel._bwd_launch(*args, tma=tma)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, h) for g, h in zip(got, again)), tma
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.is_contiguous()
+            _close_grad(g, w, 1e-4)
+        outs.append(got)
+    if len(outs) == 2:
+        assert all(torch.equal(g, h) for g, h in zip(*outs))
+    before = (selective_scan_bwd_kernel.launches,
+              selective_scan_bwd_kernel.tma_launches)
+    got = selective_scan_bwd_kernel(*args)
+    assert selective_scan_bwd_kernel.launches == before[0] + 1
+    assert selective_scan_bwd_kernel.tma_launches == before[1] + int(tma_ok)
+    assert all(torch.equal(g, h) for g, h in zip(got, outs[0]))
+
+
+def test_selective_scan_bwd_refuses_a_tma_launch_it_cannot_take(cuda):
+    rng = np.random.default_rng(14)
+    args = _scan_bwd_args(rng, 1, 8, 33, 4, cuda, False)
+    with pytest.raises(RuntimeError, match="selective_scan_bwd"):
+        scan_kernel._bwd_launch(*args, tma=True)
 
 
 def test_selective_scan_bwd_refuses_what_it_cannot_take(cuda):
