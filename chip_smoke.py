@@ -28,7 +28,17 @@ ends the run with a non-zero exit code and no result line:
                  run and must match the path afterwards; both runs must
                  serve every request, the streams must be identical, the
                  page accounting must hold and the decode sentinel must
-                 stay quiet;
+                 stay quiet; then ``serve-predrain`` (after ``steps``): the
+                 same engine with an ``Observability``, an
+                 ``AnomalyEngine`` (step-time drift: factor 2, 3 in a row,
+                 3 warm-up steps) as its ``risk_source`` and a pre-drain
+                 threshold of 0.8, replica 1 sleeping at engine steps 3-14
+                 (sized from the fault-free run's step timings) and killed
+                 at step 16: exactly one pre-drain, of replica 1, the kill
+                 never fired, nothing dropped, streams token-identical to
+                 the fault-free run, detect-before-act green, launches
+                 held to the path; the precursor-to-pre-drain time and the
+                 timeline printed;
 6. ``steps``   — one decode step and one prefill at the serve phase's
                  shapes, eager (as the engine runs them) against their
                  device time alone (captured in a CUDA graph), and the
@@ -63,6 +73,18 @@ ends the run with a non-zero exit code and no result line:
                  state (k blocks of one leaf changed on the card) gives a
                  delta save of exactly k dirty blocks whose restore
                  through the chain is bit-equal to a full save's;
+10b. ``train-obs`` — granite-3-8b at full width (4 layers) as train-sdc
+                 runs it, with the telemetry plane: an ``Observability``
+                 with a JSONL sink, the ``risk_adjusted`` policy, an
+                 ``AnomalyEngine`` on the bus and the proactive hook;
+                 straggles at steps 5-7 (5 warm steps each), a bit-flip at
+                 step 10: a precursor for host 0, a forced save before the
+                 flip with the policy's interval contracted, one incident
+                 (corruption -> restore -> resume) with its MTTR, the JSONL
+                 log equal to the ring, the bundle's four files parsed, the
+                 log's scenario valid, launches held to the path, and the
+                 instrumentation's host time under 2 % of the step's eager
+                 ms;
 11. ``train-abft`` — granite-3-8b at full width, 2 layers, S = 2048, one
                  sequence: 3 steps with ``impl="abft"`` against 3 plain
                  steps from the same state (losses within bf16
@@ -140,7 +162,8 @@ timed beside the harness's latency floor (a one-element ``zero_``); both
 also without programmatic dependent launch.
 
 Then the kernels summary (one JSON object, launches by path: serve,
-train, sdc, abft, serve_ssm, fwi, train_ssm), the ``nvidia-smi`` line,
+train, sdc, abft, serve_ssm, fwi, train_ssm, train_obs, serve_predrain),
+the ``nvidia-smi`` line,
 and the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -1300,11 +1323,15 @@ def _prompts(vocab: int, seed: int, lens):
 
 
 def _serve(cfg, params, prompts, gen_len, device, *, kill=False,
-           replicas=2, max_len=MAX_LEN, slots=4, max_active=MAX_ACTIVE):
+           replicas=2, max_len=MAX_LEN, slots=4, max_active=MAX_ACTIVE,
+           injector=None, **telemetry):
+    """One engine run over ``prompts``; ``kill`` schedules the replica
+    kill at ``KILL_STEP``, or ``injector`` brings its own schedule;
+    ``telemetry`` (``obs``, ``risk_source``, ``pre_drain_threshold``)
+    goes to the engine as it is."""
     from repro_torch.core import FaultInjector
     from repro_torch.serve import ServeEngine
 
-    injector = None
     if kill:
         injector = FaultInjector()
         injector.schedule_replica_kill(KILL_STEP, replica_id=replicas - 1)
@@ -1313,7 +1340,7 @@ def _serve(cfg, params, prompts, gen_len, device, *, kill=False,
                       max_active=max_active, page_size=PAGE_SIZE,
                       fault_tolerant=True, heartbeat_period=0.1,
                       heartbeat_timeout_factor=10.0,
-                      fault_injector=injector)
+                      fault_injector=injector, **telemetry)
     try:
         rids = [eng.submit(p, gen_len) for p in prompts]
         t0 = time.perf_counter()
@@ -1341,6 +1368,10 @@ def _serve(cfg, params, prompts, gen_len, device, *, kill=False,
         failures = [e for e in eng.events if e["event"] == "replica_failed"]
         lat = eng.request_latencies()
         return {
+            "rids": rids, "scheduler": eng.scheduler,
+            "hosts": {rep.id: list(rep.hosts) for rep in reps},
+            "predrained": [e for e in eng.events
+                           if e["event"] == "replica_predrained"],
             "streams": [results.get(r) for r in rids],
             "dropped": len(eng.scheduler.failed_rids),
             "retried": len(eng.scheduler.retried_rids),
@@ -1413,6 +1444,7 @@ def _counters():
 
 def phase_serve(seed: int):
     from repro_torch.models import get_config, init_params
+    from repro_torch.obs import Observability
 
     cfg = get_config("granite-3-8b")
     t0 = time.perf_counter()
@@ -1425,10 +1457,17 @@ def phase_serve(seed: int):
                          "selective_scan")}
     L = cfg.num_layers
     runs = {}
+    # the fault-free run times each replica's engine steps (an empty risk
+    # source: the engine emits telemetry/replica_step and drains nothing)
+    # to size the serve-predrain run's latency spikes
+    timing = Observability()
     for label, kill in (("fault_free", False), ("replica_kill", True)):
         for fn in counters.values():
             fn.launches = 0
-        res = _serve(cfg, params, prompts, GEN, "cuda", kill=kill)
+        telemetry = ({} if kill else
+                     {"obs": timing, "risk_source": lambda: {}})
+        res = _serve(cfg, params, prompts, GEN, "cuda", kill=kill,
+                     **telemetry)
         launches = {k: fn.launches for k, fn in counters.items()}
         want = {"rmsnorm": (2 * L + 1) * (res["prefills"]
                                           + res["decode_calls"]),
@@ -1478,7 +1517,124 @@ def phase_serve(seed: int):
                              f"the uninterrupted run for requests {diff}")
     emit({"phase": "serve", "token_identical_after_kill": True})
     phase_steps(cfg, params, seed)
-    return runs["fault_free"][1]
+    predrain = phase_serve_predrain(cfg, params, prompts, a,
+                                    timing.events("telemetry",
+                                                  "replica_step"),
+                                    counters)
+    return runs["fault_free"][1], predrain
+
+
+PREDRAIN_SPIKES = range(3, 15)     # engine steps replica 1 sleeps at
+PREDRAIN_KILL = 16                 # its kill, which must never fire
+
+
+def phase_serve_predrain(cfg, params, prompts, fault_free, timed,
+                         counters):
+    """The serving plane's telemetry path: ``serve-predrain``.  The serve
+    phase's engine with an ``Observability``, an ``AnomalyEngine`` whose
+    step-time drift detector watches the engine's per-replica step
+    timings, ``risk_source=anomaly.risk_scores`` and a pre-drain
+    threshold of 0.8.  Replica 1 sleeps at engine steps 3-14 and is
+    killed at step 16: the detector must turn the sleeps into a
+    precursor, the engine must pre-drain replica 1 before the kill, and
+    the kill never fires.  The sleep is sized from replica 1's engine
+    steps in the fault-free run (``timed``, its telemetry/replica_step
+    events): at least 5 of its decode steps (the median past the
+    admissions), and 8 times the baseline the detector builds over its
+    first 3 steps (prefills included).  A drifted step scores 0.8 once it
+    exceeds 3.2 times the baseline, so the run tolerates a warm-up up to
+    2.5 times slower than the fault-free run's (the host-bound first
+    steps vary from run to run: 1.2 times between two runs of one
+    tree)."""
+    from repro_torch.chaos import (check_detect_before_act,
+                                   check_token_identical, check_zero_drop,
+                                   verify)
+    from repro_torch.core import FaultInjector
+    from repro_torch.obs import (AnomalyEngine, Observability,
+                                 StepTimeDriftDetector)
+
+    ones = [e.data["seconds"] for e in timed if e.data["replica"] == 1]
+    decode_s = statistics.median(ones[3:])
+    probe = StepTimeDriftDetector(factor=2.0, consecutive=3, warmup=3)
+    for e in [e for e in timed if e.data["replica"] == 1][:3]:
+        probe.observe(0, e)
+    baseline_s = probe._mean[1]
+    spike = max(5 * decode_s, 8 * baseline_s)
+    injector = FaultInjector()
+    for step in PREDRAIN_SPIKES:
+        injector.schedule_latency_spike(step, spike, replica_id=1)
+    injector.schedule_replica_kill(PREDRAIN_KILL, replica_id=1)
+    obs = Observability()
+    anomaly = AnomalyEngine(detectors=[StepTimeDriftDetector(
+        factor=2.0, consecutive=3, warmup=3)])
+    anomaly.attach(obs.bus)
+    for fn in counters.values():
+        fn.launches = 0
+    res = _serve(cfg, params, prompts, GEN, "cuda", injector=injector,
+                 obs=obs, risk_source=anomaly.risk_scores,
+                 pre_drain_threshold=0.8)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    L = cfg.num_layers
+    want = {"rmsnorm": (2 * L + 1) * (res["prefills"] + res["decode_calls"]),
+            "flash_attention": L * res["prefills"],
+            "paged_attention": L * res["decode_calls"],
+            "selective_scan": 0}
+    if launches != want or min(v for k, v in launches.items()
+                               if want[k]) <= 0:
+        raise AssertionError(f"serve-predrain: launches {launches}, the "
+                             f"path implies {want}")
+    pre = res["predrained"]
+    if [e["replica"] for e in pre] != [1]:
+        steps_ms = [(e.data["replica"], round(e.data["seconds"] * 1e3, 1))
+                    for e in obs.events("telemetry", "replica_step")]
+        raise AssertionError(
+            f"serve-predrain: pre-drains {pre}, want exactly one, of "
+            f"replica 1; spike {spike:.3f} s, fault-free replica 1 steps "
+            f"{[round(t * 1e3, 1) for t in ones[:8]]} ms, baseline "
+            f"{baseline_s * 1e3:.1f} ms; this run's steps {steps_ms[:24]};"
+            f" precursors {[e.data for e in obs.events('precursor')]}; "
+            f"risk {anomaly.risk_scores()}")
+    if res["failures"] or injector.replica_kills:
+        raise AssertionError(f"serve-predrain: failures {res['failures']},"
+                             f" kills {injector.replica_kills}: the decode "
+                             "sentinel tripped or the kill fired")
+    verify([check_zero_drop(res["scheduler"], res["rids"]),
+            check_token_identical(dict(zip(res["rids"], res["streams"])),
+                                  dict(zip(res["rids"],
+                                           fault_free["streams"]))),
+            check_detect_before_act(obs.events())])
+    if res["dropped"]:
+        raise AssertionError(f"serve-predrain: dropped {res['dropped']}")
+    precursors = obs.events(subsystem="precursor")
+    victim = res["hosts"][1][0]
+    if not precursors or precursors[0].data["host"] != victim:
+        raise AssertionError(f"serve-predrain: first precursor "
+                             f"{precursors[:1]}, replica 1 is host "
+                             f"{victim}")
+    t_pre = obs.events("serve", "replica_predrained")[0].t_mono
+    step_s = [e.data["seconds"] for e in
+              obs.events("telemetry", "replica_step")]
+    emit({"phase": "serve-predrain", "arch": cfg.name, "layers": L,
+          "replicas": 2, "requests": len(prompts), "gen": GEN,
+          "spike_steps": [PREDRAIN_SPIKES.start, PREDRAIN_SPIKES.stop - 1],
+          "spike_s": spike, "decode_step_ms": decode_s * 1e3,
+          "baseline_ms": baseline_s * 1e3,
+          "fault_free_replica1_steps_ms": [t * 1e3 for t in ones[:6]],
+          "replica1_steps_ms": [e.data["seconds"] * 1e3 for e in
+                                obs.events("telemetry", "replica_step")
+                                if e.data["replica"] == 1],
+          "kill_step": PREDRAIN_KILL, "predrained": pre,
+          "predrain_step": pre[0]["step"],
+          "steps_ahead_of_kill": PREDRAIN_KILL - pre[0]["step"],
+          "precursors": [(e.data["host"], e.data["score"], e.data["risk"])
+                         for e in precursors],
+          "precursor_to_predrain_ms": (t_pre - precursors[0].t_mono) * 1e3,
+          "replica_steps": len(step_s),
+          "retried": res["retried"], "dropped": res["dropped"],
+          "token_identical": True, "detect_before_act": True,
+          "entropy_ema": res["entropy_ema"], "wall_s": res["wall"],
+          "timeline": obs.snapshot()["timeline"], "launches": launches})
+    return launches
 
 
 def phase_steps(cfg, params, seed: int, calls: int = 10,
@@ -1722,24 +1878,33 @@ def _ckpt_root() -> Path:
 
 
 def _protected_run(state, data, step_fn, ckpt_dir, *, steps, fail_at=None,
-                   bitflip=None, **config):
+                   bitflip=None, straggles=(), obs=None, proactive=None,
+                   **config):
     """``run_with_recovery`` through the facade with a fail-stop at
-    ``fail_at`` or a scheduled ``bitflip`` (step, leaf, bit); returns
-    (state, info, facade, train-step calls, the metrics of every step of
-    every attempt, in order)."""
+    ``fail_at`` or a scheduled ``bitflip`` (step, leaf, bit), and
+    ``straggles`` ((step, extra seconds), ...); ``obs`` is attached to the
+    facade and the injector, and ``proactive(dep)`` builds the loop's
+    proactive hook.  Saves every ``TRAIN_EVERY`` steps unless ``config``
+    names another policy.  Returns (state, info, facade, train-step
+    calls, the metrics of every step of every attempt, in order)."""
     from repro_torch.core import (Dependability, DependabilityConfig,
                                   FaultInjector, run_with_recovery)
 
+    config = {"policy_mode": "every_n", "every_n": TRAIN_EVERY, **config}
     dep = Dependability(DependabilityConfig(
-        checkpoint_dir=ckpt_dir, policy_mode="every_n",
-        every_n=TRAIN_EVERY, signal_detection=False, **config)).start()
+        checkpoint_dir=ckpt_dir, signal_detection=False, **config))
+    if obs is not None:
+        dep.attach_obs(obs)
+    dep.start()
     dep.register_local_state(data)
     dep.register_global_state(state)
-    injector = FaultInjector()
+    injector = FaultInjector(obs=obs)
     if fail_at is not None:
         injector.schedule_failstop(fail_at)
     if bitflip is not None:
         injector.schedule_bitflip(*bitflip)
+    for step, extra in straggles:
+        injector.schedule_straggle(step, extra)
     calls = [0]
     metrics = []
 
@@ -1750,7 +1915,8 @@ def _protected_run(state, data, step_fn, ckpt_dir, *, steps, fail_at=None,
     try:
         out, info = run_with_recovery(
             dep, counted, state, data, steps, fault_injector=injector,
-            on_metrics=lambda step, rec: metrics.append(rec))
+            on_metrics=lambda step, rec: metrics.append(rec),
+            proactive=proactive(dep) if proactive is not None else None)
         torch.cuda.synchronize()
     finally:
         dep.stop()
@@ -2009,6 +2175,28 @@ def _manifest_counts(ckpt_dir, step):
                 "delta" in sh and dt in ("float32", "bfloat16"))))
 
 
+def _sdc_launches(ckpt_dir, info, dep, calls, detections, n_leaves, L):
+    """Launches a protected run with delta saves, the int8 device codec
+    and the scrubber over every leaf implies: one grouped block_hash a
+    scrub record (each completed step), a save, and a verification of a
+    recorded window (at the top of every superstep but the first of each
+    attempt, and where it tripped); a quantize a device-encoded shard
+    saved, a dequantize a leaf the restore decodes.  Returns (launches,
+    restored step, scrub records, scrub verifications)."""
+    saves = dep.save_history
+    restored = [int(h["step"]) for h in info["history"]
+                if "loss" in h][0] - 1
+    quant = sum(_manifest_counts(ckpt_dir, st.step)[0] for st in saves)
+    decoded = _manifest_counts(ckpt_dir, restored)[1]
+    records = dep.scrubber.leaves_scrubbed // n_leaves
+    verifies = calls - (info["restarts"] + 1) + detections
+    want = {**_train_launches(L, TRAIN_MICRO, calls),
+            "paged_attention": 0, "abft_matmul": 0,
+            "ckpt_quantize": quant, "ckpt_dequantize": decoded,
+            "block_hash": records + verifies + len(saves)}
+    return want, restored, records, verifies
+
+
 def phase_train_sdc(seed: int):
     """granite-3-8b at full width (TRAIN_LAYERS layers) through the facade
     with delta saves and the device codec, the scrubber over every leaf,
@@ -2052,20 +2240,8 @@ def phase_train_sdc(seed: int):
                                  f"{info['restarts']} restarts, ended at "
                                  f"step {int(out['step'])}")
         saves = dep.save_history
-        restored = [int(h["step"]) for h in info["history"]
-                    if "loss" in h][0] - 1
-        quant = sum(_manifest_counts(tmp, st.step)[0] for st in saves)
-        decoded = _manifest_counts(tmp, restored)[1]
-        scrub = dep.scrubber
-        # one grouped launch a scrub record (each completed step), a save,
-        # and a verification of a recorded window: at the top of every
-        # superstep but the first of each attempt, and where it tripped
-        records = scrub.leaves_scrubbed // n_leaves
-        verifies = calls - (info["restarts"] + 1) + len(events)
-        want = {**_train_launches(L, TRAIN_MICRO, calls),
-                "paged_attention": 0, "abft_matmul": 0,
-                "ckpt_quantize": quant, "ckpt_dequantize": decoded,
-                "block_hash": records + verifies + len(saves)}
+        want, restored, records, verifies = _sdc_launches(
+            tmp, info, dep, calls, len(events), n_leaves, L)
         if launches != want or min(launches[k] for k in want
                                    if want[k]) <= 0:
             raise AssertionError(f"SDC run: launches {launches}, the path "
@@ -2150,6 +2326,217 @@ def phase_train_sdc(seed: int):
               "restore_bit_equal": True,
               "checksum_all_leaves_ms": checksum_ms})
         del got, want_state, frozen, tok, named
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return launches
+
+
+OBS_STEPS = 12
+OBS_STRAGGLES = (5, 6, 7)  # straggled steps: the drift detector's input
+OBS_FLIP_STEP = 10         # after the proactive save the straggles force
+# a straggled step sleeps this many warm steps: the drift detector's
+# baseline (steps 1-3) runs beside the async write of step 1's full save
+# (1.07 and 1.36 warm steps in two runs on an H100), and a straggled
+# step must pass twice it
+OBS_STRAGGLE = 5
+OBS_BUDGET = 0.02          # instrumentation's host share of a step
+
+
+def _prom_ok(text: str) -> bool:
+    """Every sample line of a Prometheus text exposition is ``name value``
+    with a float value."""
+    lines = [ln for ln in text.splitlines() if ln and not ln.startswith("#")]
+    return bool(lines) and all(
+        math.isfinite(float(ln.rsplit(" ", 1)[1])) for ln in lines)
+
+
+def phase_train_obs(seed: int):
+    """The training plane's telemetry path: ``train-obs``.  granite-3-8b
+    at full width (TRAIN_LAYERS layers) through the facade with an
+    ``Observability`` (a JSONL sink under the phase's directory), the
+    train-sdc phase's delta saves, int8 device codec and scrubber, the
+    ``risk_adjusted`` policy, an ``AnomalyEngine`` on the bus and
+    ``make_proactive_hook(..., policy=dep.policy)`` as the loop's
+    proactive hook.  Steps ``OBS_STRAGGLES`` straggle (``OBS_STRAGGLE``
+    times the warm step's eager ms each), a bit-flip strikes an exponent bit of
+    ``SDC_LEAF`` at step ``OBS_FLIP_STEP``: the drift detector names host
+    0, the hook forces a save before the flip, the policy's interval
+    contracts, the scrubber names the leaf, one incident opens at the
+    corruption and closes at the resume, detect-before-act holds, the
+    JSONL log equals the ring, the bundle parses and the log converts to
+    a valid scenario; the instrumentation's host time (the facade's and
+    the loop's emits and metric updates, the detectors inside them, the
+    hook) stays under ``OBS_BUDGET`` of a step's eager ms."""
+    import copy
+
+    from repro_torch.chaos import check_detect_before_act
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import get_config
+    from repro_torch.obs import (AnomalyEngine, Observability, load_jsonl,
+                                 make_proactive_hook)
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.train.step import metrics_to_host
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"),
+                              num_layers=TRAIN_LAYERS)
+    L = cfg.num_layers
+    tmp = tempfile.mkdtemp(dir=_ckpt_root())
+    ckpt = os.path.join(tmp, "ckpt")
+    tele = os.path.join(tmp, "telemetry")
+    try:
+        state = init_state(cfg, seed=seed, device="cuda")
+        n_leaves = len(leaves(state))
+        step_fn = make_train_step(cfg, microbatches=TRAIN_MICRO,
+                                  total_steps=OBS_STEPS)
+        data = make_pipeline(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=seed)
+        # warm the step: the drift detector's baseline is a real step,
+        # and the straggles and the budget are sized from its eager ms
+        batch = data.peek_batch(0)
+        metrics_to_host(step_fn(state, batch)[1])
+        t0 = time.perf_counter()
+        metrics_to_host(step_fn(state, batch)[1])
+        eager_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+
+        obs = Observability(jsonl_path=os.path.join(tele, "events.jsonl"))
+        anomaly = AnomalyEngine()
+        anomaly.attach(obs.bus)
+        forced = []
+
+        def proactive(dep):
+            hook = make_proactive_hook(anomaly.risk_scores,
+                                       policy=dep.policy)
+
+            def polled(step):
+                why = hook(step)
+                if why is not None:
+                    yd = copy.copy(dep.policy)
+                    yd.mode = "young_daly"
+                    forced.append({"step": step, "reason": why,
+                                   "risk": dep.policy.risk,
+                                   "interval": dep.policy.interval_steps(),
+                                   "young_daly_interval":
+                                       yd.interval_steps()})
+                return why
+            return polled
+
+        counters = _counters()
+        for fn in counters.values():
+            fn.launches = 0
+        flip = (OBS_FLIP_STEP, SDC_LEAF, 30)
+        t0 = time.perf_counter()
+        out, info, dep, calls, metrics = _protected_run(
+            state, data, step_fn, ckpt, steps=OBS_STEPS, bitflip=flip,
+            straggles=[(s, OBS_STRAGGLE * eager_s) for s in OBS_STRAGGLES],
+            obs=obs,
+            proactive=proactive, policy_mode="risk_adjusted",
+            **_sdc_config(device_codec=True, async_save=True))
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        events = [h["event"] for h in info["history"] if "event" in h]
+        if events != [f"corruption:scrub:{SDC_LEAF}"] or \
+                info["restarts"] != 1 or int(out["step"]) != OBS_STEPS:
+            raise AssertionError(f"train-obs: events {events}, "
+                                 f"{info['restarts']} restarts, ended at "
+                                 f"step {int(out['step'])}")
+        want, restored, _, _ = _sdc_launches(ckpt, info, dep, calls,
+                                             len(events), n_leaves, L)
+        if launches != want or min(launches[k] for k in want
+                                   if want[k]) <= 0:
+            raise AssertionError(f"train-obs: launches {launches}, the "
+                                 f"path implies {want}")
+
+        # detect -> act: precursors for host 0, a forced save before the
+        # flip's detection, the risk feeding the policy
+        precursors = obs.events(subsystem="precursor")
+        pro = obs.events("checkpoint", "proactive")
+        sdc = obs.events("sdc", "corruption")
+        if not precursors or any(e.data["host"] != 0 for e in precursors):
+            raise AssertionError(f"train-obs: precursors {precursors}")
+        if (len(pro) != 1 or len(forced) != 1 or len(sdc) != 1
+                or not pro[0].data["step"] < OBS_FLIP_STEP
+                or not pro[0].t_mono < sdc[0].t_mono):
+            raise AssertionError(f"train-obs: proactive saves {pro}, "
+                                 f"corruption {sdc}")
+        f = forced[0]
+        if not (f["risk"] > 0 and f["interval"] < f["young_daly_interval"]):
+            raise AssertionError(f"train-obs: the policy at the forced "
+                                 f"save: {f}")
+        if restored != f["step"]:
+            raise AssertionError(f"train-obs: restored step {restored}, "
+                                 f"the forced save was at {f['step']}")
+        verdict = check_detect_before_act(obs.events())
+        if not verdict:
+            raise AssertionError(f"train-obs: {verdict.detail}")
+
+        # the incident: sdc/corruption -> checkpoint/restore -> resume
+        tl = obs.timeline()
+        inc = tl.incidents
+        if (len(inc) != 1 or not inc[0].closed
+                or inc[0].cause != "sdc.corruption"
+                or inc[0].resume_kind != "train.resume"
+                or "checkpoint.restore" not in
+                [k for _, k in inc[0].phase_offsets_ms()]):
+            raise AssertionError(f"train-obs: incidents "
+                                 f"{[i.to_dict() for i in inc]}")
+        restore = obs.events("checkpoint", "restore")[0].data["restore_s"]
+
+        # record and replay: the sink equals the ring, the bundle parses,
+        # the log converts to a valid scenario
+        obs.bus.flush()
+        ring = obs.events()
+        if load_jsonl(os.path.join(tele, "events.jsonl")) != ring:
+            raise AssertionError("train-obs: the JSONL log differs from "
+                                 "the ring")
+        paths = obs.dump(os.path.join(tmp, "bundle"))
+        if len(load_jsonl(paths["events"])) != len(ring):
+            raise AssertionError(f"train-obs: bundle events {paths}")
+        for key in ("trace", "metrics_json"):
+            with open(paths[key]) as fh:
+                json.load(fh)
+        with open(paths["metrics_prom"]) as fh:
+            if not _prom_ok(fh.read()):
+                raise AssertionError("train-obs: metrics.prom")
+        scenario = obs.to_scenario().validate()
+
+        host_per_step = obs.host_seconds / calls
+        share = host_per_step / eager_s
+        if not share < OBS_BUDGET:
+            raise AssertionError(f"train-obs: instrumentation "
+                                 f"{host_per_step * 1e3:.3f} ms a step, "
+                                 f"{share:.2%} of the {eager_s * 1e3:.1f} "
+                                 f"ms step")
+        summary = tl.summary()
+        emit({"phase": "train-obs", "arch": cfg.name, "layers": L,
+              "steps": OBS_STEPS, "straggles": list(OBS_STRAGGLES),
+              "straggle_s": OBS_STRAGGLE * eager_s, "bitflip": list(flip),
+              "status": info["status"], "restarts": info["restarts"],
+              "events": events, "train_step_calls": calls,
+              "losses_finite": True,
+              "steps_losses": [(m["step"], m["loss"]) for m in metrics],
+              "precursors": [(e.data["host"], e.data["score"],
+                              e.data["risk"]) for e in precursors],
+              "proactive_save": f,
+              "saves": [(st.step, st.kind) for st in dep.save_history],
+              "restored_step": restored,
+              "incident": inc[0].to_dict(),
+              "mttr_s": summary["mttr_s"],
+              "availability": summary["availability"],
+              "span_s": summary["span_s"], "restore_s": restore,
+              "observed_R_s": dep.policy.system.restart_seconds,
+              "detect_before_act": verdict.detail,
+              "events_logged": len(ring),
+              "events_per_step": len(ring) / calls,
+              "jsonl_equals_ring": True,
+              "bundle": sorted(os.path.basename(v) for v in paths.values()),
+              "scenario": scenario.to_dict(),
+              "step_eager_ms": eager_s * 1e3, "wall_s": wall,
+              "instrumentation_ms_per_step": host_per_step * 1e3,
+              "instrumentation_share": share, "launches": launches})
+        obs.close()
+        del state, out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -2608,7 +2995,7 @@ def main(argv=None) -> int:
     cases = phase_kernels(args.seed, bw, flops, FP32_PEAKS[peaks(name)[0]])
     torch.cuda.empty_cache()
     phase_tiny(args.seed)
-    serve = phase_serve(args.seed)
+    serve, serve_predrain = phase_serve(args.seed)
     # the serve engines hold reference cycles (the monitor's failure
     # callback and the router): collect them so that granite's weights
     # are freed before the Mamba phases
@@ -2622,6 +3009,9 @@ def main(argv=None) -> int:
     train = phase_train(args.seed)
     phase_train_tiny_sdc(args.seed)
     sdc = phase_train_sdc(args.seed)
+    t0 = time.perf_counter()
+    train_obs = phase_train_obs(args.seed)
+    emit({"phase": "train-obs-time", "seconds": time.perf_counter() - t0})
     abft = phase_train_abft(args.seed)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2642,7 +3032,9 @@ def main(argv=None) -> int:
                    "train": train.get(kname, 0), "sdc": sdc[kname],
                    "abft": abft[kname],
                    "serve_ssm": serve_ssm.get(kname, 0),
-                   "fwi": fwi[kname], "train_ssm": train_ssm[kname]}
+                   "fwi": fwi[kname], "train_ssm": train_ssm[kname],
+                   "train_obs": train_obs[kname],
+                   "serve_predrain": serve_predrain.get(kname, 0)}
         summary.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/{source}", "replaces": replaces,

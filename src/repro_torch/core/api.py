@@ -19,9 +19,13 @@ Typical BSP loop (see core/coordinator.py for the full runner)::
         if dep.should_checkpoint(step):
             dep.save(step, state)
 
-Not in the port yet, and refused rather than ignored: telemetry
-(``attach_obs``, ROADMAP item 8), restores onto other shardings
-(item 10).
+Telemetry (``attach_obs``, docs/observability.md): with an
+``Observability`` attached, saves, restores, SDC detections and
+heartbeat failures emit onto its bus, and the measured restore and
+detection latency feed the policy's R and D terms.
+
+Not in the port yet, and refused rather than ignored: restores onto
+other shardings (ROADMAP item 10).
 """
 from __future__ import annotations
 
@@ -140,14 +144,24 @@ class Dependability:
         self._global_template = None
         self.save_history: list = []
         self.restore_seconds: list = []
+        # telemetry handle (repro_torch.obs.Observability); attach_obs
+        # threads it through the monitor and turns on event/metric
+        # emission everywhere
+        self.obs = None
 
     # ------------------------------------------------------------------
     # lifecycle
     # ------------------------------------------------------------------
     def attach_obs(self, obs) -> "Dependability":
-        raise NotImplementedError(
-            "telemetry (attach_obs) waits for the observability slice of "
-            "the port (ROADMAP item 8)")
+        """Wire a ``repro_torch.obs.Observability`` through this facade:
+        saves, restores, SDC detections, and heartbeat failures/rejoins
+        all emit onto its bus, and the measured R/D terms flow into the
+        policy via ``observe_recovery``.  Call before or after
+        ``start()`` — the monitor picks the handle up either way."""
+        self.obs = obs
+        if self.monitor is not None:
+            self.monitor.obs = obs
+        return self
 
     def start(self) -> "Dependability":
         if self.config.signal_detection:
@@ -158,6 +172,7 @@ class Dependability:
                     self.config.monitor_hosts or self.num_hosts,
                     period=self.config.heartbeat_period,
                     timeout_factor=self.config.heartbeat_timeout_factor,
+                    obs=self.obs,
                 ).start()
             addr = (self.monitor.addr if self.monitor
                     else self.config.monitor_addr)
@@ -227,6 +242,7 @@ class Dependability:
             return
         bad = self.scrubber.verify(state)
         if bad:
+            self._emit_sdc(step, "scrub", ",".join(bad))
             raise CorruptionDetected(step, "scrub", ",".join(bad))
 
     def reset_sdc(self) -> None:
@@ -247,7 +263,16 @@ class Dependability:
             nonfinite=(float(metrics["nonfinite"])
                        if "nonfinite" in metrics else None))
         if reason is not None:
+            self._emit_sdc(step, "sentinel", reason)
             raise CorruptionDetected(step, "sentinel", reason)
+
+    def _emit_sdc(self, step: int, tier: str, detail: str) -> None:
+        if self.obs is None:
+            return
+        with self.obs.timed():
+            self.obs.emit("sdc", "corruption", step=step, tier=tier,
+                          detail=detail)
+            self.obs.registry.counter("sdc.detected", tier=tier).inc()
 
     # ------------------------------------------------------------------
     # data preservation
@@ -285,6 +310,22 @@ class Dependability:
             # scrubbing was clean up to this step, else CorruptionDetected
             # would have unwound the loop before the save
             self.verified_steps.add(step)
+        if self.obs is not None:
+            with self.obs.timed():
+                self.obs.emit("checkpoint", "save", step=step,
+                              save_kind=stats.kind, final=final,
+                              bytes=stats.bytes_written,
+                              critical_path_s=cost, blocking=blocking,
+                              dirty_blocks=stats.dirty_blocks,
+                              total_blocks=stats.total_blocks)
+                reg = self.obs.registry
+                reg.histogram("checkpoint.critical_path_ms").observe(
+                    cost * 1e3)
+                reg.counter("checkpoint.saves", kind=stats.kind).inc()
+                reg.counter("checkpoint.bytes").inc(stats.bytes_written)
+                if stats.total_blocks:
+                    reg.histogram("checkpoint.dirty_block_ratio").observe(
+                        stats.dirty_blocks / stats.total_blocks)
         return stats
 
     def restore_latest(self, like=None, shardings=None,
@@ -332,5 +373,24 @@ class Dependability:
                 self._local_provider.load_shard_state_dicts(shard_dicts)
             elif local is not None:
                 self._local_provider.load_state_dict(local)
-        self.restore_seconds.append(time.perf_counter() - t0)
+        restore_s = time.perf_counter() - t0
+        self.restore_seconds.append(restore_s)
+        if self.obs is not None:
+            with self.obs.timed():
+                # live Young/Daly: the measured restore IS the R term; the
+                # monitor's last declaration latency is the D term (when
+                # heartbeat is on)
+                detect_s = None
+                if (self.monitor is not None
+                        and self.monitor.detection_latency):
+                    detect_s = max(self.monitor.detection_latency.values())
+                self.policy.observe_recovery(restart_s=restore_s,
+                                             downtime_s=detect_s)
+                self.obs.emit("checkpoint", "restore", step=got_step,
+                              restore_s=restore_s,
+                              skipped=[list(s) for s in
+                                       self.last_restore_skipped])
+                self.obs.registry.histogram(
+                    "checkpoint.restore_ms").observe(restore_s * 1e3)
+                self.obs.registry.counter("checkpoint.restores").inc()
         return state, got_step

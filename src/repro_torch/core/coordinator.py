@@ -18,9 +18,16 @@ SDC hooks inside each superstep (no-ops unless enabled):
   - ``dep.scrub`` after the step: checksums the next rotating subset of
     the fresh state;
   - ``dep.check_metrics``: the tier-3 loss sentinel.
+
+With an ``Observability`` attached to the facade every superstep emits a
+``train/step`` event (the drift detector's input) and observes
+``train.step_ms``; recovery emits ``train/interrupted`` and
+``train/resume``, the detection and repair marks of a ``Timeline``
+incident.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -32,21 +39,28 @@ from repro_torch.train.step import metrics_to_host
 
 def run_bsp(dep: Dependability, train_step: Callable, state, data,
             num_steps: int, *, fault_injector: Optional[FaultInjector] = None,
-            on_metrics: Optional[Callable[[int, Dict], None]] = None
-            ) -> Tuple[Any, str, List[Dict]]:
+            on_metrics: Optional[Callable[[int, Dict], None]] = None,
+            proactive: Optional[Callable[[int], Optional[str]]] = None,
+            final_save: bool = True) -> Tuple[Any, str, List[Dict]]:
     """Runs supersteps until ``num_steps`` or interruption.
 
     Returns (state, status, history); status in {"done", "interrupted"}
-    (an interruption takes a final save first).  May raise
-    SimulatedFailure (injected fail-stop) or CorruptionDetected (an SDC
-    tier tripped) — run_with_recovery handles both.  The telemetry
-    plane's stop and proactive-save hooks wait for ROADMAP items 8 and
-    10."""
+    (an interruption takes a final save first unless ``final_save`` is
+    False).  ``proactive`` is the telemetry plane's precursor hook
+    (``repro_torch.obs.make_proactive_hook``): polled after each
+    superstep when the policy cadence does NOT already save; a non-None
+    reason forces a checkpoint now, ahead of the failure the precursors
+    predict.  Forced saves flow through ``dep.save`` like any other, so
+    they re-anchor the policy cadence.  May raise SimulatedFailure
+    (injected fail-stop) or CorruptionDetected (an SDC tier tripped) —
+    run_with_recovery handles both.  The elastic layer's ``stop_check``
+    (pause for a mesh resize) waits for ROADMAP item 10."""
     history: List[Dict] = []
     step = int(state["step"])
     while step < num_steps:
         if dep.interrupted():
-            dep.save(step, state, final=True)
+            if final_save:
+                dep.save(step, state, final=True)
             # the final save may have queued behind a still-running async
             # write: do not hand back control with the checkpoint in flight
             dep.manager.wait()
@@ -72,12 +86,31 @@ def run_bsp(dep: Dependability, train_step: Callable, state, data,
         rec = {"step": step, "seconds": dt, "straggler": straggler,
                **metrics}
         history.append(rec)
+        if dep.obs is not None:
+            with dep.obs.timed():
+                # one bus record per superstep: the drift detector's input
+                dep.obs.emit("train", "step", **rec)
+                dep.obs.registry.histogram("train.step_ms").observe(
+                    dt * 1e3)
         if on_metrics:
             on_metrics(step, rec)
         dep.check_metrics(step, metrics)       # may raise CorruptionDetected
 
         if dep.should_checkpoint(step):
             dep.save(step, state)
+        elif proactive is not None:
+            # the hook's host time counts as the telemetry plane's
+            with (dep.obs.timed() if dep.obs is not None
+                  else contextlib.nullcontext()):
+                why = proactive(step)
+            if why is not None:
+                dep.save(step, state)
+                if dep.obs is not None:
+                    with dep.obs.timed():
+                        dep.obs.emit("checkpoint", "proactive", step=step,
+                                     reason=why)
+                        dep.obs.registry.counter(
+                            "checkpoint.proactive").inc()
     dep.manager.wait()
     return state, "done", history
 
@@ -86,7 +119,9 @@ def run_with_recovery(dep: Dependability, train_step: Callable, state, data,
                       num_steps: int, *,
                       fault_injector: Optional[FaultInjector] = None,
                       max_restarts: int = 3, like=None,
-                      on_metrics=None) -> Tuple[Any, Dict]:
+                      on_metrics=None,
+                      proactive: Optional[Callable[[int], Optional[str]]]
+                      = None) -> Tuple[Any, Dict]:
     """Failure recovery loop: restore-from-checkpoint on fail-stop or
     detected corruption.
 
@@ -106,7 +141,8 @@ def run_with_recovery(dep: Dependability, train_step: Callable, state, data,
         try:
             state, status, hist = run_bsp(
                 dep, train_step, state, data, num_steps,
-                fault_injector=fault_injector, on_metrics=on_metrics)
+                fault_injector=fault_injector, on_metrics=on_metrics,
+                proactive=proactive)
             all_history.extend(hist)
             return state, {"status": status, "restarts": restarts,
                            "history": all_history}
@@ -119,6 +155,13 @@ def run_with_recovery(dep: Dependability, train_step: Callable, state, data,
             else:
                 all_history.append({"step": e.step,
                                     "event": f"failure:{e.kind}"})
+                if dep.obs is not None:
+                    # SDC tiers emit their own detection inside
+                    # verify_state/check_metrics; fail-stop is raised by
+                    # the injector, so record the detection here
+                    with dep.obs.timed():
+                        dep.obs.emit("train", "interrupted", step=e.step,
+                                     failure_kind=e.kind)
             restarts += 1
             if restarts > max_restarts:
                 raise
@@ -142,6 +185,14 @@ def run_with_recovery(dep: Dependability, train_step: Callable, state, data,
                             str(s) for s, _ in dep.last_restore_skipped)})
                 if is_corruption:
                     last_corrupt_restore = (got, len(dep.save_history))
+                if dep.obs is not None:
+                    with dep.obs.timed():
+                        dep.obs.registry.histogram(
+                            "train.rollback_depth").observe(
+                                max(0, e.step - got))
+                        dep.obs.emit("train", "resume", step=got,
+                                     rolled_back_from=e.step,
+                                     restarts=restarts)
             except FileNotFoundError as fnf:
                 # no (acceptable) checkpoint at all: restart from scratch
                 all_history.append({"step": e.step,
@@ -150,4 +201,8 @@ def run_with_recovery(dep: Dependability, train_step: Callable, state, data,
                 if local0 is not None:
                     dep._local_provider.load_state_dict(local0)
                 last_corrupt_restore = None
+                if dep.obs is not None:
+                    with dep.obs.timed():
+                        dep.obs.emit("train", "resume", step=0,
+                                     scratch=True, restarts=restarts)
             dep.reset_sdc()

@@ -111,26 +111,37 @@ def _kernel_times(prof):
     return us, count
 
 
+#: profiler windows taken before an empty one is an error: now and then
+#: a window comes back with no device event at all (seen on an H100 80GB
+#: HBM3 machine, in a window where the same call had recorded before)
+WINDOWS = 3
+
+
 def profile_step(fn: Callable[[], object], calls: int = 3,
                  host: bool = True) -> Dict:
     """``fn`` once to warm up, then ``calls`` times under the profiler;
     ``host=False`` records the card's activity alone (for a call of ~10^5
-    launches, as an FWI iteration is)."""
+    launches, as an FWI iteration is).  A window with no device event is
+    taken again, up to ``WINDOWS`` in all."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
     if host:
         acts.append(torch.profiler.ProfilerActivity.CPU)
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-            torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / calls * 1e3
-    kernels, counts = _kernel_times(prof)
-    device_ms = sum(kernels.values()) / calls / 1e3
-    if device_ms <= 0:
-        raise RuntimeError("the profiler recorded no device time")
+    for _ in range(WINDOWS):
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+                torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / calls * 1e3
+        kernels, counts = _kernel_times(prof)
+        device_ms = sum(kernels.values()) / calls / 1e3
+        if device_ms > 0:
+            break
+    else:
+        raise RuntimeError(f"the profiler recorded no device time in "
+                           f"{WINDOWS} windows")
     groups: Dict[str, float] = collections.defaultdict(float)
     launches: Dict[str, float] = collections.defaultdict(float)
     for name, us in kernels.items():

@@ -16,10 +16,17 @@ heartbeat failover, decode-path SDC sentinel.  Runs on the card unless
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch falcon-mamba-7b --tiny --device cpu --replicas 2 \
         --fault-tolerant --kill-replica-at 3
+
+    # the telemetry plane: anomaly detectors over the engine's per-replica
+    # step timings pre-drain a replica whose host risk crosses
+    # --risk-threshold; --telemetry-dir records the bundle
+    PYTHONPATH=src python -m repro_torch.launch.serve --tiny --device cpu \
+        --replicas 2 --pre-drain --telemetry-dir /tmp/serve_telemetry
 """
 from __future__ import annotations
 
 import argparse
+import os
 import statistics
 import sys
 import time
@@ -29,6 +36,7 @@ import numpy as np
 from repro_torch.configs import ALL_ARCHS
 from repro_torch.core import FaultInjector
 from repro_torch.models import get_config, init_params
+from repro_torch.obs import AnomalyEngine, Observability
 from repro_torch.serve import ServeEngine, pctl
 
 
@@ -65,6 +73,18 @@ def main(argv=None) -> int:
     ap.add_argument("--kill-replica-at", type=int, default=-1,
                     help="inject a replica kill at this engine step "
                     "(drives the failover path end to end)")
+    ap.add_argument("--telemetry-dir", default="",
+                    help="record the run's telemetry bundle here "
+                         "(events.jsonl + trace.json + metrics)")
+    ap.add_argument("--metrics-snapshot", default="",
+                    help="write a JSON metrics snapshot to this path at "
+                         "the end of the run")
+    ap.add_argument("--pre-drain", action="store_true",
+                    help="telemetry plane: run the anomaly detectors over "
+                         "the engine's event stream and pre-drain a "
+                         "replica whose host risk crosses "
+                         "--risk-threshold")
+    ap.add_argument("--risk-threshold", type=float, default=0.8)
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, tiny=args.tiny)
@@ -74,6 +94,17 @@ def main(argv=None) -> int:
         injector = FaultInjector()
         injector.schedule_replica_kill(args.kill_replica_at,
                                        replica_id=args.replicas - 1)
+    obs = None
+    if args.telemetry_dir or args.metrics_snapshot or args.pre_drain:
+        obs = Observability(
+            jsonl_path=(os.path.join(args.telemetry_dir, "events.jsonl")
+                        if args.telemetry_dir else None))
+    risk_source = None
+    if args.pre_drain:
+        anomaly = AnomalyEngine()
+        anomaly.attach(obs.bus)
+        risk_source = anomaly.risk_scores
+
     paged_kw = {}
     if args.page_size is not None:
         paged_kw["page_size"] = args.page_size
@@ -82,7 +113,9 @@ def main(argv=None) -> int:
                          slots_per_replica=args.slots,
                          max_len=args.prompt_len + args.gen,
                          fault_tolerant=args.fault_tolerant,
-                         fault_injector=injector,
+                         fault_injector=injector, obs=obs,
+                         risk_source=risk_source,
+                         pre_drain_threshold=args.risk_threshold,
                          num_pages=args.num_pages,
                          max_active=args.max_active,
                          prefix_cache=not args.no_prefix_cache, **paged_kw)
@@ -131,6 +164,20 @@ def main(argv=None) -> int:
     if retried:
         print(f"failover: {retried} request(s) drained and re-executed, "
               f"{len(engine.scheduler.failed_rids)} dropped")
+    if obs is not None:
+        summary = obs.timeline().summary()
+        mttr = summary["mttr_s"]
+        mttr_txt = f"MTTR={mttr:.3f}s, " if mttr is not None else ""
+        print(f"telemetry: {summary['incidents']} incidents, "
+              f"{mttr_txt}availability={summary['availability']:.4f} "
+              f"over {summary['span_s']:.1f}s observed")
+        if args.telemetry_dir:
+            paths = obs.dump(args.telemetry_dir)
+            print(f"telemetry bundle: {sorted(paths.values())}")
+        if args.metrics_snapshot:
+            obs.registry.to_json(args.metrics_snapshot)
+            print(f"metrics snapshot: {args.metrics_snapshot}")
+        obs.close()
     engine.shutdown()
     return 0 if len(results) == args.requests else 1
 

@@ -29,15 +29,27 @@ mid-run to watch detection and rollback:
         --full-every 3 --scrub --scrub-fraction 1.0 \
         --inject-bitflip 5:params.embed.tok:30 --ckpt-dir /tmp/ckpt
 
-The reference's flags that the port does not carry yet raise
-``NotImplementedError`` naming their ROADMAP item: the telemetry flags
-and ``--policy risk_adjusted`` (item 8), ``--data-par``/``--model-par``
-> 1 (item 10).
+Telemetry (docs/observability.md): ``--telemetry-dir`` records the run's
+bundle (events.jsonl, trace.json, metrics.json, metrics.prom),
+``--metrics-snapshot`` a JSON metrics snapshot; ``--telemetry-plane``
+runs the anomaly detectors over the event stream, and
+``--proactive-checkpoint`` forces a save when a host's risk crosses
+``--risk-threshold`` (with ``--policy risk_adjusted`` the risk also
+tightens the Young/Daly interval):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \
+        --steps 12 --inject-failure 8 --policy risk_adjusted \
+        --proactive-checkpoint --telemetry-dir /tmp/telemetry \
+        --metrics-snapshot /tmp/metrics.json --ckpt-dir /tmp/ckpt_obs
+
+``--data-par``/``--model-par`` > 1 raise ``NotImplementedError`` naming
+ROADMAP item 10.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 
@@ -47,6 +59,7 @@ from repro_torch.core import (Dependability, DependabilityConfig,
 from repro_torch.data import make_pipeline
 from repro_torch.device import resolve_device
 from repro_torch.models import get_config
+from repro_torch.obs import AnomalyEngine, Observability, make_proactive_hook
 from repro_torch.train import init_state, make_train_step
 
 
@@ -68,11 +81,6 @@ def build(args):
 def _refuse(args) -> None:
     """The reference's options this slice of the port does not carry."""
     missing = [
-        (bool(args.telemetry_dir), "--telemetry-dir", 8),
-        (bool(args.metrics_snapshot), "--metrics-snapshot", 8),
-        (args.telemetry_plane, "--telemetry-plane", 8),
-        (args.proactive_checkpoint, "--proactive-checkpoint", 8),
-        (args.policy == "risk_adjusted", "--policy risk_adjusted", 8),
         (args.data_par > 1, "--data-par > 1", 10),
         (args.model_par > 1, "--model-par > 1", 10),
     ]
@@ -127,10 +135,20 @@ def main(argv=None) -> int:
     ap.add_argument("--inject-bitflip", default="",
                     help="STEP:LEAF:BIT, e.g. 50:params.embed.tok:30 — "
                          "flip one state bit mid-run (SDC fault model)")
-    ap.add_argument("--telemetry-dir", default="")
-    ap.add_argument("--metrics-snapshot", default="")
-    ap.add_argument("--telemetry-plane", action="store_true")
-    ap.add_argument("--proactive-checkpoint", action="store_true")
+    ap.add_argument("--telemetry-dir", default="",
+                    help="record the run's telemetry bundle here "
+                         "(events.jsonl + trace.json + metrics)")
+    ap.add_argument("--metrics-snapshot", default="",
+                    help="write a JSON metrics snapshot to this path at "
+                         "the end of the run")
+    ap.add_argument("--telemetry-plane", action="store_true",
+                    help="run the in-process telemetry plane: anomaly "
+                         "detectors over the event stream, per-host risk "
+                         "scores")
+    ap.add_argument("--proactive-checkpoint", action="store_true",
+                    help="force a checkpoint when a precursor pushes any "
+                         "host's risk past --risk-threshold (implies "
+                         "--telemetry-plane)")
     ap.add_argument("--risk-threshold", type=float, default=0.5)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -157,6 +175,30 @@ def main(argv=None) -> int:
                            num_nodes=args.num_nodes),
     )).start()
     dep.register_local_state(data)
+
+    obs = None
+    want_plane = args.telemetry_plane or args.proactive_checkpoint
+    if args.telemetry_dir or args.metrics_snapshot or want_plane:
+        obs = Observability(
+            jsonl_path=(os.path.join(args.telemetry_dir, "events.jsonl")
+                        if args.telemetry_dir else None))
+        dep.attach_obs(obs)
+
+    proactive = None
+    if want_plane:
+        anomaly = AnomalyEngine()
+        anomaly.attach(obs.bus)
+        if args.proactive_checkpoint:
+            proactive = make_proactive_hook(
+                anomaly.risk_scores, threshold=args.risk_threshold,
+                policy=(dep.policy if args.policy == "risk_adjusted"
+                        else None))
+        elif args.policy == "risk_adjusted":
+            # no forced saves: risk still tightens the Young/Daly
+            # interval through the policy
+            def proactive(step, _a=anomaly, _p=dep.policy):
+                _p.observe_risk(max(_a.risk_scores().values(), default=0.0))
+                return None
 
     step_fn = make_train_step(cfg, microbatches=args.microbatches,
                               total_steps=args.steps,
@@ -187,7 +229,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     state, info = run_with_recovery(
         dep, step_fn, state, data, args.steps,
-        fault_injector=injector, like=template, on_metrics=on_metrics)
+        fault_injector=injector, like=template, on_metrics=on_metrics,
+        proactive=proactive)
     wall = time.perf_counter() - t0
 
     n_saves = len(dep.save_history)
@@ -200,6 +243,20 @@ def main(argv=None) -> int:
     events = [h["event"] for h in info["history"] if "event" in h]
     if events:
         print(f"[train] failure/corruption events: {events}")
+    if obs is not None:
+        summary = obs.timeline().summary()
+        mttr = summary["mttr_s"]
+        mttr_txt = f"MTTR={mttr:.3f}s, " if mttr is not None else ""
+        print(f"[train] telemetry: {summary['incidents']} incidents, "
+              f"{mttr_txt}availability={summary['availability']:.4f} "
+              f"over {summary['span_s']:.1f}s observed")
+        if args.telemetry_dir:
+            paths = obs.dump(args.telemetry_dir)
+            print(f"[train] telemetry bundle: {sorted(paths.values())}")
+        if args.metrics_snapshot:
+            obs.registry.to_json(args.metrics_snapshot)
+            print(f"[train] metrics snapshot: {args.metrics_snapshot}")
+        obs.close()
     dep.stop()
     return 0
 

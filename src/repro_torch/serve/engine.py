@@ -28,16 +28,28 @@ streams are token-identical to an uninterrupted run and the engine drops
 zero requests.  Warm standbys (``add_standby``) are activated one per
 failure to restore capacity.
 
+The telemetry plane adds the *proactive* path (docs/observability.md):
+with ``risk_source`` set (host -> risk in [0, 1], e.g. a local
+``AnomalyEngine.risk_scores`` or ``Collector.risk_scores``), the engine
+pre-drains a replica whose host risk crosses ``pre_drain_threshold`` —
+same drain + requeue + token-identical retry machinery, but triggered
+BEFORE the failure, so the predicted failure costs a planned drain
+instead of a detection-latency-bound failover.  A replica is only
+pre-drained while another healthy replica or a warm standby can absorb
+its load.  With ``risk_source`` set the engine also emits per-replica
+step timings (``telemetry/replica_step``) so the drift detector can
+attribute slowdowns to hosts.
+
 ``paged=None`` pages wherever the stack can (attention-only); a Mamba
 stack takes the slot pool.  The slot pool over attention rows
-(``paged=False`` on an attention stack) and the telemetry plane's
-pre-drain wait for a later slice (ROADMAP.md, "Modules to port", item 9).
+(``paged=False`` on an attention stack) waits for a later slice
+(ROADMAP.md, "Modules to port", item 9).
 """
 from __future__ import annotations
 
 import math
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -84,6 +96,9 @@ class ServeEngine:
                  max_retries: int = 3,
                  fault_injector=None,
                  obs: Optional[Observability] = None,
+                 risk_source: Optional[Callable[[], Dict[int, float]]]
+                 = None,
+                 pre_drain_threshold: float = 0.8,
                  paged: Optional[bool] = None,
                  page_size: int = DEFAULT_PAGE_SIZE,
                  num_pages: Optional[int] = None,
@@ -139,6 +154,8 @@ class ServeEngine:
         # replicas share ONE set of parameter tensors
         for _ in range(num_replicas):
             self.router.add_replica(params)
+        self.risk_source = risk_source
+        self.pre_drain_threshold = pre_drain_threshold
         self.engine_step = 0
 
     @property
@@ -212,6 +229,8 @@ class ServeEngine:
     def step(self) -> None:
         """One engine iteration over every healthy replica."""
         self._drain_detected()
+        if self.risk_source is not None:
+            self._pre_drain_risky()
         healthy = sorted(self.router.healthy(), key=lambda r: r.id)
         if not healthy and not self.scheduler.all_done():
             rep = self.router.activate_standby()
@@ -297,13 +316,59 @@ class ServeEngine:
             if standby is not None:
                 self._record("standby_activated", replica=standby.id)
 
+    def _pre_drain_risky(self) -> None:
+        """The telemetry plane's proactive path: drain a replica whose
+        host risk crossed the threshold — BEFORE its failure is
+        detected — while capacity exists to absorb it."""
+        scores = self.risk_source()
+        for host, risk in sorted(scores.items()):
+            if risk < self.pre_drain_threshold:
+                continue
+            rid = self.router._host_to_rid.get(host)
+            if rid is None:
+                continue
+            rep = self.router.replicas[rid]
+            if not rep.healthy:
+                continue
+            # never drain the last line of service: require a surviving
+            # healthy replica or a warm standby to absorb the requeue
+            others = [r for r in self.router.healthy() if r.id != rid]
+            if not others and not self.router.standby_count:
+                continue
+            drained = self.router.drain_replica(rep, f"risk={risk:.2f}")
+            for r in reversed(drained):
+                self.scheduler.requeue(self.scheduler.requests[r])
+            self._record("replica_predrained", replica=rep.id,
+                         hosts=list(rep.hosts), risk=risk,
+                         drained=len(drained))
+            reg = self.obs.registry
+            reg.counter("serve.replica_predrains").inc()
+            reg.counter("serve.requests_drained").inc(len(drained))
+            if self.router.standby_count:
+                standby = self.router.activate_standby()
+                if standby is not None:
+                    self._record("standby_activated",
+                                 replica=standby.id)
+
     def _step_replica(self, rep: Replica) -> None:
+        # t0 BEFORE the injector: an injected latency spike sleeps in
+        # check_replica, and the emitted step timing must include it —
+        # that stretch is exactly what the drift detector watches
+        t0 = time.perf_counter()
         if self.injector is not None:
             # may raise SimulatedFailure (replica kill) or
             # CorruptionDetected (replica SDC), or sleep (latency spike)
             self.injector.check_replica(self.engine_step, rep.id)
         self._admit(rep)
         self._decode(rep)
+        if self.risk_source is not None and rep.hosts:
+            # host-attributed step timing for the drift detector (the
+            # decode ends in a copy of the tokens to the host, so the
+            # card's work is inside it); the "telemetry" subsystem keeps
+            # it out of the serve-subsystem .events view
+            self.obs.emit("telemetry", "replica_step", replica=rep.id,
+                          host=rep.hosts[0],
+                          seconds=time.perf_counter() - t0)
 
     def _admit(self, rep: Replica) -> None:
         if self.paged:

@@ -146,6 +146,28 @@ class ReplicaRouter:
                             f"{reason};drained={len(drained)}"))
         return drained
 
+    def drain_replica(self, rep: Replica, reason: str) -> List[int]:
+        """Proactively take a replica out of service BEFORE it fails
+        (the telemetry plane's pre-drain, docs/observability.md):
+        mechanically identical to ``fail_replica`` — emitters pause,
+        hosts are acknowledged, the pool drains once — but recorded as
+        ``replica_predrained``, and the acknowledged hosts never produce
+        a ``heartbeat/failure`` event, so the Timeline sees a planned
+        drain, not an incident."""
+        if not rep.healthy:
+            return []
+        rep.healthy = False
+        rep.fail_reason = f"predrain:{reason}"
+        for em in rep.emitters:
+            em.pause()
+        if self.monitor is not None:
+            for h in rep.hosts:
+                self.monitor.acknowledge(h)
+        drained = rep.pool.release_all()
+        self.events.append(("replica_predrained", rep.id,
+                            f"{reason};drained={len(drained)}"))
+        return drained
+
     def activate_standby(self) -> Optional[Replica]:
         """Bring one warm standby into the pool (None when none remain)."""
         if not self._standby_sources:

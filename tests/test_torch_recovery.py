@@ -168,11 +168,13 @@ def test_sentinel_rolls_back_a_nonfinite_step(tmp_path):
 
 
 def test_unported_options_are_refused(tmp_path):
-    # delta saves and the scrubber are ported: the facade takes them
+    # delta saves, the scrubber and telemetry are ported: the facade takes
+    # them (tests/test_torch_obs.py drives attach_obs)
     _dep(tmp_path, delta_checkpoint=True, scrub=True).stop()
     dep = _dep(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        dep.attach_obs(object())
+    from repro_torch.obs import Observability
+    obs = Observability()
+    assert dep.attach_obs(obs) is dep and dep.obs is obs
     with pytest.raises(NotImplementedError, match="item 10"):
         dep.restore_latest(like={}, shardings=object())
     with pytest.raises(CorruptionDetected):
@@ -210,15 +212,12 @@ def test_cli_recovers_from_an_injected_failure(tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--telemetry-dir", "t"], "item 8"),
-    (["--metrics-snapshot", "m.json"], "item 8"),
-    (["--proactive-checkpoint"], "item 8"),
-    (["--policy", "risk_adjusted"], "item 8"),
-    (["--telemetry-plane"], "item 8"),
-    (["--data-par", "2"], "item 10")])
+    (["--data-par", "2"], "item 10"),
+    (["--model-par", "2"], "item 10")])
 def test_cli_refuses_unported_flags(tmp_path, flag, item):
     """The reference's flags this port does not carry yet (the SDC flags
-    are ported: tests/test_torch_sdc.py drives them)."""
+    are ported: tests/test_torch_sdc.py drives them; the telemetry flags
+    too: tests/test_torch_telemetry.py)."""
     out = _cli(flag, tmp_path)
     assert out.returncode != 0
     assert "NotImplementedError" in out.stderr and item in out.stderr
