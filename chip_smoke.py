@@ -19,7 +19,10 @@ ends the run with a non-zero exit code and no result line:
                  events) and the card's lower bound;
 4. ``tiny``    — tiny granite served in float32 through ``ServeEngine`` on
                  the card (kernels) and on the CPU (plain versions): the
-                 greedy streams must agree token for token;
+                 greedy streams must agree token for token; then
+                 ``tiny-slots``, the same from the slot pool
+                 (``paged=False``, 4 rows): card and CPU agree, and both
+                 equal the paged streams;
 5. ``serve``   — granite-3-8b at full width (40 layers, random weights
                  from ``--seed``) on 2 replicas sharing one set of weights:
                  8 requests with shared prefixes and an exact repeat, once
@@ -28,7 +31,23 @@ ends the run with a non-zero exit code and no result line:
                  run and must match the path afterwards; both runs must
                  serve every request, the streams must be identical, the
                  page accounting must hold and the decode sentinel must
-                 stay quiet; then ``serve-predrain`` (after ``steps``): the
+                 stay quiet; then ``serve-slots``, the fault-free run from
+                 the slot pool (``paged=False``, 2 replicas of 8 slots of
+                 288 positions, so every decode step has the paged run's
+                 shapes): the streams equal the paged run's token for
+                 token, nothing dropped, the sentinel quiet (its entropy
+                 printed), no slot held, launches held to the path (the
+                 decode's attention is the paged kernel over a page view
+                 of the rows); then ``serve-standby``, the same engine
+                 with one warm standby restored through
+                 ``make_standby_source`` from a raw ``CheckpointManager``
+                 save of the parameters (under ``build/``, removed
+                 after), replica 1 killed at step 5: the standby
+                 activated after the failure, nothing dropped, streams
+                 token-identical, its parameters bit-equal to the live
+                 ones, the save's bytes and seconds and the restore's
+                 seconds printed; then ``serve-predrain`` (after
+                 ``steps``): the
                  same engine with an ``Observability``, an
                  ``AnomalyEngine`` (step-time drift: factor 2, 3 in a row,
                  3 warm-up steps) as its ``risk_source`` and a pre-drain
@@ -39,9 +58,10 @@ ends the run with a non-zero exit code and no result line:
                  the fault-free run, detect-before-act green, launches
                  held to the path; the precursor-to-pre-drain time and the
                  timeline printed;
-6. ``steps``   — one decode step and one prefill at the serve phase's
-                 shapes, eager (as the engine runs them) against their
-                 device time alone (captured in a CUDA graph), and the
+6. ``steps``   — one decode step (paged, and over 8 slot-pool rows)
+                 and one prefill at the serve phase's shapes, eager (as
+                 the engine runs them) against their device time alone
+                 (captured in a CUDA graph), and the
                  decode step's device ms in the paged-attention and
                  RMSNorm kernels beside the tree's before their redesign;
 7. ``train-tiny`` — tiny granite in float32 trained on the card through
@@ -162,7 +182,8 @@ timed beside the harness's latency floor (a one-element ``zero_``); both
 also without programmatic dependent launch.
 
 Then the kernels summary (one JSON object, launches by path: serve,
-train, sdc, abft, serve_ssm, fwi, train_ssm, train_obs, serve_predrain),
+train, sdc, abft, serve_ssm, fwi, train_ssm, train_obs, serve_predrain,
+serve_slots, serve_standby),
 the ``nvidia-smi`` line,
 and the last line
 ``{"ok": true, "device": {...}}``.
@@ -1324,9 +1345,12 @@ def _prompts(vocab: int, seed: int, lens):
 
 def _serve(cfg, params, prompts, gen_len, device, *, kill=False,
            replicas=2, max_len=MAX_LEN, slots=4, max_active=MAX_ACTIVE,
-           injector=None, **telemetry):
+           injector=None, paged=None, standby=None,
+           heartbeat_timeout_factor=10.0, **telemetry):
     """One engine run over ``prompts``; ``kill`` schedules the replica
     kill at ``KILL_STEP``, or ``injector`` brings its own schedule;
+    ``paged=False`` serves from the slot pool (``slots`` rows a replica);
+    ``standby`` (a params source) is registered as a warm standby;
     ``telemetry`` (``obs``, ``risk_source``, ``pre_drain_threshold``)
     goes to the engine as it is."""
     from repro_torch.core import FaultInjector
@@ -1339,8 +1363,10 @@ def _serve(cfg, params, prompts, gen_len, device, *, kill=False,
                       slots_per_replica=slots, max_len=max_len,
                       max_active=max_active, page_size=PAGE_SIZE,
                       fault_tolerant=True, heartbeat_period=0.1,
-                      heartbeat_timeout_factor=10.0,
-                      fault_injector=injector, **telemetry)
+                      heartbeat_timeout_factor=heartbeat_timeout_factor,
+                      fault_injector=injector, paged=paged, **telemetry)
+    if standby is not None:
+        eng.add_standby(standby)
     try:
         rids = [eng.submit(p, gen_len) for p in prompts]
         t0 = time.perf_counter()
@@ -1382,6 +1408,7 @@ def _serve(cfg, params, prompts, gen_len, device, *, kill=False,
                             if eng.paged else 0),
             "entropy_ema": [r.sentinel.entropy_ema for r in reps
                             if r.sentinel is not None],
+            "events": [e["event"] for e in eng.events],
         }
     finally:
         eng.shutdown()
@@ -1407,6 +1434,41 @@ def phase_tiny(seed: int):
     emit({"phase": "tiny", "requests": len(prompts),
           "tokens": sum(len(s) for s in got["streams"]),
           "streams_equal_cpu": True})
+    return got["streams"]
+
+
+def phase_tiny_slots(seed: int, paged_streams):
+    """``tiny-slots``: the tiny phase's engine and prompts served from the
+    slot pool (4 rows, the paged run's 4 decode rows) on the card and on
+    the CPU: the streams agree token for token, and equal the tiny
+    phase's paged streams."""
+    from repro_torch.models import get_config, init_params
+
+    paged = _counters()["paged_attention"]
+    cfg = dataclasses.replace(get_config("granite-3-8b", tiny=True),
+                              dtype=torch.float32)
+    cpu = init_params(cfg, seed=seed, device="cpu")
+    gpu = _tree_to(cpu, "cuda")
+    prompts = _prompts(cfg.vocab_size, seed, (16, 24, 32))
+    kw = dict(replicas=1, max_len=48, slots=4, paged=False)
+    want = _serve(cfg, cpu, prompts, 8, "cpu", **kw)
+    paged.launches = 0
+    got = _serve(cfg, gpu, prompts, 8, "cuda", **kw)
+    if got["streams"] != want["streams"] or None in got["streams"]:
+        raise AssertionError(f"tiny-slots: float32 streams differ between "
+                             f"the card and the CPU:\n{got['streams']}\n"
+                             f"{want['streams']}")
+    if got["streams"] != paged_streams:
+        raise AssertionError(f"tiny-slots: the slot pool's streams differ "
+                             f"from the paged pool's:\n{got['streams']}\n"
+                             f"{paged_streams}")
+    if paged.launches != cfg.num_layers * got["decode_calls"]:
+        raise AssertionError(f"tiny-slots: {paged.launches} paged launches "
+                             f"for {got['decode_calls']} decode steps")
+    emit({"phase": "tiny-slots", "requests": len(prompts),
+          "tokens": sum(len(s) for s in got["streams"]),
+          "streams_equal_cpu": True, "streams_equal_paged": True,
+          "paged_launches": paged.launches})
 
 
 def _tree_to(tree, device):
@@ -1468,16 +1530,7 @@ def phase_serve(seed: int):
                      {"obs": timing, "risk_source": lambda: {}})
         res = _serve(cfg, params, prompts, GEN, "cuda", kill=kill,
                      **telemetry)
-        launches = {k: fn.launches for k, fn in counters.items()}
-        want = {"rmsnorm": (2 * L + 1) * (res["prefills"]
-                                          + res["decode_calls"]),
-                "flash_attention": L * res["prefills"],
-                "paged_attention": L * res["decode_calls"],
-                "selective_scan": 0}
-        if launches != want or min(v for k, v in launches.items()
-                                   if want[k]) <= 0:
-            raise AssertionError(f"{label}: launches {launches}, the path "
-                                 f"implies {want}")
+        launches = _serve_launches(label, counters, res, L)
         if res["dropped"] or None in res["streams"]:
             raise AssertionError(f"{label}: dropped {res['dropped']}")
         if kill and not res["failures"]:
@@ -1516,12 +1569,158 @@ def phase_serve(seed: int):
         raise AssertionError(f"streams after the replica kill differ from "
                              f"the uninterrupted run for requests {diff}")
     emit({"phase": "serve", "token_identical_after_kill": True})
+    slots, slot_launches = phase_serve_slots(cfg, params, prompts, a,
+                                             counters)
+    standby = phase_serve_standby(cfg, params, prompts, slots, counters)
     phase_steps(cfg, params, seed)
     predrain = phase_serve_predrain(cfg, params, prompts, a,
                                     timing.events("telemetry",
                                                   "replica_step"),
                                     counters)
-    return runs["fault_free"][1], predrain
+    return {"serve": runs["fault_free"][1], "serve_slots": slot_launches,
+            "serve_standby": standby, "serve_predrain": predrain}
+
+
+def _serve_launches(label, counters, res, L):
+    """The launch counters after an attention stack's serve run, held to
+    its path: an RMSNorm per norm (2 a layer + the final one) of every
+    prefill and decode call, a flash launch a layer a prefill, a paged
+    launch a layer a decode call (paged pool or slot rows), no scan."""
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want = {"rmsnorm": (2 * L + 1) * (res["prefills"] + res["decode_calls"]),
+            "flash_attention": L * res["prefills"],
+            "paged_attention": L * res["decode_calls"],
+            "selective_scan": 0}
+    if launches != want or min(v for k, v in launches.items()
+                               if want[k]) <= 0:
+        raise AssertionError(f"{label}: launches {launches}, the path "
+                             f"implies {want}")
+    return launches
+
+
+def _serve_summary(res):
+    ttft = [t for _, t, _ in res["latencies"]]
+    total = sorted(t for _, _, t in res["latencies"])
+    tokens = sum(len(s) for s in res["streams"])
+    return {"tokens": tokens, "wall_s": res["wall"],
+            "tok_s": tokens / res["wall"],
+            "ttft_p50_ms": statistics.median(ttft) * 1e3,
+            "latency_p50_ms": statistics.median(total) * 1e3,
+            "retried": res["retried"], "dropped": res["dropped"],
+            "prefills": res["prefills"], "decode_calls": res["decode_calls"],
+            "entropy_ema": res["entropy_ema"]}
+
+
+def phase_serve_slots(cfg, params, prompts, paged, counters):
+    """``serve-slots``: the serve phase's fault-free run from the slot pool
+    (``paged=False``, the CLI's ``--legacy-pool``): 2 replicas of
+    ``MAX_ACTIVE`` slots, so each decode step has the paged run's 8 rows,
+    and rows of ``MAX_LEN`` positions (the paged run's prefill length).
+    The streams must equal the paged run's token for token (the
+    reference's determinism contract), nothing dropped, the sentinel
+    quiet, no slot held after the run, launches held to the path (the
+    decode's attention is the paged kernel over a page view of the
+    rows)."""
+    for fn in counters.values():
+        fn.launches = 0
+    res = _serve(cfg, params, prompts, GEN, "cuda", paged=False,
+                 slots=MAX_ACTIVE)
+    launches = _serve_launches("serve-slots", counters, res, cfg.num_layers)
+    if res["dropped"] or None in res["streams"]:
+        raise AssertionError(f"serve-slots: dropped {res['dropped']}")
+    if res["failures"]:
+        raise AssertionError(f"serve-slots: a replica failed (decode "
+                             f"sentinel or heartbeat): {res['failures']}")
+    if res["streams"] != paged["streams"]:
+        diff = [i for i, (x, y) in enumerate(zip(res["streams"],
+                                                 paged["streams"]))
+                if x != y]
+        raise AssertionError(f"serve-slots: streams differ from the paged "
+                             f"run's for requests {diff}")
+    emit({"phase": "serve-slots", "arch": cfg.name, "layers": cfg.num_layers,
+          "replicas": 2, "slots": MAX_ACTIVE, "cache_len": MAX_LEN,
+          "requests": len(prompts), "gen": GEN, **_serve_summary(res),
+          "streams_equal_paged": True,
+          "sentinel_ceiling": 0.98 * math.log(cfg.padded_vocab),
+          "launches": launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return res, launches
+
+
+def phase_serve_standby(cfg, params, prompts, slots, counters):
+    """``serve-standby``: the serve-slots engine with one warm standby.
+    The parameters are saved once, raw, with ``CheckpointManager`` into a
+    temporary directory under ``build/`` (removed afterwards), and the
+    standby comes from ``make_standby_source``.  Replica 1 is killed at
+    ``KILL_STEP``: a ``standby_activated`` event after the failure,
+    nothing dropped, streams token-identical to the fault-free run, the
+    restored parameters bit-equal to the live ones leaf by leaf, launches
+    held to the path.  The restore blocks the engine's loop for seconds,
+    so the heartbeat timeout is wide (the injector kills, not the
+    monitor)."""
+    from repro_torch.core import CheckpointManager
+    from repro_torch.serve import make_standby_source
+
+    tmp = tempfile.mkdtemp(prefix="standby_", dir=_ckpt_root())
+    manager = CheckpointManager(tmp, fsync="none")
+    restored = {}
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save = manager.save(0, {"params": params})
+        save_s = time.perf_counter() - t0
+        source = make_standby_source(manager, params)
+
+        def standby():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restored["params"] = source()
+            torch.cuda.synchronize()
+            restored["seconds"] = time.perf_counter() - t0
+            return restored["params"]
+
+        for fn in counters.values():
+            fn.launches = 0
+        res = _serve(cfg, params, prompts, GEN, "cuda", paged=False,
+                     slots=MAX_ACTIVE, kill=True, standby=standby,
+                     heartbeat_timeout_factor=600.0)
+        launches = _serve_launches("serve-standby", counters, res,
+                                   cfg.num_layers)
+        events = res["events"]
+        if ("replica_failed" not in events or "standby_activated" not in
+                events[events.index("replica_failed"):]):
+            raise AssertionError(f"serve-standby: events {events}")
+        if len(res["failures"]) != 1:
+            raise AssertionError(f"serve-standby: failures "
+                                 f"{res['failures']}, want the kill alone")
+        if res["dropped"] or None in res["streams"]:
+            raise AssertionError(f"serve-standby: dropped {res['dropped']}")
+        if res["streams"] != slots["streams"]:
+            diff = [i for i, (x, y) in enumerate(zip(res["streams"],
+                                                     slots["streams"]))
+                    if x != y]
+            raise AssertionError(f"serve-standby: streams differ from the "
+                                 f"fault-free run's for requests {diff}")
+        if not _tree_equal(restored["params"], params):
+            raise AssertionError("serve-standby: the standby's parameters "
+                                 "differ from the live ones")
+        emit({"phase": "serve-standby", "arch": cfg.name,
+              "layers": cfg.num_layers, "replicas": 2, "slots": MAX_ACTIVE,
+              "requests": len(prompts), "gen": GEN, "kill_step": KILL_STEP,
+              **_serve_summary(res), "events": events,
+              "token_identical": True, "params_bit_equal": True,
+              "save_bytes": save.bytes_written,
+              "save_snapshot_s": save.snapshot_seconds,
+              "save_write_s": save.write_seconds, "save_s": save_s,
+              "restore_s": restored["seconds"], "launches": launches,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    finally:
+        restored.clear()
+        manager.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
 
 
 PREDRAIN_SPIKES = range(3, 15)     # engine steps replica 1 sleeps at
@@ -1573,16 +1772,8 @@ def phase_serve_predrain(cfg, params, prompts, fault_free, timed,
     res = _serve(cfg, params, prompts, GEN, "cuda", injector=injector,
                  obs=obs, risk_source=anomaly.risk_scores,
                  pre_drain_threshold=0.8)
-    launches = {k: fn.launches for k, fn in counters.items()}
     L = cfg.num_layers
-    want = {"rmsnorm": (2 * L + 1) * (res["prefills"] + res["decode_calls"]),
-            "flash_attention": L * res["prefills"],
-            "paged_attention": L * res["decode_calls"],
-            "selective_scan": 0}
-    if launches != want or min(v for k, v in launches.items()
-                               if want[k]) <= 0:
-        raise AssertionError(f"serve-predrain: launches {launches}, the "
-                             f"path implies {want}")
+    launches = _serve_launches("serve-predrain", counters, res, L)
     pre = res["predrained"]
     if [e["replica"] for e in pre] != [1]:
         steps_ms = [(e.data["replica"], round(e.data["seconds"] * 1e3, 1))
@@ -2994,8 +3185,8 @@ def main(argv=None) -> int:
     phase_build()
     cases = phase_kernels(args.seed, bw, flops, FP32_PEAKS[peaks(name)[0]])
     torch.cuda.empty_cache()
-    phase_tiny(args.seed)
-    serve, serve_predrain = phase_serve(args.seed)
+    phase_tiny_slots(args.seed, phase_tiny(args.seed))
+    serve = phase_serve(args.seed)
     # the serve engines hold reference cycles (the monitor's failure
     # callback and the router): collect them so that granite's weights
     # are freed before the Mamba phases
@@ -3028,13 +3219,15 @@ def main(argv=None) -> int:
     for kname, case_list in cases.items():
         main_case = next(c for c in case_list if c["main"])
         source, replaces = KERNELS[kname]
-        by_path = {"serve": serve.get(kname, 0),
+        by_path = {"serve": serve["serve"].get(kname, 0),
                    "train": train.get(kname, 0), "sdc": sdc[kname],
                    "abft": abft[kname],
                    "serve_ssm": serve_ssm.get(kname, 0),
                    "fwi": fwi[kname], "train_ssm": train_ssm[kname],
                    "train_obs": train_obs[kname],
-                   "serve_predrain": serve_predrain.get(kname, 0)}
+                   "serve_predrain": serve["serve_predrain"].get(kname, 0),
+                   "serve_slots": serve["serve_slots"].get(kname, 0),
+                   "serve_standby": serve["serve_standby"].get(kname, 0)}
         summary.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/{source}", "replaces": replaces,

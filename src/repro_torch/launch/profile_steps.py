@@ -1,8 +1,9 @@
 """Where a serve step's time goes on the card: one decode step over
 ``--max-active`` rows (paged, or over the slot pool's rows for a Mamba
-stack) and one prefill (padded to the pool's row for an attention stack,
-at the prompt's length for a Mamba stack), at full width with random
-weights, traced with ``torch.profiler``.
+stack), for an attention stack also one over as many slot-pool rows,
+and one prefill (padded to the pool's row for an attention stack, at the
+prompt's length for a Mamba stack), at full width with random weights,
+traced with ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_steps \\
         [--arch granite-3-8b] [--seed 0]
@@ -53,11 +54,13 @@ MATMUL_MARKS = ("gemm", "gemv", "xmma", "nvjet", "cutlass", "splitk")
 def serve_steps(cfg, params, *, device, seed: int = 0, max_active: int = 8,
                 page_size: int = 16, max_len: int = 288,
                 prompt_len: int = 200) -> Dict[str, Callable[[], object]]:
-    """The engine's two model calls at its shapes: ``decode`` advances
+    """The engine's model calls at its shapes: ``decode`` advances
     ``max_active`` rows (row 0 inactive) through their page tables,
-    ``prefill`` runs a ``prompt_len``-token prompt padded to ``max_len``
-    against a fresh cache row.  A Mamba stack's ``decode`` advances
-    ``max_active`` slot-pool rows and its ``prefill`` runs unpadded."""
+    ``slot_decode`` as many slot-pool rows at the same query positions
+    (reset before each call, which advances them), ``prefill`` runs a
+    ``prompt_len``-token prompt padded to ``max_len`` against a fresh
+    cache row.  A Mamba stack's ``decode`` advances ``max_active``
+    slot-pool rows and its ``prefill`` runs unpadded."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     if SSM in cfg.layer_kinds():
@@ -84,10 +87,18 @@ def serve_steps(cfg, params, *, device, seed: int = 0, max_active: int = 8,
              "lengths": lengths, "page_tables": tables}
     prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len),
                            generator=gen, device=device)
+    rows = init_cache(cfg, max_active, max_len, device)
     row = init_cache(cfg, 1, max_len, device)
     decode = make_paged_decode_step(cfg)
+    step = make_serve_decode_step(cfg)
     prefill = make_prefill_step(cfg, pad_to=max_len)
+
+    def slot_decode():
+        rows["index"].copy_(lengths)
+        return step(params, {"tokens": batch["tokens"]}, rows)
+
     return {"decode": lambda: decode(params, batch, pool),
+            "slot_decode": slot_decode,
             "prefill": lambda: prefill(params, {"tokens": prompt}, row)}
 
 

@@ -1,8 +1,9 @@
 """Serving driver: thin CLI over ``repro_torch.serve.ServeEngine`` —
-continuous batching over a block-paged KV cache with prefix sharing (or,
-for a Mamba stack, the slot pool of state rows), N replicas with
-heartbeat failover, decode-path SDC sentinel.  Runs on the card unless
-``--device cpu``.
+continuous batching over a block-paged KV cache with prefix sharing (the
+default wherever the stack can page; ``--legacy-pool`` forces the slot
+pool of contiguous rows, a Mamba stack's only pool), N replicas with
+heartbeat failover, warm standbys restored from a parameter checkpoint,
+decode-path SDC sentinel.  Runs on the card unless ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-8b \\
         --requests 8 --prompt-len 128 --gen 32 \\
@@ -11,6 +12,11 @@ heartbeat failover, decode-path SDC sentinel.  Runs on the card unless
 
     # the tiny config on the CPU (plain PyTorch versions of the kernels)
     PYTHONPATH=src python -m repro_torch.launch.serve --tiny --device cpu
+
+    # the slot pool on an attention stack; the only replica killed at
+    # step 2 and a warm standby restored from a checkpoint in its place
+    PYTHONPATH=src python -m repro_torch.launch.serve --tiny --device cpu \
+        --legacy-pool --standbys 1 --kill-replica-at 2
 
     # Mamba-1 through the slot pool (--slots rows a replica)
     PYTHONPATH=src python -m repro_torch.launch.serve \
@@ -27,17 +33,19 @@ from __future__ import annotations
 
 import argparse
 import os
+import shutil
 import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 from repro_torch.configs import ALL_ARCHS
-from repro_torch.core import FaultInjector
+from repro_torch.core import CheckpointManager, FaultInjector
 from repro_torch.models import get_config, init_params
 from repro_torch.obs import AnomalyEngine, Observability
-from repro_torch.serve import ServeEngine, pctl
+from repro_torch.serve import ServeEngine, make_standby_source, pctl
 
 
 def main(argv=None) -> int:
@@ -54,9 +62,16 @@ def main(argv=None) -> int:
     ap.add_argument("--replicas", type=int, default=1,
                     help="model replicas in the serving pool")
     ap.add_argument("--slots", type=int, default=4,
-                    help="sizes the default page pool: the memory of this "
-                    "many max-length rows, repaged; a Mamba stack's slot "
-                    "pool holds this many rows")
+                    help="KV-cache slots per replica (max in-flight "
+                    "requests each); the paged pool's default size is the "
+                    "memory of this many max-length rows, repaged")
+    pool = ap.add_mutually_exclusive_group()
+    pool.add_argument("--paged", action="store_true", default=None,
+                      dest="paged",
+                      help="block-paged KV cache with prefix sharing; the "
+                      "default wherever the model supports it")
+    pool.add_argument("--legacy-pool", action="store_false", dest="paged",
+                      help="force the slot pool of contiguous rows")
     ap.add_argument("--page-size", type=int, default=None,
                     help="tokens per KV page (default 16)")
     ap.add_argument("--num-pages", type=int, default=None,
@@ -67,9 +82,13 @@ def main(argv=None) -> int:
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable refcounted prefix sharing between "
                     "requests")
+    ap.set_defaults(paged=None)         # auto: paged where supported
     ap.add_argument("--fault-tolerant", action="store_true",
                     help="heartbeat monitoring + decode sentinel + "
                     "failover (re-execute drained requests on survivors)")
+    ap.add_argument("--standbys", type=int, default=0,
+                    help="warm standbys restored from a params checkpoint "
+                    "on failure (implies --fault-tolerant)")
     ap.add_argument("--kill-replica-at", type=int, default=-1,
                     help="inject a replica kill at this engine step "
                     "(drives the failover path end to end)")
@@ -112,14 +131,34 @@ def main(argv=None) -> int:
                          num_replicas=args.replicas,
                          slots_per_replica=args.slots,
                          max_len=args.prompt_len + args.gen,
-                         fault_tolerant=args.fault_tolerant,
+                         fault_tolerant=(args.fault_tolerant
+                                         or args.standbys > 0),
                          fault_injector=injector, obs=obs,
                          risk_source=risk_source,
                          pre_drain_threshold=args.risk_threshold,
-                         num_pages=args.num_pages,
+                         paged=args.paged, num_pages=args.num_pages,
                          max_active=args.max_active,
                          prefix_cache=not args.no_prefix_cache, **paged_kw)
+    ckpt_dir = manager = None
+    try:
+        if args.standbys > 0:
+            # warm-standby params come back through restore_latest — the
+            # walk-back-past-corruption path training recovery uses
+            ckpt_dir = tempfile.mkdtemp(prefix="serve_standby_")
+            manager = CheckpointManager(ckpt_dir, fsync="none")
+            manager.save(0, {"params": params})
+            for _ in range(args.standbys):
+                engine.add_standby(make_standby_source(manager, params))
+        return _serve_requests(args, cfg, engine, obs)
+    finally:
+        engine.shutdown()
+        if manager is not None:
+            manager.close()
+        if ckpt_dir is not None:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
 
+
+def _serve_requests(args, cfg, engine, obs) -> int:
     rng = np.random.default_rng(args.seed + 100)
     for _ in range(args.requests):
         prompt = rng.integers(0, cfg.vocab_size, size=args.prompt_len)
@@ -178,7 +217,6 @@ def main(argv=None) -> int:
             obs.registry.to_json(args.metrics_snapshot)
             print(f"metrics snapshot: {args.metrics_snapshot}")
         obs.close()
-    engine.shutdown()
     return 0 if len(results) == args.requests else 1
 
 

@@ -79,7 +79,8 @@ def decode_mha(q, k_cache, v_cache, cache_pos, cur_pos, *, window=0,
     """Single-token decode attention against a KV cache.
 
     q: (B,1,H,hd); k_cache/v_cache: (B,Sc,K,hd);
-    cache_pos: (Sc,) int — absolute position stored in each slot (-1 empty);
+    cache_pos: (Sc,) int shared by the rows, or (B,Sc) int, each row's own
+    — the absolute position stored in each slot (-1 empty);
     cur_pos: int or (B,) int tensor — absolute position of each query token.
     """
     B, _, H, hd = q.shape
@@ -90,7 +91,7 @@ def decode_mha(q, k_cache, v_cache, cache_pos, cur_pos, *, window=0,
     logits = torch.einsum("bkgd,btkd->bkgt", qq.float(), k_cache.float())
     logits = _softcap(logits, softcap)
     cur = torch.as_tensor(cur_pos, device=q.device).reshape(-1, 1)  # (B|1,1)
-    pos = cache_pos[None, :]
+    pos = cache_pos if cache_pos.dim() == 2 else cache_pos[None, :]
     ok = (pos >= 0) & (pos <= cur)
     if window and window > 0:
         ok = ok & (cur - pos < window)

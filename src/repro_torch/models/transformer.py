@@ -20,9 +20,9 @@ Modes of ``forward``:
                      row from ``init_cache``) the row's k/v/pos, or an SSM
                      layer's conv and scan state, are filled in place.
   ``decode``       — one token per cache row against contiguous rows
-                     (the slot pool, ``serve/cache_pool.py``), the state
-                     advanced in place.  SSM layers only: contiguous-row
-                     attention decode waits for ROADMAP item 9.
+                     (the slot pool, ``serve/cache_pool.py``, or a
+                     lockstep batch cache), the state advanced in place:
+                     each row at its own position (``cache["index"]``).
   ``paged_decode`` — one token per request against the shared page pool
                      (``init_paged_cache``) through per-request page
                      tables; this step's k/v land in the pool in place.
@@ -45,7 +45,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+from repro_torch.kernels.paged_attention.ops import (paged_decode_attention,
+                                                     row_decode_attention,
+                                                     row_page_table)
 from repro_torch.layers.mlp import dot, mlp_apply, mlp_init
 from repro_torch.layers.norms import rms_norm
 from repro_torch.layers.rope import apply_rope, make_positions
@@ -213,10 +215,13 @@ def init_train_params(cfg: ModelConfig, *, seed: int, device=None) -> Params:
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device) -> Dict[str, Any]:
     """Fresh contiguous cache rows: per attention layer k/v
-    (batch, sc, K, hd) and ``pos`` (sc,) = -1 (empty), LOCAL layers with a
-    rolling window of ``min(cache_len, window)`` slots; per SSM layer the
-    conv state (batch, W-1, Di) in the compute dtype and the scan state
-    ``h`` (batch, Di, N) float32, zero."""
+    (batch, sc, K, hd) and ``pos`` (batch, sc) = -1 (empty), LOCAL layers
+    with a rolling window of ``min(cache_len, window)`` slots; per SSM
+    layer the conv state (batch, W-1, Di) in the compute dtype and the
+    scan state ``h`` (batch, Di, N) float32, zero.  ``index`` (batch,)
+    int32 is each row's next position (the reference's ``cache["index"]``,
+    one a row as under its vmap over slots); ``cache_len`` is kept beside
+    it (a rolling layer's rows are shorter)."""
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     layers = []
     for kind in cfg.layer_kinds():
@@ -230,8 +235,11 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                              device=device),
             "v": torch.zeros(batch, sc, kv, hd, dtype=cfg.dtype,
                              device=device),
-            "pos": torch.full((sc,), -1, dtype=torch.int32, device=device)})
-    return {"layers": layers}
+            "pos": torch.full((batch, sc), -1, dtype=torch.int32,
+                              device=device)})
+    return {"layers": layers,
+            "index": torch.zeros(batch, dtype=torch.int32, device=device),
+            "cache_len": cache_len}
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
@@ -251,19 +259,48 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
 
 def _fill_cache(entry: Dict[str, torch.Tensor], k: torch.Tensor,
                 v: torch.Tensor, n: int) -> None:
-    """Write the first ``n`` positions' k/v into a fresh cache row."""
+    """Write the first ``n`` positions' k/v into fresh cache rows (``n``
+    is the prompt's real length, never the padded one)."""
     sc = entry["k"].shape[1]
     if sc >= n:
         entry["k"][:, :n] = k[:, :n]
         entry["v"][:, :n] = v[:, :n]
-        entry["pos"][:n] = torch.arange(n, dtype=torch.int32,
-                                        device=k.device)
+        entry["pos"][:, :n] = torch.arange(n, dtype=torch.int32,
+                                           device=k.device)
     else:                                        # rolling window cache
         tail = torch.arange(n - sc, n, device=k.device)
         slots = tail % sc
         entry["k"][:, slots] = k[:, n - sc:n]
         entry["v"][:, slots] = v[:, n - sc:n]
-        entry["pos"][slots] = tail.to(torch.int32)
+        entry["pos"][:, slots] = tail.to(torch.int32)
+
+
+class _RowDecode:
+    """One contiguous-row decode step, shared by its layers: each row's
+    query position ``cur`` (B,) int32, and per row length ``sc`` (full
+    rows, rolling rows) the slots this step writes and, on the card, the
+    rows' page view (``row_page_table``), each built once a step."""
+
+    def __init__(self, cur: torch.Tensor, cache_len: int):
+        self.cur = cur
+        self.cache_len = cache_len
+        self.rows = torch.arange(cur.shape[0], device=cur.device)
+        self._slots: Dict[int, torch.Tensor] = {}
+        self._tables: Dict[int, Any] = {}
+
+    def slots(self, sc: int) -> torch.Tensor:
+        if sc not in self._slots:
+            self._slots[sc] = (self.cur % sc).long()
+        return self._slots[sc]
+
+    def table(self, sc: int):
+        if self.cur.device.type == "cpu":
+            return None
+        if sc not in self._tables:
+            self._tables[sc] = row_page_table(self.cur.shape[0], sc,
+                                              self.cache_len,
+                                              self.cur.device)
+        return self._tables[sc]
 
 
 # --------------------------------------------------------------------------
@@ -284,6 +321,7 @@ def _project(h: torch.Tensor, w: torch.Tensor,
 def _attn_apply(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig,
                 positions: torch.Tensor, *, entry=None, n_valid: int = 0,
                 pages=None, layer: int = 0, paged=None,
+                rows: Optional[_RowDecode] = None,
                 impl: Optional[str] = None) -> torch.Tensor:
     a = p["attn"]
     B, S, _ = x.shape
@@ -309,6 +347,18 @@ def _attn_apply(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig,
         o = paged_decode_attention(q, kp, vp, page_tables, lengths,
                                    window=window, softcap=cfg.attn_softcap,
                                    scale=scale)
+    elif rows is not None:                     # decode, contiguous rows
+        # each row r writes its k/v at slot cur[r] % sc and records the
+        # position there (a rolling row overwrites its oldest slot)
+        sc = entry["k"].shape[1]
+        slot = rows.slots(sc)
+        entry["k"][rows.rows, slot] = k[:, 0]
+        entry["v"][rows.rows, slot] = v[:, 0]
+        entry["pos"][rows.rows, slot] = rows.cur
+        o = row_decode_attention(q, entry["k"], entry["v"], entry["pos"],
+                                 rows.cur, cache_len=rows.cache_len,
+                                 window=window, softcap=cfg.attn_softcap,
+                                 scale=scale, table=rows.table(sc))
     else:
         o = flash_attention(q, k, v, causal=(kind != BIDIR), window=window,
                             softcap=cfg.attn_softcap, scale=scale)
@@ -412,7 +462,9 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     are real (the rest is padding past them, which causal attention keeps
     out of every real position) and only those enter the cache; an SSM
     stack refuses padding, which would run through its state.
-    ``decode`` takes (B, 1) tokens and B cache rows.  ``paged_decode``
+    ``decode`` takes (B, 1) tokens and B cache rows; row r's token sits
+    at position ``cache["index"][r]``, which prefill sets to the prompt's
+    real length and each decode advances by one.  ``paged_decode``
     carries ``lengths`` (R,) int32, each row's query position, and
     ``page_tables`` (R, MPR) int32.  ``impl="abft"`` (train mode)
     checksums the projections."""
@@ -430,6 +482,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
         x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
                            device=x.device)
     paged = None
+    rows = None
     positions = None
     if mode == "paged_decode":
         if SSM in kinds:
@@ -447,11 +500,8 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     elif mode == "decode":
         if S != 1 or cache is None:
             raise ValueError("decode takes (B, 1) tokens and B cache rows")
-        if any(k != SSM for k in kinds):
-            raise NotImplementedError(
-                f"{cfg.name}: decode over contiguous attention rows waits "
-                "for its slice (ROADMAP.md, 'Modules to port', item 9: 'The "
-                "rest of serving'); attention stacks decode paged")
+        rows = _RowDecode(cache["index"], cache["cache_len"])
+        positions = rows.cur.long()[:, None]                   # (B, 1)
     elif mode == "prefill":
         if n_valid != S and SSM in kinds:
             raise ValueError(f"{cfg.name}: an SSM stack prefills at the "
@@ -471,5 +521,9 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
         x = _attn_apply(params["layers"][i], x, kind, cfg, positions,
                         entry=entry, n_valid=n_valid,
                         pages=cache if paged is not None else None,
-                        layer=i, paged=paged)
+                        layer=i, paged=paged, rows=rows)
+    if mode == "prefill" and cache is not None:
+        cache["index"].fill_(n_valid)
+    elif mode == "decode":
+        cache["index"] += 1
     return _logits_out(cfg, params, x), cache

@@ -1,21 +1,25 @@
 """Slot-based cache pool: one cache row per in-flight request.
 
 The pool holds ``num_slots`` independent rows of a stack's decode state
-as the batch rows of one cache (``init_cache(cfg, num_slots, ...)``); the
-engine advances all of them in one batched decode step.  The reference
-stacks B=1 rows on a new axis and vmaps the step over it, because its
-attention rows carry their own positions; the state of a Mamba layer has
-no position, so a batch dimension is the same computation.  Contiguous
-attention rows (per-row positions) wait for ROADMAP item 9, and the pool
-refuses them.
+as the batch rows of one cache (``init_cache(cfg, num_slots,
+cache_len, ...)``); the engine advances all of them in one batched
+decode step.  The reference stacks B=1 rows on a new axis and vmaps the
+step over it, so that each row carries its own ``index``/``pos``; here
+each row carries them in the batch cache itself (``index`` (num_slots,),
+an attention layer's ``pos`` (num_slots, sc)), and the decode step
+(``models.transformer.forward``, mode ``decode``) writes and attends each
+row at its own position.  A Mamba layer's state has no position.
 
 Slot lifecycle (the reference's order): ``acquire`` hands the lowest free
 slot to a request at prefill admission; the prefill runs against a FRESH
 B=1 row and ``write_row`` copies the filled row into the slot, which also
-overwrites whatever a previous occupant left there; ``release`` recycles
-the slot when the request completes or drains, ``release_all`` when the
-replica dies.  Inactive slots keep decoding on stale state; their outputs
-are ignored.
+overwrites whatever a previous occupant left there (stale ``pos``
+entries from a longer earlier request would otherwise be attended once
+the new request's position passes them); ``release`` recycles the slot
+when the request completes or drains, ``release_all`` when the replica
+dies.  Inactive slots keep decoding on stale state, their positions
+running on past ``cache_len`` (the decode wraps their writes and clamps
+their reads); their outputs are ignored.
 """
 from __future__ import annotations
 
@@ -30,17 +34,18 @@ class PoolExhausted(RuntimeError):
 
 
 class CachePool:
-    def __init__(self, cfg, num_slots: int, device):
+    """``cache_len``: the positions of an attention row (an SSM layer's
+    row has no sequence axis and ignores it)."""
+
+    def __init__(self, cfg, num_slots: int, device, cache_len: int = 0):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
-        if any(k != SSM for k in cfg.layer_kinds()):
-            raise NotImplementedError(
-                f"{cfg.name}: the slot pool holds SSM state rows; "
-                "contiguous attention rows wait for ROADMAP.md item 9")
+        if cache_len < 1 and any(k != SSM for k in cfg.layer_kinds()):
+            raise ValueError(f"{cfg.name} has attention layers: its slot "
+                             f"rows need cache_len >= 1, got {cache_len}")
         self.cfg = cfg
         self.num_slots = num_slots
-        # SSM state rows have no sequence axis: no cache length
-        self.cache = init_cache(cfg, num_slots, 0, device)
+        self.cache = init_cache(cfg, num_slots, cache_len, device)
         self._free: List[int] = list(range(num_slots - 1, -1, -1))
         self._owner: Dict[int, int] = {}       # slot -> rid
 
@@ -87,8 +92,10 @@ class CachePool:
     # ------------------------------------------------------------------
     def write_row(self, slot: int, row_cache: Any) -> None:
         """Copy a filled B=1 cache (prefill output) into ``slot``, in
-        place: the whole row is overwritten, so slot recycling never
+        place: every tensor of the row (k, v, pos, an SSM layer's state,
+        the position counter) is overwritten, so slot recycling never
         leaks a previous request's state."""
         for dst, src in zip(self.cache["layers"], row_cache["layers"]):
             for name, t in dst.items():
                 t[slot].copy_(src[name][0])
+        self.cache["index"][slot].copy_(row_cache["index"][0])

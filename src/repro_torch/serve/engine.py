@@ -1,8 +1,8 @@
 """The dependable serving engine: continuous batching + replicated failover.
 
 One ``ServeEngine`` owns a request ``Scheduler``, a ``ReplicaRouter`` over
-N model replicas (each with its own cache pool: block-paged KV for
-attention stacks, the slot pool of state rows for Mamba stacks), and —
+N model replicas (each with its own cache pool: block-paged KV, or the
+slot pool of contiguous rows), and —
 when ``fault_tolerant`` — a ``HeartbeatMonitor`` the replicas beat into.
 Each engine step, per healthy replica:
 
@@ -41,9 +41,9 @@ step timings (``telemetry/replica_step``) so the drift detector can
 attribute slowdowns to hosts.
 
 ``paged=None`` pages wherever the stack can (attention-only); a Mamba
-stack takes the slot pool.  The slot pool over attention rows
-(``paged=False`` on an attention stack) waits for a later slice
-(ROADMAP.md, "Modules to port", item 9).
+stack takes the slot pool.  ``paged=False`` forces the slot pool on an
+attention stack too (the CLI's ``--legacy-pool``): at equal decode
+shapes its greedy streams equal the paged pool's bit for bit.
 """
 from __future__ import annotations
 
@@ -56,18 +56,13 @@ import numpy as np
 from repro_torch.core.failures import CorruptionDetected, SimulatedFailure
 from repro_torch.core.heartbeat import HeartbeatMonitor
 from repro_torch.device import resolve_device
-from repro_torch.models.base import FULL, LOCAL, SSM
+from repro_torch.models.base import FULL, LOCAL
 from repro_torch.obs import Observability
 from repro_torch.sdc import DecodeSentinel
 from repro_torch.serve.page_table import DEFAULT_PAGE_SIZE, PageExhausted
 from repro_torch.serve.replica import Replica, ServeFns
 from repro_torch.serve.router import NoHealthyReplicasError, ReplicaRouter
 from repro_torch.serve.scheduler import DECODE, Scheduler
-
-_SLOT_POOL_ITEM = ("the slot pool over attention rows waits for its slice "
-                   "(ROADMAP.md, 'Modules to port', item 9: 'The rest of "
-                   "serving')")
-
 
 def _supports_paging(cfg) -> bool:
     """Paged KV needs an attention-only decode stack (SSM state has no
@@ -109,16 +104,12 @@ class ServeEngine:
             raise ValueError(f"{cfg.name} is encoder-only; cannot serve "
                              "autoregressive decode")
         # the paged pool wherever the stack supports it; the slot pool
-        # otherwise (the SSM fallback)
+        # otherwise (the SSM fallback) or when asked for
         if paged is None:
             paged = _supports_paging(cfg)
         elif paged and not _supports_paging(cfg):
             raise ValueError(f"{cfg.name} cannot page its KV cache "
                              "(non-attention decode state)")
-        if not paged and any(k != SSM for k in cfg.layer_kinds()):
-            raise NotImplementedError(
-                f"{cfg.name}: attention stacks serve from the paged KV "
-                "stack only; " + _SLOT_POOL_ITEM)
         self.cfg = cfg
         self.paged = paged
         self.obs = obs if obs is not None else Observability()

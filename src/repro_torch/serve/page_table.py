@@ -1,10 +1,10 @@
 """Block-paged KV cache: free-page allocator, per-request page tables,
 refcounted prefix cache.
 
-A slot pool (the reference's serve/cache_pool.py, still to port) gives
-every in-flight request a contiguous ``max_len`` cache row — concurrency
-is capped at ``num_slots`` and a short request wastes the whole row.  The
-paged pool instead shares ONE device pool of ``num_pages`` pages of
+A slot pool (``serve/cache_pool.py``) gives every in-flight request a
+contiguous ``max_len`` cache row — concurrency is capped at
+``num_slots`` and a short request wastes the whole row.  The paged pool
+instead shares ONE device pool of ``num_pages`` pages of
 ``page_size`` tokens per attention layer (``models.init_paged_cache``,
 stacked over layers as (L, P, ps, K, hd)); each request holds a *page table*
 mapping its logical positions onto physical pages (logical position
@@ -77,7 +77,7 @@ def _write_pages(pages, row, page_ids, start_page: int) -> None:
          * ps + torch.arange(ps, device=dev)[None, :])          # (n, ps)
     for li, entry in enumerate(row["layers"]):
         src = t % entry["k"].shape[1]
-        valid = (entry["pos"][src] == t)[..., None, None]
+        valid = (entry["pos"][0][src] == t)[..., None, None]
         for name in ("k", "v"):
             vals = torch.where(valid, entry[name][0][src],
                                torch.zeros((), dtype=entry[name].dtype,

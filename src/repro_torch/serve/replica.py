@@ -10,11 +10,19 @@ run at one fixed length (the page-aligned ``cache_len``, see
 into the ``PagedKVCache``.  Decode is ONE batched step over all
 ``max_active`` rows through their page tables.
 
-Slot pool (``paged=False``, Mamba stacks): prefill is B=1 at the prompt's
-own length against a fresh row (padding would run through the scan
-state; a retry re-prefills the same prompt at the same shape), copied
-into a ``CachePool`` slot.  Decode is ONE batched step over all
-``num_slots`` rows.
+Slot pool (``paged=False``; Mamba stacks always): prefill is B=1
+against a fresh row, copied into a ``CachePool`` slot.  An attention
+stack's rows hold ``cache_len`` positions (``max_len`` rounded up to a
+whole number of ``DEFAULT_PAGE_SIZE`` pages) and its prefill runs at
+that one length, the paged path's prefill shape, so that at equal decode
+shapes the slot pool's streams equal the paged pool's bit for bit (the
+reference's contract).  A stack with SSM layers prefills at the prompt's
+own length (padding would run through the scan state; a retry
+re-prefills the same prompt at the same shape).  Decode is ONE batched
+step over all ``num_slots`` rows, each at its own position.
+
+Warm standbys (``make_standby_source``) restore the parameters from the
+newest checkpoint that verifies, through ``CheckpointManager``.
 
 Either way every decode call has the same shapes whatever rows are live
 — a row's tokens do not depend on which row it sits in or who shares the
@@ -29,6 +37,7 @@ import torch
 
 from repro_torch.core.heartbeat import HeartbeatEmitter
 from repro_torch.models import init_cache
+from repro_torch.models.base import SSM
 from repro_torch.sdc import DecodeSentinel
 from repro_torch.serve.cache_pool import CachePool
 from repro_torch.serve.page_table import DEFAULT_PAGE_SIZE, PagedKVCache
@@ -41,7 +50,8 @@ class ServeFns:
     engine.  ``paged=True``: the pool is the reference's equal-memory
     default, the slot pool's budget of ``num_slots`` rows of ``max_len``
     tokens repaged into ``page_size``-token pages (+1 for the reserved
-    null page).  ``paged=False``: a ``CachePool`` of ``num_slots`` rows."""
+    null page).  ``paged=False``: a ``CachePool`` of ``num_slots`` rows
+    of ``cache_len`` positions."""
 
     def __init__(self, cfg, num_slots: int, max_len: int, device,
                  paged: bool = True,
@@ -55,9 +65,15 @@ class ServeFns:
         self.max_len = max_len
         self.paged = paged
         if not paged:
-            self.cache_len = max_len
-            self.prefill = make_prefill_step(cfg)
             self.decode = make_serve_decode_step(cfg)
+            if SSM in cfg.layer_kinds():
+                self.cache_len = max_len
+                self.prefill = make_prefill_step(cfg)
+            else:
+                # the paged path's one prefill shape (train/serve.py)
+                self.cache_len = (-(-max_len // DEFAULT_PAGE_SIZE)
+                                  * DEFAULT_PAGE_SIZE)
+                self.prefill = make_prefill_step(cfg, pad_to=self.cache_len)
             return
         self.page_size = page_size
         self.pages_per_row = -(-max_len // page_size)
@@ -76,7 +92,8 @@ class ServeFns:
 
     def make_pool(self, registry=None):
         if not self.paged:
-            return CachePool(self.cfg, self.num_slots, self.device)
+            return CachePool(self.cfg, self.num_slots, self.device,
+                             cache_len=self.cache_len)
         return PagedKVCache(self.cfg, self.num_pages, self.page_size,
                             self.cache_len, self.max_active,
                             prefix=self.prefix_cache, registry=registry,
@@ -167,4 +184,25 @@ class Replica:
                 {k: v.cpu().numpy() for k, v in stats.items()})
 
 
-__all__ = ["Replica", "ServeFns"]
+def restore_standby_params(manager, like) -> Tuple[Any, int]:
+    """Warm-standby restore path: pull the newest verifying params
+    checkpoint through ``CheckpointManager.restore_latest`` (walks back
+    past CRC-corrupt checkpoints exactly like training recovery does).
+    ``like``: template tree of the params; each leaf is restored onto its
+    template's device.  Returns (params, step)."""
+    state, _local, step, _skipped = manager.restore_latest(
+        like={"params": like})
+    return state["params"], step
+
+
+def make_standby_source(manager, like):
+    """Returns a zero-arg callable the router uses to materialize a warm
+    standby's params on activation."""
+    def source():
+        params, _ = restore_standby_params(manager, like)
+        return params
+    return source
+
+
+__all__ = ["Replica", "ServeFns", "restore_standby_params",
+           "make_standby_source"]

@@ -63,7 +63,11 @@ def logit_stats(cfg: ModelConfig,
 def make_decode_step(cfg: ModelConfig) -> Callable:
     """``decode_step(params, batch, cache) -> (next_tok (B,), cache)``:
     one token per contiguous cache row (``batch["tokens"]`` (B, 1)), the
-    rows advanced in place."""
+    rows advanced in place.  Over a lockstep cache (``init_cache(cfg, B,
+    cache_len)`` filled by a B-row prefill, as the reference's
+    ``examples/serve_lm.py`` drives it) every row sits at the same
+    position; each row keeps its own position all the same (its
+    ``cache["index"]``), so the step also serves the slot pool."""
     def decode_step(params, batch, cache):
         logits, cache = forward(cfg, params, batch, mode="decode",
                                 cache=cache)
@@ -77,7 +81,9 @@ def make_serve_decode_step(cfg: ModelConfig) -> Callable:
     """Decode step for the slot pool (serve/cache_pool.py): next token,
     the cache advanced in place, and the per-row logit stats the decode
     sentinel guards.  The reference vmaps its step over the pool's slot
-    axis; here the slots are the batch rows of one step."""
+    axis; here the slots are the batch rows of one step, each written
+    and attended at its own position (attention rows) or advanced from
+    its own state (Mamba rows)."""
     def decode_step(params, batch, cache):
         logits, cache = forward(cfg, params, batch, mode="decode",
                                 cache=cache)

@@ -364,6 +364,117 @@ def test_tiny_engine_on_the_card_matches_the_cpu(cuda):
     assert streams[0] == streams[1]
 
 
+def _row_case(rng, B, sc, cache_len, K, G, hd, dtype, device):
+    """Contiguous cache rows of ``sc`` slots, each row at its own query
+    position (``cur``, up to ``cache_len - 1``; a rolling row past ``sc``
+    holds its last ``sc`` positions at slot t mod sc), as the decode
+    leaves them."""
+    cur = np.linspace(0, cache_len - 1, B).astype(np.int64)
+    pos = np.full((B, sc), -1, np.int32)
+    for r in range(B):
+        for t in range(max(0, cur[r] - sc + 1), cur[r] + 1):
+            pos[r, t % sc] = t
+    q = _randn(rng, (B, 1, K * G, hd), dtype, device)
+    k = _randn(rng, (B, sc, K, hd), dtype, device)
+    v = _randn(rng, (B, sc, K, hd), dtype, device)
+    return (q, k, v, torch.from_numpy(pos).to(device),
+            torch.from_numpy(cur.astype(np.int32)).to(device))
+
+
+def _rows_as_pages(rng, k_rows, v_rows, pos, cur, cache_len, ps):
+    """The same rows scattered into a real pool of ``ps``-token pages on
+    shuffled physical pages (position t of row r on page table[r, t // ps]),
+    with noise wherever a row holds no position."""
+    B, sc, K, hd = k_rows.shape
+    mpr = -(-cache_len // ps)
+    table = rng.permutation(np.arange(1, B * mpr + 1)).reshape(B, mpr)
+    kp, vp = (_randn(rng, (B * mpr + 1, ps, K, hd), k_rows.dtype,
+                     k_rows.device) for _ in range(2))
+    pos_h, cur_h = pos.cpu().numpy(), cur.cpu().numpy()
+    for r in range(B):
+        for t in range(cur_h[r] + 1):
+            if pos_h[r, t % sc] == t:
+                kp[table[r, t // ps], t % ps] = k_rows[r, t % sc]
+                vp[table[r, t // ps], t % ps] = v_rows[r, t % sc]
+    return kp, vp, torch.from_numpy(table.astype(np.int32)).to(k_rows.device)
+
+
+@pytest.mark.parametrize("arch", ["granite-3-8b", "gemma2-27b"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_row_decode_view_matches_pages_and_plain(cuda, arch, dtype):
+    """Decode over contiguous rows runs the paged kernel through a view
+    of the rows as pages: bit-equal to the kernel over the same k/v
+    scattered into real pages, within tolerance of ``decode_mha``.  Tiny
+    granite's rows are full length (an identity table); tiny gemma2's
+    LOCAL rows roll over its window of 8 (a wrapping table)."""
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_decode_attention, row_decode_attention, row_page_table)
+    from repro_torch.layers.attention import decode_mha
+    from repro_torch.models import get_config
+
+    cfg = get_config(arch, tiny=True)
+    K, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    G = cfg.num_heads // K
+    cache_len = 48
+    window = cfg.window if cfg.window else 0
+    sc = window if window else cache_len
+    kw = dict(window=window, softcap=cfg.attn_softcap)
+    rng = np.random.default_rng(11)
+    q, k, v, pos, cur = _row_case(rng, 6, sc, cache_len, K, G, hd, dtype,
+                                  cuda)
+    ps, table = row_page_table(6, sc, cache_len, cuda)
+    assert sc % ps == 0 and table.shape == (6, -(-cache_len // ps))
+    if sc == cache_len:
+        assert torch.equal(table - table[:, :1],
+                           torch.arange(cache_len // ps, device=cuda,
+                                        dtype=torch.int32).expand(6, -1))
+    before = paged_attention_rhd.launches
+    got = row_decode_attention(q, k, v, pos, cur, cache_len=cache_len, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention_rhd.launches == before + 1
+    kp, vp, tbl = _rows_as_pages(rng, k, v, pos, cur, cache_len, 4)
+    want = paged_decode_attention(q, kp, vp, tbl, cur, **kw)
+    assert torch.equal(got, want)
+    _close(got, decode_mha(q, k, v, pos, cur, **kw), TOL[dtype])
+    # an idle row past cache_len reads a clamped length and leaves the
+    # other rows' bits alone
+    idle = cur.clone()
+    idle[0] = cache_len + 5
+    again = row_decode_attention(q, k, v, pos, idle, cache_len=cache_len,
+                                 **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(again[1:], got[1:])
+    assert torch.isfinite(again.float()).all()
+
+
+def test_tiny_bf16_slot_streams_equal_paged_streams(cuda):
+    """The serving determinism contract on the card: tiny bf16 granite
+    from the slot pool gives the paged pool's greedy streams (equal
+    decode shapes, one prefill shape), and its decode launches the paged
+    kernel a layer a step."""
+    from repro_torch.models import get_config, init_params
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("granite-3-8b", tiny=True)
+    params = init_params(cfg, seed=0, device=cuda)
+    prompts = [[5, 9, 2, 77, 3, 1, 8, 100], [5, 9, 2, 77, 60],
+               [5, 9, 2, 77, 3, 1, 8, 100], list(range(20, 33)),
+               [200, 3], list(range(40, 61))]
+    streams = []
+    for paged in (True, False):
+        eng = ServeEngine(cfg, params, device=cuda, slots_per_replica=4,
+                          max_len=40, paged=paged)
+        before = paged_attention_rhd.launches
+        rids = [eng.submit(p, 8) for p in prompts]
+        out = eng.run()
+        steps = sum(r.steps for r in eng.router.replicas.values())
+        eng.shutdown()
+        assert paged_attention_rhd.launches - before == \
+            cfg.num_layers * steps
+        streams.append([out[r] for r in rids])
+    assert streams[0] == streams[1]
+
+
 def _close_grad(got, want, tol):
     want = want.float()
     atol = tol * max(1e-30, float(want.abs().max()))

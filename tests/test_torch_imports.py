@@ -139,10 +139,21 @@ def test_non_cpu_tensors_never_take_the_plain_version():
 
 
 def test_paged_engine_only():
+    """An attention stack pages by default; ``paged=False`` serves it from
+    the slot pool."""
     from repro_torch.models import get_config, init_params
-    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import CachePool, PagedKVCache, ServeEngine
 
     cfg = get_config("granite-3-8b", tiny=True)
     params = init_params(cfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(cfg, params, device="cpu", paged=False)
+    eng = ServeEngine(cfg, params, device="cpu", max_len=16)
+    assert eng.paged
+    assert isinstance(eng.router.replicas[0].pool, PagedKVCache)
+    eng.shutdown()
+    eng = ServeEngine(cfg, params, device="cpu", max_len=16, paged=False)
+    assert not eng.paged
+    assert isinstance(eng.router.replicas[0].pool, CachePool)
+    rid = eng.submit([3, 1, 4], 3)
+    out = eng.run()
+    eng.shutdown()
+    assert len(out[rid]) == 3

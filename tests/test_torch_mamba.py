@@ -264,8 +264,12 @@ def test_modes_the_mamba_slice_refuses():
     with pytest.raises(ValueError, match="page"):
         forward(tcfg, params, {"tokens": toks[:, :1]}, mode="paged_decode",
                 cache={})
+    # attention stacks decode over contiguous rows too
     gcfg = get_config("granite-3-8b", tiny=True)
     gparams = init_params(gcfg, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        forward(gcfg, gparams, {"tokens": toks[:, :1]}, mode="decode",
-                cache=init_cache(gcfg, 1, 8, "cpu"))
+    row = init_cache(gcfg, 1, 8, "cpu")
+    logits, row = forward(gcfg, gparams, {"tokens": toks[:, :1]},
+                          mode="decode", cache=row)
+    assert logits.shape == (1, 1, gcfg.padded_vocab)
+    assert row["index"].tolist() == [1]
+    assert row["layers"][0]["pos"][0, :2].tolist() == [0, -1]

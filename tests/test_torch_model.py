@@ -119,7 +119,7 @@ def test_prefill_and_paged_decode_match_jax(variant, dtype, use_pallas):
                 _close(tc["layers"][i][name], _jax_layer(jc, jcfg, i, name),
                        tol)
             np.testing.assert_array_equal(
-                tc["layers"][i]["pos"].numpy(),
+                tc["layers"][i]["pos"][0].numpy(),
                 np.asarray(_jax_layer(jc, jcfg, i, "pos")))
         rows.append([{n: _np(_jax_layer(jc, jcfg, i, n))
                       for n in ("k", "v", "pos")} for i in range(L)])

@@ -96,7 +96,10 @@ def test_greedy_streams_equal_the_jax_engine(weights, use_pallas):
 def test_replica_kill_drops_nothing_and_retries_token_identical(weights):
     _, tparams = weights
     prompts = _prompts()
-    kw = dict(ENGINE, num_replicas=2, fault_tolerant=True)
+    # the kill is injected; a wide heartbeat timeout keeps host
+    # scheduling from failing the survivor too
+    kw = dict(ENGINE, num_replicas=2, fault_tolerant=True,
+              heartbeat_timeout_factor=40.0)
     clean = _run(ServeEngine(TCFG, tparams, device="cpu", **kw), prompts)
     inj = FaultInjector()
     inj.schedule_replica_kill(3, replica_id=1)
@@ -120,7 +123,10 @@ def test_jax_engine_kill_matches_the_port_kill(weights):
     same requests drain and every stream is the uninterrupted one."""
     jparams, tparams = weights
     prompts = _prompts()
-    kw = dict(ENGINE, num_replicas=2, fault_tolerant=True)
+    # the kill is injected; a wide heartbeat timeout keeps host
+    # scheduling from failing the survivor too
+    kw = dict(ENGINE, num_replicas=2, fault_tolerant=True,
+              heartbeat_timeout_factor=40.0)
     drained = []
     for make, inj in ((lambda i: JaxServeEngine(JCFG, jparams,
                                                 fault_injector=i, **kw),

@@ -178,14 +178,17 @@ def test_write_row_overwrites_the_whole_slot():
     for layer in pool.cache["layers"]:
         for t in layer.values():
             t.fill_(7.0)
+    pool.cache["index"].fill_(7)
     row = {"layers": [{n: torch.full_like(t[:1], float(i))
                        for n, t in layer.items()}
-                      for i, layer in enumerate(pool.cache["layers"])]}
+                      for i, layer in enumerate(pool.cache["layers"])],
+           "index": torch.tensor([5], dtype=torch.int32)}
     pool.write_row(1, row)
     for i, layer in enumerate(pool.cache["layers"]):
         for t in layer.values():
             assert torch.all(t[1] == float(i))
             assert torch.all(t[0] == 7.0) and torch.all(t[2] == 7.0)
+    assert pool.cache["index"].tolist() == [7, 5, 7]
 
 
 def test_ssm_stack_cannot_page_and_defaults_to_slots(weights):
@@ -196,9 +199,15 @@ def test_ssm_stack_cannot_page_and_defaults_to_slots(weights):
     assert not eng.paged
     assert isinstance(eng.router.replicas[0].pool, CachePool)
     eng.shutdown()
+    # an attention stack's slot rows need a length, and get one
     gcfg = get_config("granite-3-8b", tiny=True)
-    with pytest.raises(NotImplementedError, match="attention"):
+    with pytest.raises(ValueError, match="cache_len"):
         CachePool(gcfg, 2, "cpu")
+    pool = CachePool(gcfg, 2, "cpu", cache_len=16)
+    k = pool.cache["layers"][0]["k"]
+    assert k.shape == (2, 16, gcfg.num_kv_heads, gcfg.resolved_head_dim)
+    assert pool.cache["layers"][0]["pos"].shape == (2, 16)
+    assert pool.cache["index"].shape == (2,)
 
 
 def test_cli_serves_the_mamba_slice():
