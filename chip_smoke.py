@@ -155,7 +155,49 @@ ends the run with a non-zero exit code and no result line:
                  train phase's protected run (int8 device codec, async
                  saves every 2, a fail-stop at step 5), launch counters
                  held to the path (a scan forward a layer twice and a
-                 scan backward once a microbatch).
+                 scan backward once a microbatch);
+18. ``tiny-moe`` — tiny mixtral in float32, the engine's streams and the
+                 ``launch/serve_lm`` lockstep streams on the card equal to
+                 the CPU's;
+19. ``serve-moe`` — mixtral-8x7b at full width (4 of 32 layers): the
+                 ``launch/serve_lm`` twin (8 x 256 tokens in lockstep, 32
+                 new), then 2 paged replicas serving the serve phase's 8
+                 requests fault-free and with replica 1 killed at step 5:
+                 nothing dropped, launches held to each path, the decode
+                 sentinel's entropy under its ceiling; then
+                 ``steps-moe``;
+20. ``elastic`` — granite-3-8b at full width (2 of 40 layers, S 1024,
+                 global batch 8) on 4 ranks sharing the card (2 hosts x 2
+                 ranks, gloo over host memory, ``sharding/launch.py``)
+                 through ``run_elastic``: host 1's heartbeats stop after
+                 step 3 (the mesh shrinks (2, 2) -> (1, 2), resharded
+                 from the pause's checkpoint) and start again after step
+                 5 (it grows back): the events and grids ``largest_grid``
+                 gives, no step lost, each step's loss and gradient norm
+                 within 1e-2 (absolute; relative for the norm) of an
+                 uninterrupted single-rank run at the same learning rate
+                 (its peak from step 1), each step's change of the
+                 parameters' sum of squares within 1e-2 of that run's
+                 mean change a step from the change its step makes,
+                 every restore bit-equal to
+                 the save it came from (a position hash of every leaf over
+                 the mesh), launches held to the path;
+21. ``elastic-moe`` — mixtral-8x7b at full width (1 of 32 layers), (2, 2,
+                 2) over 4 hosts x 2 ranks, experts degraded, host 1
+                 killed after step 3: the survivor grid, the degraded
+                 experts and the manifest's mesh equal ``best_grid3d``'s,
+                 no step lost, each step's loss, gradient norm and
+                 change of the parameters' sum of squares within 1e-2 of
+                 a single-rank run that degrades the same experts at the
+                 same step,
+                 the restores bit-equal, launches held;
+22. ``compress`` — ``compressed_psum`` of one granite-3-8b layer's
+                 float32 gradient leaves over 2 ranks for 8 rounds: the
+                 reduced values the rank-order mean of the peers'
+                 dequantized payloads bit for bit, the residual exactly
+                 ``g_eff - deQ(Q(g_eff))``, the long-run mean converging,
+                 quantize and dequantize launches counted, its ms beside
+                 a plain gloo all-reduce of the same leaves.
 
 The kernel phase also holds selective_scan to its plain version within
 1e-5 + 1e-5 |want| (tests/test_kernels.py) at the serve shape (B 1,
@@ -183,7 +225,7 @@ also without programmatic dependent launch.
 
 Then the kernels summary (one JSON object, launches by path: serve,
 train, sdc, abft, serve_ssm, fwi, train_ssm, train_obs, serve_predrain,
-serve_slots, serve_standby),
+serve_slots, serve_standby, serve_moe, elastic, elastic_moe, compress),
 the ``nvidia-smi`` line,
 and the last line
 ``{"ok": true, "device": {...}}``.
@@ -1878,7 +1920,7 @@ def phase_steps(cfg, params, seed: int, calls: int = 10,
                 "prefill_scan_device_ms_before": PREFILL_SCAN_BEFORE})
     out["decode_kernels_device_ms"] = {k: groups.get(k, 0.0)
                                        for k in STEP_GROUPS}
-    out["decode_kernels_device_ms_before"] = STEP_GROUPS_BEFORE[phase]
+    out["decode_kernels_device_ms_before"] = STEP_GROUPS_BEFORE.get(phase)
     emit(out)
 
 
@@ -3162,6 +3204,696 @@ def phase_fwi():
     return launches
 
 
+# --------------------------------------------------------------------------
+# slice 8: MoE serving, elastic meshes over ranks, the compressed reduction
+# --------------------------------------------------------------------------
+
+# serve-moe: mixtral-8x7b at full width, depth cut to 4 of 32 layers
+# (2.90 GB of bf16 a layer: 32 need 93.6 GB)
+MOE_SERVE_LAYERS = 4
+MOE_LM_BATCH = 8                 # the launch/serve_lm twin: 8 x 256, 32 new
+# elastic: granite-3-8b at full width, 2 of 40 layers, on 2 hosts x 2 ranks
+ELASTIC_LAYERS = 2
+ELASTIC_SEQ = 1024
+ELASTIC_BATCH = 8
+ELASTIC_STEPS = 7
+ELASTIC_KILL = 3                 # host 1's beats stop after this step
+ELASTIC_BACK = 5                 # and start again after this one
+# elastic-moe: mixtral-8x7b at full width, 1 of 32 layers, (2, 2, 2) over
+# 4 hosts x 2 ranks; each rank's 4 rows in 4 microbatches (8 ranks share
+# the card and each keeps its own allocator's peak; the weights are
+# gathered once a step whatever the microbatches)
+EMOE_LAYERS = 1
+EMOE_STEPS = 5
+EMOE_KILL = 3
+EMOE_MICRO = 4
+HEARTBEAT = 0.05                 # s; the monitor's timeout is 40 periods
+# the mesh runs against a single-rank run at the same learning rate, at
+# its peak from step 1 (no warm-up): each step's loss within
+# ELASTIC_LOSS_TOL of the reference's, its gradient norm within
+# ELASTIC_GNORM_RTOL of it, and the change that the step makes to the
+# parameters' sum of squares (float64) within ELASTIC_UPDATE_RTOL of the
+# reference step's change, relative to the reference's mean change a step
+# (a step that updates nothing, or applies another update, misses it)
+ELASTIC_WARMUP = 0
+ELASTIC_LOSS_TOL = 1e-2
+ELASTIC_GNORM_RTOL = 1e-2
+ELASTIC_UPDATE_RTOL = 1e-2
+# compress: one granite-3-8b layer's gradient leaves on 2 ranks, 8 rounds
+COMPRESS_RANKS = 2
+COMPRESS_ROUNDS = 8
+_HASH_MOD = 2 ** 31 - 1
+
+
+def phase_tiny_moe(seed: int):
+    """``tiny-moe``: tiny mixtral in float32 on the card (kernels) and on
+    the CPU (plain versions), one set of weights: the engine's greedy
+    streams and the ``launch/serve_lm`` lockstep streams agree token for
+    token."""
+    from repro_torch.launch.serve_lm import generate
+    from repro_torch.models import get_config, init_params
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b", tiny=True),
+                              dtype=torch.float32)
+    cpu = init_params(cfg, seed=seed, device="cpu")
+    gpu = _tree_to(cpu, "cuda")
+    prompts = _prompts(cfg.vocab_size, seed, (16, 24, 32))
+    kw = dict(replicas=1, max_len=48, max_active=4)
+    want = _serve(cfg, cpu, prompts, 8, "cpu", **kw)
+    got = _serve(cfg, gpu, prompts, 8, "cuda", **kw)
+    if got["streams"] != want["streams"] or None in got["streams"]:
+        raise AssertionError(f"tiny-moe: float32 streams differ between "
+                             f"the card and the CPU:\n{got['streams']}\n"
+                             f"{want['streams']}")
+    g = torch.Generator().manual_seed(seed)
+    batch = torch.randint(0, cfg.vocab_size, (4, 24), generator=g,
+                          dtype=torch.int32)
+    lm_cpu = generate(cfg, cpu, batch, 8, "cpu")["tokens"]
+    lm_gpu = generate(cfg, gpu, batch.cuda(), 8, "cuda")["tokens"].cpu()
+    if not torch.equal(lm_cpu, lm_gpu):
+        raise AssertionError("tiny-moe: lockstep streams differ between "
+                             "the card and the CPU")
+    emit({"phase": "tiny-moe", "requests": len(prompts),
+          "tokens": sum(len(s) for s in got["streams"]),
+          "streams_equal_cpu": True, "lockstep_equal_cpu": True})
+
+
+def phase_serve_moe(seed: int):
+    """``serve-moe``: mixtral-8x7b at full width (MOE_SERVE_LAYERS of 32
+    layers, random weights from ``seed``): the ``launch/serve_lm`` twin
+    (8 prompts of 256 tokens in lockstep, 32 new), then ``ServeEngine``
+    with 2 paged replicas serving the serve phase's 8 requests, fault-free
+    and with replica 1 killed at engine step 5 (an MoE decode routes the
+    whole batch as one token axis, so a retried request may lose or
+    regain an expert slot: the streams are counted, not held equal; see
+    ROADMAP), launches held to each path, the decode sentinel's entropy
+    beside its ceiling, and ``steps-moe`` (a decode and a prefill step,
+    eager against device time)."""
+    from repro_torch.launch.serve_lm import generate
+    from repro_torch.models import get_config, init_params
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"),
+                              num_layers=MOE_SERVE_LAYERS)
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("rmsnorm", "flash_attention", "paged_attention",
+                         "selective_scan")}
+    g = torch.Generator().manual_seed(seed)
+    batch = torch.randint(0, cfg.vocab_size, (MOE_LM_BATCH, 256),
+                          generator=g, dtype=torch.int32).cuda()
+    for fn in counters.values():
+        fn.launches = 0
+    lm = generate(cfg, params, batch, GEN, "cuda")
+    lm_launches = {k: fn.launches for k, fn in counters.items()}
+    want = {"rmsnorm": (2 * L + 1) * GEN, "flash_attention": L,
+            "paged_attention": L * (GEN - 1), "selective_scan": 0}
+    if lm_launches != want:
+        raise AssertionError(f"serve-moe lockstep: launches {lm_launches}, "
+                             f"the path implies {want}")
+    if tuple(lm["tokens"].shape) != (MOE_LM_BATCH, GEN) or not bool(
+            ((lm["tokens"] >= 0) & (lm["tokens"] < cfg.vocab_size)).all()):
+        raise AssertionError("serve-moe lockstep: tokens out of range")
+    emit({"phase": "serve-moe", "run": "lockstep", "arch": cfg.name,
+          "layers": L, "d_model": cfg.d_model, "experts": cfg.num_experts,
+          "top_k": cfg.experts_per_token, "batch": MOE_LM_BATCH,
+          "prompt_len": 256, "gen": GEN, "prefill_ms": lm["prefill_s"] * 1e3,
+          "decode_ms_per_step": lm["decode_s"] * 1e3 / (GEN - 1),
+          "launches": lm_launches, "weights_init_s": init_s})
+    prompts = _prompts(cfg.vocab_size, seed, PROMPT_LENS)
+    ceiling = 0.98 * math.log(cfg.padded_vocab)
+    runs = {}
+    total = dict.fromkeys(counters, 0)
+    for label, kill in (("fault_free", False), ("replica_kill", True)):
+        for fn in counters.values():
+            fn.launches = 0
+        res = _serve(cfg, params, prompts, GEN, "cuda", kill=kill)
+        launches = _serve_launches(f"serve-moe {label}", counters, res, L)
+        for k, v in launches.items():
+            total[k] += v
+        if res["dropped"] or None in res["streams"]:
+            raise AssertionError(f"serve-moe {label}: dropped "
+                                 f"{res['dropped']}")
+        if kill != bool(res["failures"]):
+            raise AssertionError(f"serve-moe {label}: replica failures "
+                                 f"{res['failures']}")
+        runs[label] = res
+        emit({"phase": "serve-moe", "run": label, **_serve_summary(res),
+              "replica_failures": len(res["failures"]),
+              "sentinel_ceiling": ceiling, "launches": launches,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        if max(res["entropy_ema"]) >= ceiling:
+            raise AssertionError("serve-moe: decode entropy at the "
+                                 "sentinel's ceiling")
+    a, b = runs["fault_free"], runs["replica_kill"]
+    differ = [i for i, (x, y) in enumerate(zip(a["streams"], b["streams"]))
+              if x != y]
+    emit({"phase": "serve-moe", "streams_differing_after_kill": differ,
+          "retried": b["retried"]})
+    phase_steps(cfg, params, seed, phase="steps-moe")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: lm_launches[k] + total[k] for k in counters}
+
+
+def _pos_hash(x: torch.Tensor, spans, gshape) -> int:
+    """A leaf shard's share of the leaf's position-weighted word hash
+    mod 2^31 - 1 (each 32-bit word times 2 i + 1, i its flat index in
+    the whole leaf): the shares of a leaf's shards add up to the same
+    number on any mesh iff the leaf's bits are the same."""
+    from repro_torch.kernels.block_hash.ref import words_view
+
+    if x.ndim == 0:
+        idx = torch.zeros((), dtype=torch.int64, device=x.device)
+    else:
+        strides = [1] * len(gshape)
+        for d in range(len(gshape) - 2, -1, -1):
+            strides[d] = strides[d + 1] * int(gshape[d + 1])
+        idx = torch.zeros((1,) * x.ndim, dtype=torch.int64, device=x.device)
+        for d, ((a, b), st) in enumerate(zip(spans, strides)):
+            shape = [1] * x.ndim
+            shape[d] = b - a
+            idx = idx + (torch.arange(a, b, device=x.device) * st).view(shape)
+    w = words_view(x).reshape(-1) % _HASH_MOD
+    wt = ((2 * idx.reshape(-1) + 1) % _HASH_MOD).expand_as(w) \
+        if idx.numel() == 1 else (2 * idx.reshape(-1) + 1) % _HASH_MOD
+    return int(((w * wt) % _HASH_MOD).sum().item() % _HASH_MOD)
+
+
+def _param_sq(params, own=None) -> torch.Tensor:
+    """The sum of squares of the parameter leaves in float64 (only the
+    leaves ``own`` marks, where given), a 0-dim tensor on their device."""
+    from repro_torch.tree import leaves
+
+    xs = leaves(params)
+    own = [True] * len(xs) if own is None else own
+    total = torch.zeros((), dtype=torch.float64, device=xs[0].device)
+    for x, o in zip(xs, own):
+        if o:
+            total += x.detach().to(torch.float64).square_().sum()
+    return total
+
+
+def _state_hashes(state, shardings, like):
+    """Every leaf's position hash over the mesh (each shard counted once,
+    by its replica 0), the same on every rank of the mesh."""
+    from repro_torch.sharding import comm
+    from repro_torch.tree import flatten_named, leaves
+
+    shs = leaves(shardings)
+    mesh = shs[0].mesh
+    parts = []
+    for (_, x), sh, (_, g) in zip(flatten_named(state), shs,
+                                  flatten_named(like)):
+        own = sh.replica_id() == 0
+        parts.append(_pos_hash(x, sh.spans(tuple(g.shape)), tuple(g.shape))
+                     if own else 0)
+    t = torch.tensor(parts, dtype=torch.int64)
+    total = comm.ordered_sum(t, mesh.group(mesh.axis_names)) % _HASH_MOD
+    return [int(v) for v in total]
+
+
+def _rank_elastic(world, mode: str, ckpt: str, seed: int):
+    """One rank of ``elastic`` (granite-3-8b, 2 hosts x 2 ranks, (2, 2),
+    host 1's beats stop after ELASTIC_KILL steps and start again after
+    ELASTIC_BACK) or ``elastic-moe`` (mixtral-8x7b, 4 hosts x 2 ranks,
+    (2, 2, 2), experts degraded, host 1 killed after EMOE_KILL steps).
+    Returns the rank's history, events, launches, step times, peak
+    memory, the collectives' seconds and bytes, and the state hashes at
+    each pause's save and each restore."""
+    import json as _json
+
+    from repro_torch.core import (Dependability, DependabilityConfig,
+                                  HeartbeatEmitter, MeshSpec, run_elastic)
+    from repro_torch.data import ShardedPipeline
+    from repro_torch.launch.mesh import host_device_map
+    from repro_torch.models import get_config
+    from repro_torch.sharding import comm
+    from repro_torch.train import init_state
+    from repro_torch.train.mesh_step import (init_sharded_state,
+                                             make_mesh_train_step,
+                                             state_shardings)
+    from repro_torch.tree import leaves
+
+    moe = mode == "elastic-moe"
+    cfg = dataclasses.replace(
+        get_config("mixtral-8x7b" if moe else "granite-3-8b"),
+        num_layers=EMOE_LAYERS if moe else ELASTIC_LAYERS)
+    nh = 4 if moe else 2
+    steps = EMOE_STEPS if moe else ELASTIC_STEPS
+    kill_at = EMOE_KILL if moe else ELASTIC_KILL
+    micro = EMOE_MICRO if moe else 1
+    hosts = host_device_map(nh)
+    r0 = world.rank == 0
+    dep = Dependability(DependabilityConfig(
+        checkpoint_dir=ckpt, policy_mode="every_n", every_n=10 ** 6,
+        fsync="none", heartbeat=r0, heartbeat_period=HEARTBEAT,
+        heartbeat_timeout_factor=40.0, signal_detection=False,
+        monitor_hosts=nh)).start()
+    if r0:
+        world.publish("monaddr", _json.dumps(list(dep.monitor.addr)))
+    addr = tuple(_json.loads(world.fetch("monaddr")))
+    my_host = next(h for h, rs in hosts.items() if world.rank in rs)
+    em = (HeartbeatEmitter(my_host, addr, HEARTBEAT).start()
+          if hosts[my_host][0] == world.rank and my_host != 0 else None)
+    like = init_state(cfg, seed=seed, device="meta")
+    spec = (MeshSpec.from_config(cfg, data=2, model=2, expert=2)
+            if moe else None)
+
+    def shardings_for(mesh, dead=()):
+        ep = mesh.shape.get("expert", 1)
+        return state_shardings(cfg, mesh, moe_ep=(ep if ep > 1 else False))
+
+    def make_step(mesh, dead=()):
+        c = dataclasses.replace(cfg, dead_experts=tuple(dead))
+        sh = shardings_for(mesh, dead)
+        fn = make_mesh_train_step(c, mesh, sh, like,
+                                  warmup_steps=ELASTIC_WARMUP,
+                                  total_steps=steps, microbatches=micro,
+                                  donate=True)
+        own = [s.replica_id() == 0 for s in leaves(sh["params"])]
+        group = mesh.group(mesh.axis_names)
+
+        def param_sq(state):
+            # each shard counted once, summed over the mesh in rank order
+            rec["param_sq"].append([int(state["step"]), float(
+                comm.ordered_sum(_param_sq(state["params"], own), group))])
+
+        def step(state, batch):
+            if not rec["param_sq"]:
+                param_sq(state)              # the initial state
+            state, m = fn(state, batch)
+            param_sq(state)
+            return state, m
+        return step
+
+    def init(mesh, sh):
+        return init_sharded_state(cfg, sh, seed=seed, device=world.device,
+                                  world=world, ranks=mesh.ranks())
+
+    data = ShardedPipeline(cfg, ELASTIC_SEQ, ELASTIC_BATCH, dp_width=2)
+
+    def wait_for(pred, what, timeout=120.0):
+        t = time.monotonic()
+        while not pred():
+            if time.monotonic() - t > timeout:
+                raise TimeoutError(f"rank {world.rank}: {what}")
+            time.sleep(0.01)
+
+    rec = {"saved": [], "restored": [], "step_s": [], "comm": [],
+           "param_sq": []}
+    mark = {"t": None}
+
+    def on_metrics(s, r):
+        rec["step_s"].append([s, r["seconds"]])
+        rec["comm"].append(comm.stats())
+        comm.reset_stats()
+        if s == kill_at and not world.has("killed"):
+            if em is not None and my_host == 1:
+                em.pause()                   # host 1's fail-stop
+            if r0:
+                wait_for(lambda: 1 in dep.monitor.failed_hosts(),
+                         "host 1's failure detected")
+                world.publish("killed", "1")
+        if (not moe and s == ELASTIC_BACK and r0
+                and not world.has("resume")):
+            world.publish("resume", "1")
+            wait_for(lambda: world.has("resumed"), "host 1 resumed")
+            wait_for(lambda: dep.on_host_rejoin.pending() == [1],
+                     "host 1's rejoin detected")
+
+    def on_idle():
+        if (em is not None and world.has("resume")
+                and not world.has("resumed")):
+            em.resume()
+            world.publish("resumed", "1")
+
+    save, restore = dep.save, dep.restore_latest
+
+    def hashed_save(step, state, **kw):
+        out = save(step, state, **kw)
+        if kw.get("final"):
+            rec["saved"].append([step, _state_hashes(
+                state, dep._global_shardings, like)])
+        return out
+
+    def hashed_restore(**kw):
+        t = time.perf_counter()
+        state, got = restore(**kw)
+        torch.cuda.synchronize()
+        rec["restored"].append([got, time.perf_counter() - t,
+                                _state_hashes(state, kw["shardings"], like)])
+        return state, got
+
+    dep.save, dep.restore_latest = hashed_save, hashed_restore
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    comm.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, info = run_elastic(
+        dep, make_step, init, data, steps, world=world, host_devices=hosts,
+        model_axis=2, mesh_spec=spec, degrade_experts=moe, like=like,
+        shardings_fn=shardings_for, on_metrics=on_metrics, on_idle=on_idle,
+        control_timeout=600.0)
+    wall = time.perf_counter() - t0
+    if moe and state is not None:
+        # a save on the survivor mesh: its manifest records that grid
+        dep.save(steps, state)
+    out = {"rank": world.rank, "status": info["status"],
+           "events": [dataclasses.asdict(e) for e in info["events"]],
+           "history": info["history"], "wall_s": wall,
+           "launches": {k: fn.launches for k, fn in counters.items()},
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "meta": dep.manager.manifest_meta(dep.manager.latest_step()),
+           "member": state is not None, **rec}
+    if em is not None:
+        em.stop()
+    dep.stop()
+    return out
+
+
+def _single_rank_run(cfg, steps, micro, seed, dead_at=None, dead=()):
+    """The elastic runs' reference: an uninterrupted run on one rank of the
+    same global batches at the same learning rate, its losses, gradient
+    norms and the parameters' sums of squares (the initial one first);
+    from step ``dead_at`` on the config degrades ``dead`` experts."""
+    from repro_torch.data import ShardedPipeline
+    from repro_torch.train import init_state, make_train_step
+
+    data = ShardedPipeline(cfg, ELASTIC_SEQ, ELASTIC_BATCH, dp_width=1)
+    kw = dict(warmup_steps=ELASTIC_WARMUP, total_steps=steps,
+              microbatches=micro)
+    live = make_train_step(cfg, **kw)
+    degraded = make_train_step(dataclasses.replace(cfg, dead_experts=dead),
+                               **kw)
+    state = init_state(cfg, seed=seed, device="cuda")
+    losses, norms, sq = [], [], [float(_param_sq(state["params"]))]
+    for s in range(1, steps + 1):
+        fn = degraded if dead_at is not None and s > dead_at else live
+        state, m = fn(state, data.next_batch())
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        sq.append(float(_param_sq(state["params"])))
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, norms, sq
+
+
+def _run_ranks(fn, n, args, timeout):
+    """``sharding.launch.spawn`` with the card's memory handed back first
+    (every rank keeps its own allocator) and expandable segments."""
+    from repro_torch.sharding.launch import spawn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "ranks", "fn": fn.__name__, "ranks": n,
+          "parent_allocated_gb": torch.cuda.memory_allocated() / 1e9,
+          "parent_reserved_gb": torch.cuda.memory_reserved() / 1e9})
+    prev = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    run_dir = tempfile.mkdtemp(dir=_ckpt_root(), prefix="ranks_")
+    try:
+        return spawn(fn, n, run_dir=run_dir, args=args, device="cuda",
+                     join_timeout=timeout)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+        if prev is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = prev
+
+
+def _comm_totals(rec):
+    tot = {}
+    for snap in rec["comm"]:
+        for op, v in snap.items():
+            t = tot.setdefault(op, {"calls": 0, "seconds": 0.0, "bytes": 0})
+            for k in t:
+                t[k] += v[k]
+    return tot
+
+
+def phase_elastic(seed: int, mode: str):
+    """``elastic`` / ``elastic-moe`` on ranks sharing the card (gloo over
+    host memory: a collective's time here says nothing of a network's
+    bandwidth).  Checks: the events, the survivor grid (and for MoE the
+    degraded experts and the manifest's mesh) equal what ``best_grid3d``
+    and ``largest_grid`` give; no step lost; every loss finite, and each
+    step's loss and gradient norm within ELASTIC_LOSS_TOL (absolute) and
+    ELASTIC_GNORM_RTOL (relative) of an uninterrupted single-rank run of
+    the same batches at the same learning rate (MoE: degrading the same
+    experts at the same step), and the change each step makes to the
+    parameters' sum of squares within ELASTIC_UPDATE_RTOL (of that run's
+    mean change a step) of the change that run's step makes (the loss
+    moves too little on these random batches to show a step that updates
+    nothing); the state's
+    position hash at each pause's save equal to the hash of the shards
+    restored from it (bit-equal, on another mesh); launches held to the
+    path."""
+    from repro_torch.chaos import invariants as inv
+    from repro_torch.core import MeshSpec, best_grid3d, largest_grid
+    from repro_torch.models import get_config
+
+    moe = mode == "elastic-moe"
+    n = 8 if moe else 4
+    cfg = dataclasses.replace(
+        get_config("mixtral-8x7b" if moe else "granite-3-8b"),
+        num_layers=EMOE_LAYERS if moe else ELASTIC_LAYERS)
+    steps = EMOE_STEPS if moe else ELASTIC_STEPS
+    micro = EMOE_MICRO if moe else 1
+    ckpt = tempfile.mkdtemp(dir=_ckpt_root(), prefix=mode + "_")
+    t0 = time.perf_counter()
+    try:
+        out = _run_ranks(_rank_elastic, n, (mode, ckpt, seed), 900.0)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    lead = out[0]
+    kinds = [(e["kind"], tuple(e["hosts"]), (e["dp"], e["tp"], e["ep"]))
+             for e in lead["events"]]
+    if moe:
+        spec = MeshSpec.from_config(cfg, data=2, model=2, expert=2)
+        live = cfg.num_experts - cfg.num_experts // 2
+        grid = best_grid3d(6, spec.with_experts(live))
+        want = [("shrink", (1,), grid)]
+        dead = list(range(cfg.num_experts // 2))
+        want_meta = {"dp": grid[0], "tp": grid[1], "ep": grid[2],
+                     "moe_ep": grid[2], "dead_experts": dead}
+        deg = [h["event"] for h in lead["history"]
+               if str(h.get("event", "")).startswith("degraded_experts")]
+        want_deg = [f"degraded_experts:{','.join(map(str, dead))}"
+                    f":live={live}"]
+        if deg != want_deg:
+            raise AssertionError(f"elastic-moe: degraded {deg}, want "
+                                 f"{want_deg}")
+    else:
+        small = largest_grid(2, 2)
+        want = [("shrink", (1,), (small[0], 1, 1)),
+                ("grow", (1,), (largest_grid(4, 2)[0], 1, 1))]
+        # the newest save is the grow's pause, taken on the shrunk mesh
+        want_meta = {"dp": small[0], "tp": small[1], "ep": 1,
+                     "moe_ep": False, "dead_experts": []}
+    if kinds != want or lead["meta"] != want_meta:
+        raise AssertionError(f"{mode}: events {kinds} meta {lead['meta']}, "
+                             f"want {want} {want_meta}")
+    for r in out:
+        if r["status"] != "done" or r["events"] != lead["events"]:
+            raise AssertionError(f"{mode}: rank {r['rank']} {r['status']} "
+                                 f"{r['events']}")
+    losses = [h["loss"] for h in lead["history"] if "loss" in h]
+    norms = [h["grad_norm"] for h in lead["history"] if "loss" in h]
+    lost = inv.check_no_lost_steps(lead["history"], steps)
+    if not bool(lost) or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{mode}: steps {lost} losses {losses}")
+    # the pause's saves against the restores from them, on every rank
+    saved = {s: h for s, h in lead["saved"]}
+    for r in out:
+        for got, _, h in r["restored"]:
+            if saved.get(got) != h:
+                raise AssertionError(f"{mode}: rank {r['rank']} restored "
+                                     f"step {got} with other bits than "
+                                     f"were saved")
+    restores = sorted({(got, round(s, 3)) for r in out
+                       for got, s, _ in r["restored"]})
+    fail_step = lead["events"][0]["step"]
+    ref, ref_norms, ref_sq = _single_rank_run(
+        cfg, steps, micro, seed, dead_at=fail_step if moe else None,
+        dead=tuple(range(cfg.num_experts // 2)) if moe else ())
+    tm = inv.check_trajectory_match(losses, ref, tol=ELASTIC_LOSS_TOL)
+    norm_gap = [abs(a - b) / b for a, b in zip(norms, ref_norms)]
+    # a step run again after a restore: its last record counts
+    sq = dict((k, v) for k, v in lead["param_sq"])
+    ref_d = [ref_sq[k] - ref_sq[k - 1] for k in range(1, steps + 1)]
+    scale = sum(abs(d) for d in ref_d) / steps
+    update_gap = [abs(sq.get(k, math.nan) - sq.get(k - 1, math.nan) - d)
+                  / scale for k, d in enumerate(ref_d, 1)]
+    bad = [] if bool(tm) else [f"trajectory {tm}"]
+    if not max(norm_gap) <= ELASTIC_GNORM_RTOL:
+        bad.append(f"gradient norms off the single-rank run's by {norm_gap}")
+    if not all(g <= ELASTIC_UPDATE_RTOL for g in update_gap):
+        bad.append(f"the steps' changes of the parameters' sum of squares "
+                   f"off the single-rank run's by {update_gap} of them")
+    # launches held to the path: every step each member ran
+    ran = sum(len(r["step_s"]) for r in out)
+    launches = {k: sum(r["launches"][k] for r in out)
+                for k in out[0]["launches"]}
+    want_l = _train_launches(cfg.num_layers, micro, ran)
+    for k in launches:
+        if launches[k] != want_l.get(k, 0):
+            raise AssertionError(f"{mode}: launches {launches}, the path "
+                                 f"implies {want_l}")
+    comm_tot = _comm_totals(lead)
+    step_s = [t for _, t in lead["step_s"]]
+    # the record first, so that a failed comparison shows its numbers
+    emit({"phase": mode, "arch": cfg.name, "layers": cfg.num_layers,
+          "ranks": n, "seq": ELASTIC_SEQ, "global_batch": ELASTIC_BATCH,
+          "microbatches": micro,
+          "events": [dict(e, hosts=list(e["hosts"])) for e in lead["events"]],
+          "history_events": [h["event"] for h in lead["history"]
+                             if "event" in h],
+          "manifest_mesh": lead["meta"], "losses": losses,
+          "single_rank_losses": ref,
+          "trajectory_max_diff": max(abs(a - b) for a, b in zip(losses, ref)),
+          "grad_norms": norms, "single_rank_grad_norms": ref_norms,
+          "grad_norm_max_rel_diff": max(norm_gap),
+          "param_sq": [sq.get(k) for k in range(steps + 1)],
+          "single_rank_param_sq": ref_sq, "update_rel_gap": update_gap,
+          "restores": restores, "restored_bit_equal": True,
+          "step_s_rank0": step_s,
+          "comm_rank0": comm_tot,
+          "comm_s_per_step_rank0": sum(v["seconds"] for v in
+                                       comm_tot.values()) / len(step_s),
+          "transport": "gloo over host memory, every rank on one card",
+          "peak_gb_by_rank": [round(r["peak_gb"], 3) for r in out],
+          "launches": launches, "wall_s": wall})
+    if bad:
+        raise AssertionError(f"{mode}: " + "; ".join(bad))
+    return launches
+
+
+def _rank_compress(world, seed: int, rounds: int):
+    """One rank of ``compress``: granite-3-8b's layer-0 gradient leaves
+    (float32, random from ``seed`` and the rank), ``compressed_psum``
+    over the ranks for ``rounds`` rounds, each checked against its
+    definition on the card; then the same leaves through gloo's plain
+    all-reduce, timed."""
+    from repro_torch.kernels.ckpt_codec.kernel import (dequantize_blocks,
+                                                       quantize_blocks)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_config
+    from repro_torch.optim.compress import (compressed_psum, ef_state_init,
+                                            quantize_int8)
+    from repro_torch.sharding import comm
+
+    cfg = get_config("granite-3-8b")
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+    h, kv = cfg.num_heads, cfg.num_kv_heads
+    shapes = {"ln1": (d,), "wq": (d, h, hd), "wk": (d, kv, hd),
+              "wv": (d, kv, hd), "wo": (h, hd, d), "w_in": (d, f),
+              "w_gate": (d, f), "w_out": (f, d)}
+    mesh = make_host_mesh(world.size, 1, rank=world.rank,
+                          device=world.device)
+    mesh.init_groups()
+    group = mesh.group(("data",))
+    gen = torch.Generator(device="cuda").manual_seed(seed * 131 + world.rank)
+    ef = ef_state_init({k: torch.empty(s, device="cuda")
+                        for k, s in shapes.items()})
+    total_red = {k: torch.zeros(s, device="cuda") for k, s in shapes.items()}
+    total_g = {k: torch.zeros(s, device="cuda") for k, s in shapes.items()}
+    n = world.size
+    q_launch, dq_launch = quantize_blocks, dequantize_blocks
+    q_launch.launches = dq_launch.launches = 0
+    times = []
+    for _ in range(rounds):
+        grads = {k: torch.randn(s, generator=gen, device="cuda") *
+                 (1e-3 if k == "ln1" else 1.0) for k, s in shapes.items()}
+        g_eff = {k: grads[k] + ef[k] for k in shapes}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        red, new_ef = compressed_psum(grads, ef, group)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        launches_q, launches_dq = q_launch.launches, dq_launch.launches
+        for k in shapes:
+            # the definition, by plain products on the card
+            q, sc, _ = quantize_int8(g_eff[k])
+            deq_own = (q.float() * sc[:, None]).reshape(-1)[
+                :g_eff[k].numel()].reshape(g_eff[k].shape)
+            if not torch.equal(new_ef[k], g_eff[k] - deq_own):
+                raise AssertionError(f"compress: residual of {k} is not "
+                                     "g_eff - deQ(Q(g_eff))")
+            qs, ss = comm.all_gather(q, group), comm.all_gather(sc, group)
+            acc = None
+            for qr, sr in zip(qs, ss):
+                dr = (qr.float() * sr[:, None]).reshape(-1)[
+                    :g_eff[k].numel()].reshape(g_eff[k].shape)
+                acc = dr if acc is None else acc + dr
+            if not torch.equal(red[k], acc / n):
+                raise AssertionError(f"compress: reduced {k} is not the "
+                                     "rank-order mean of the dequantized "
+                                     "payloads")
+            total_red[k] += red[k]
+            total_g[k] += grads[k]             # this rank's, summed below
+        q_launch.launches, dq_launch.launches = launches_q, launches_dq
+        ef = new_ef
+    # long-run mean: sum of reduced + mean residual = sum of true means
+    worst = 0.0
+    for k in shapes:
+        resid = comm.ordered_sum(ef[k], group) / n
+        true = comm.ordered_sum(total_g[k], group) / n
+        err = (total_red[k] + resid - true).abs().max().item()
+        worst = max(worst, err / max(true.abs().max().item(), 1e-30))
+    if worst > 1e-5:
+        raise AssertionError(f"compress: long-run mean off by {worst}")
+    plain = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for k in shapes:
+            comm.all_reduce_sum(grads[k], group)
+        torch.cuda.synchronize()
+        plain.append(time.perf_counter() - t)
+    return {"quantize": q_launch.launches, "dequantize": dq_launch.launches,
+            "round_s": times, "plain_allreduce_s": plain,
+            "long_run_rel_err": worst,
+            "elements": sum(math.prod(s) for s in shapes.values())}
+
+
+def phase_compress(seed: int):
+    """``compress``: ``compressed_psum`` over 2 ranks on the card (see
+    ``_rank_compress``); launches held to the path (per leaf and round a
+    quantize, and a dequantize of the residual and of each peer's
+    payload)."""
+    out = _run_ranks(_rank_compress, COMPRESS_RANKS,
+                     (seed, COMPRESS_ROUNDS), 600.0)
+    leaves = 8
+    want_q = COMPRESS_RANKS * COMPRESS_ROUNDS * leaves
+    want_dq = COMPRESS_RANKS * COMPRESS_ROUNDS * leaves * (1 + COMPRESS_RANKS)
+    q = sum(r["quantize"] for r in out)
+    dq = sum(r["dequantize"] for r in out)
+    if (q, dq) != (want_q, want_dq):
+        raise AssertionError(f"compress: launches quantize {q} dequantize "
+                             f"{dq}, the path implies {want_q} {want_dq}")
+    r0 = out[0]
+    emit({"phase": "compress", "ranks": COMPRESS_RANKS,
+          "rounds": COMPRESS_ROUNDS, "elements_per_rank": r0["elements"],
+          "reduced_equal_rank_order_mean": True, "residual_exact": True,
+          "long_run_rel_err": max(r["long_run_rel_err"] for r in out),
+          "compressed_round_ms": [t * 1e3 for t in r0["round_s"]],
+          "plain_allreduce_ms": [t * 1e3 for t in r0["plain_allreduce_s"]],
+          "transport": "gloo over host memory, both ranks on one card",
+          "launches": {"ckpt_quantize": q, "ckpt_dequantize": dq}})
+    return {"ckpt_quantize": q, "ckpt_dequantize": dq}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3214,6 +3946,15 @@ def main(argv=None) -> int:
     phase_train_tiny(args.seed, "falcon-mamba-7b", "train-tiny-ssm")
     train_ssm = phase_train_ssm(args.seed)
     emit({"phase": "train-ssm-time", "seconds": time.perf_counter() - t0})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_tiny_moe(args.seed)
+    serve_moe = phase_serve_moe(args.seed)
+    elastic = phase_elastic(args.seed, "elastic")
+    elastic_moe = phase_elastic(args.seed, "elastic-moe")
+    compress = phase_compress(args.seed)
+    emit({"phase": "slice8-time", "seconds": time.perf_counter() - t0})
 
     summary = []
     for kname, case_list in cases.items():
@@ -3227,7 +3968,11 @@ def main(argv=None) -> int:
                    "train_obs": train_obs[kname],
                    "serve_predrain": serve["serve_predrain"].get(kname, 0),
                    "serve_slots": serve["serve_slots"].get(kname, 0),
-                   "serve_standby": serve["serve_standby"].get(kname, 0)}
+                   "serve_standby": serve["serve_standby"].get(kname, 0),
+                   "serve_moe": serve_moe.get(kname, 0),
+                   "elastic": elastic.get(kname, 0),
+                   "elastic_moe": elastic_moe.get(kname, 0),
+                   "compress": compress.get(kname, 0)}
         summary.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/{source}", "replaces": replaces,

@@ -14,6 +14,7 @@ CONFIG = ModelConfig(
     conv_width=4,
     expand=2,
     tie_embeddings=True,
+    seq_shard=True,
 )
 
 TINY = ModelConfig(

@@ -16,6 +16,7 @@ CONFIG = ModelConfig(
     pattern=(FULL,),
     mlp_act="silu",
     tie_embeddings=True,
+    seq_shard=True,
 )
 
 TINY = ModelConfig(

@@ -24,8 +24,13 @@ Telemetry (``attach_obs``, docs/observability.md): with an
 heartbeat failures emit onto its bus, and the measured restore and
 detection latency feed the policy's R and D terms.
 
-Not in the port yet, and refused rather than ignored: restores onto
-other shardings (ROADMAP item 10).
+Sharded state (``register_global_state(template, shardings)``): on a
+rank mesh each rank's state leaves are its shards; saves write them with
+their spans into the global shapes of ``template`` and restores read the
+calling rank's shards for ``shardings``, whatever mesh wrote the
+checkpoint.  ``mesh_meta`` (set by ``run_elastic``) is recorded in each
+save's manifest; ``world`` (a ``sharding.launch.World``) makes the
+recovery loop's restores wait for every rank's last save.
 """
 from __future__ import annotations
 
@@ -140,10 +145,19 @@ class Dependability:
         self.signals: Optional[TerminationSignal] = None
         self.monitor: Optional[HeartbeatMonitor] = None
         self.emitter: Optional[HeartbeatEmitter] = None
+        # the monitor's per-host callbacks (run_elastic latches them)
+        self.on_host_failure = None
+        self.on_host_rejoin = None
         self._local_provider = None
         self._global_template = None
         self.save_history: list = []
         self.restore_seconds: list = []
+        # the grid a save is sharded on (recorded in its manifest) and,
+        # on a rank mesh, the run's World and the state's shardings
+        self.mesh_meta: Optional[dict] = None
+        self.world = None
+        self._global_shardings = None
+        self._ckpt_gen = ["run", 0]       # see should_checkpoint
         # telemetry handle (repro_torch.obs.Observability); attach_obs
         # threads it through the monitor and turns on event/metric
         # emission everywhere
@@ -172,6 +186,10 @@ class Dependability:
                     self.config.monitor_hosts or self.num_hosts,
                     period=self.config.heartbeat_period,
                     timeout_factor=self.config.heartbeat_timeout_factor,
+                    on_failure=lambda h: (self.on_host_failure or
+                                          (lambda _: None))(h),
+                    on_rejoin=lambda h: (self.on_host_rejoin or
+                                         (lambda _: None))(h),
                     obs=self.obs,
                 ).start()
             addr = (self.monitor.addr if self.monitor
@@ -200,11 +218,11 @@ class Dependability:
     # registration (paper: save-pointer registration)
     # ------------------------------------------------------------------
     def register_global_state(self, template, shardings=None) -> None:
-        if shardings is not None:
-            raise NotImplementedError(
-                "shardings wait for the elastic-mesh slice of the port "
-                "(ROADMAP item 10)")
+        """``template``: the state's tree (its global shapes; meta tensors
+        will do); ``shardings``: a matching tree of
+        ``sharding.api.NamedSharding`` when each rank holds shards."""
         self._global_template = template
+        self._global_shardings = shardings
 
     def register_local_state(self, provider) -> None:
         """provider: object with state_dict() / load_state_dict(); local-
@@ -284,7 +302,24 @@ class Dependability:
         return False
 
     def should_checkpoint(self, step: int) -> bool:
-        return self.policy.should_checkpoint(step)
+        """The policy's decision; with several hosts writing one save
+        (``world`` set), host 0's decision, which every host reads from
+        the run's store (their step timings differ, their saves must
+        not)."""
+        if self.world is None or self.manager.num_hosts <= 1:
+            return self.policy.should_checkpoint(step)
+        tag, n = self._ckpt_gen
+        key = f"ckpt/{tag}/{n}/{step}"
+        if self.manager.host_id == 0:
+            due = self.policy.should_checkpoint(step)
+            self.world.publish(key, "1" if due else "0")
+            return due
+        return self.world.fetch(key) == "1"
+
+    def set_ckpt_tag(self, tag: str) -> None:
+        """Names the run segment whose hosts decide saves together (the
+        elastic loop's mesh epoch); restores count within it."""
+        self._ckpt_gen = [str(tag), 0]
 
     def save(self, step: int, state, *, blocking: Optional[bool] = None,
              final: bool = False) -> SaveStats:
@@ -297,8 +332,13 @@ class Dependability:
                   if hasattr(self._local_provider, "shard_state_dicts")
                   else None)
         t0 = time.perf_counter()
-        stats = self.manager.save(step, state, local, local_shards=shards,
-                                  blocking=blocking)
+        sharded = self._global_shardings is not None
+        stats = self.manager.save(
+            step, state, local, local_shards=shards,
+            mesh_meta=self.mesh_meta,
+            shardings=self._global_shardings if sharded else None,
+            like=self._global_template if sharded else None,
+            blocking=blocking)
         cost = time.perf_counter() - t0  # on-critical-path cost
         # delta mode: each save kind keeps its own cost, so the policy
         # amortizes cheap deltas against the periodic full saves
@@ -337,17 +377,19 @@ class Dependability:
         prefers scrub-verified steps when scrubbing is on; any skipped
         steps land in ``self.last_restore_skipped``.  ``exclude``:
         steps not to consider.  Restored leaves land on the devices of
-        ``like``'s tensors (default: the registered global template)."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "shardings wait for the elastic-mesh slice of the port "
-                "(ROADMAP item 10)")
+        ``like``'s tensors (default: the registered global template), or,
+        with ``shardings`` (default: the registered ones), as the calling
+        rank's shards on its mesh's device."""
         like = like if like is not None else self._global_template
+        shardings = (shardings if shardings is not None
+                     else self._global_shardings)
+        self._ckpt_gen[1] += 1
         self.last_restore_skipped = []
         t0 = time.perf_counter()
         wants_shards = hasattr(self._local_provider, "load_shard_state_dicts")
         if step is not None:
-            state, local = self.manager.restore(step=step, like=like)
+            state, local = self.manager.restore(step=step, like=like,
+                                                shardings=shardings)
             shard_dicts = (self.manager.restore_local_shards(step)
                            if wants_shards else [])
             got_step = step
@@ -361,12 +403,12 @@ class Dependability:
             if wants_shards:
                 (state, local, shard_dicts, got_step,
                  skipped) = self.manager.restore_latest(
-                    like=like, candidates=candidates,
+                    like=like, shardings=shardings, candidates=candidates,
                     with_local_shards=True)
             else:
                 shard_dicts = []
                 state, local, got_step, skipped = self.manager.restore_latest(
-                    like=like, candidates=candidates)
+                    like=like, shardings=shardings, candidates=candidates)
             self.last_restore_skipped = skipped
         if self._local_provider is not None:
             if shard_dicts:

@@ -5,17 +5,23 @@ format, so a checkpoint written by either package restores in the other.
 Layout (one directory per step):
 
     <dir>/step_00000420/
-        manifest_h<i>.json          global shapes/dtypes/codec/CRCs
-        <leaf-name>.s<i>_<k>.npy    shard k of that leaf (.npy payload)
+        manifest_h<i>.json          global shapes/dtypes/codec/CRCs/spans
+        <leaf-name>.s<i>_<k>.npy    host i's shard k of that leaf (.npy)
         local_h<i>.json             per-host local state
         local_s<k>.json             per-shard local state (optional)
         ack_h<i>                    per-host completion marker
     <dir>/step_00000420.tmp.<pid>   staging dir, atomically renamed
 
 Leaf names are the reference's dotted paths (``tree.flatten_named``:
-dict keys sorted).  Commit protocol: every host writes shards + ack into
-the staging dir; host 0 renames it into place once all acks are present
-(single-process runs commit immediately).  A reader only trusts
+dict keys sorted).  Sharded saves (``save(..., shardings=, like=)``, one
+rank a host on a mesh): each host writes its own shard of each leaf with
+its ``spans`` into the global shape, and a shard that several ranks
+hold (a replicated axis) is written once, by its replica 0, as the
+reference writes its ``addressable_shards``.  ``mesh_meta`` records the
+grid the state was sharded on (``manifest_meta``).  Commit protocol:
+every host writes shards + ack into one staging dir (named after host
+0's process, ``owner_pid``); host 0 waits for every ack and renames it
+into place (single-process runs commit immediately).  A reader only trusts
 directories whose manifest parses and whose CRCs verify — a crash
 mid-write never corrupts the latest checkpoint.  Staging directories
 abandoned by crashed writers are swept on manager init and at every GC.
@@ -34,7 +40,9 @@ Fast path (the Young/Daly C term, end to end):
 4. *Restore*: shard loads run on the same pool and are CRC-verified; with
    ``device_codec=True`` an int8 leaf moves to its target device as int8
    + scales and is decoded there (the dequantize kernel on the card:
-   4x fewer bytes to the device, the same bits as the host decode).
+   4x fewer bytes to the device, the same bits as the host decode); a
+   restore onto shardings does so with each int8 shard that overlaps the
+   rank's region, and assembles the region on the device.
 
 Async mode: ``save(..., blocking=False)`` snapshots to host memory and
 hands serialization to a writer thread (double-buffered: a new save
@@ -65,7 +73,13 @@ by either package restores in the other.  A delta leaf is assembled from
 its chain on the host; with ``device_codec`` an int8-coded chain is
 assembled still encoded (int8 blocks and fp32 scales in the order a full
 save writes them) and decoded once on the target device, as a full
-restore is.  Restores onto other shardings wait for ROADMAP item 10.
+restore is.
+
+Elastic restore: ``restore(shardings=)`` reads, for each leaf, only the
+region the calling rank's sharding needs (each stored shard that
+overlaps it, through its delta chain and codec) and assembles it: a
+checkpoint written on one mesh restores onto any other, the reference's
+included (its manifests carry the same spans).
 """
 from __future__ import annotations
 
@@ -98,6 +112,9 @@ _LOCAL_SHARD_RE = re.compile(r"^local_s(\d{5})\.json$")
 # leaves below this many elements are always saved in full (the codecs'
 # floor: hashing and packing would cost more than the bytes saved)
 _DELTA_MIN_ELEMS = 1024
+
+# seconds host 0 of a sharded save waits for the other hosts' acks
+_COMMIT_TIMEOUT = 600.0
 
 # tensor dtype <-> the numpy dtype name the manifest records
 _TORCH_DTYPES = {
@@ -177,6 +194,17 @@ class _Encoded:
         self.meta = meta
 
 
+class _Region:
+    """A leaf's region to assemble on its target device: ``shape`` its
+    extent, ``pieces`` one (payload, shard extent, source slices, target
+    slices) per overlapping stored shard, each payload kept ``_Encoded``
+    where it was int8-coded."""
+
+    def __init__(self, shape: Tuple[int, ...], pieces: List[Tuple]):
+        self.shape = shape
+        self.pieces = pieces
+
+
 class _NotEncoded(Exception):
     """A link of a delta chain is not int8-coded: the chain cannot be
     assembled encoded."""
@@ -219,10 +247,13 @@ class CheckpointManager:
                  io_threads: int = 0, fsync: str = "batch",
                  verify_crc: bool = True, keep: int = 3,
                  delta: bool = False, delta_block: int = 65536,
-                 full_every: int = 8):
+                 full_every: int = 8, owner_pid: Optional[int] = None):
         self.directory = directory
         self.host_id = host_id
         self.num_hosts = num_hosts
+        # the staging dir every host of a save writes into is named after
+        # host 0's process (its pid keeps the dir from stale sweeps)
+        self.owner_pid = os.getpid() if owner_pid is None else owner_pid
         if device_codec:
             if codec not in (None, "int8"):
                 raise ValueError(
@@ -257,9 +288,18 @@ class CheckpointManager:
     # ------------------------------------------------------------------
     # save
     # ------------------------------------------------------------------
+    def set_hosts(self, host_id: int, num_hosts: int,
+                  owner_pid: Optional[int] = None) -> None:
+        """The writer's place among the hosts of the next saves (a mesh
+        change renumbers them); ``owner_pid`` is host 0's process."""
+        self.wait()
+        self.host_id = host_id
+        self.num_hosts = num_hosts
+        self.owner_pid = os.getpid() if owner_pid is None else owner_pid
+
     def _staging(self, step: int) -> str:
         return os.path.join(self.directory,
-                            f"step_{step:08d}.tmp.{os.getpid()}")
+                            f"step_{step:08d}.tmp.{self.owner_pid}")
 
     def _final(self, step: int) -> str:
         return os.path.join(self.directory, f"step_{step:08d}")
@@ -304,7 +344,10 @@ class CheckpointManager:
                 if CheckpointManager._ACTIVE_STAGING.get(path, 0) > 0:
                     continue
             pid = int(m.group(2))
-            if pid != os.getpid() and pid_alive(pid):
+            if pid_alive(pid) and (pid != os.getpid()
+                                   or self.num_hosts > 1):
+                # another live process's, or this host 0's while the
+                # other hosts of a sharded save may still be writing
                 continue
             shutil.rmtree(path, ignore_errors=True)
 
@@ -343,7 +386,8 @@ class CheckpointManager:
         else:
             item["data"] = np.asarray(payload)
 
-    def _snapshot(self, named, step: int, kind: str, sid: str):
+    def _snapshot(self, named, step: int, kind: str, sid: str,
+                  layout=None):
         """Device -> host: the only cost on the BSP critical path in async
         mode.  With device_codec, eligible leaves are quantized on their
         device first (every kernel is enqueued before the first copy), so
@@ -357,14 +401,25 @@ class CheckpointManager:
         to commit once the write lands on disk."""
         manifest_arrays: Dict[str, Any] = {}
         rows: List[Dict[str, Any]] = []
-        for name, value in named:
+        for i, (name, value) in enumerate(named):
             shape = list(value.shape) if hasattr(value, "shape") else []
             fname = f"{name}.s{self.host_id}_0.npy"
             spans = [[0, d] for d in shape]
+            dtype = _dtype_name(value)
+            lay = layout[i] if layout is not None else None
+            if lay is not None:
+                sh, gshape = lay
+                shape = [int(d) for d in gshape]
+                if shape:
+                    spans = sh.spans(shape)
+                if sh.replica_id() != 0:
+                    # another rank holds this shard: written once, there
+                    manifest_arrays[name] = {"shape": shape, "dtype": dtype,
+                                             "shards": []}
+                    continue
             smeta: Dict[str, Any] = {"file": fname, "spans": spans}
             if self.delta:
                 smeta["sid"] = sid       # lineage id delta children pin
-            dtype = _dtype_name(value)
             manifest_arrays[name] = {"shape": shape, "dtype": dtype,
                                      "shards": [smeta]}
             row = {"fname": fname, "meta": smeta, "spans": spans,
@@ -471,10 +526,17 @@ class CheckpointManager:
 
     def save(self, step: int, state, local_state: Optional[Dict] = None, *,
              local_shards: Optional[List[Dict]] = None,
+             mesh_meta: Optional[Dict] = None, shardings=None, like=None,
              blocking: bool = True) -> SaveStats:
         """``local_state``: this host's local-scope dict (one file per host).
         ``local_shards``: one dict per DP shard, each written as its own
-        ``local_s<k>.json``."""
+        ``local_s<k>.json`` (by host 0: every host holds the same).
+        ``mesh_meta``: the mesh the state was sharded on, e.g. ``{"dp": 2,
+        "tp": 2, "ep": 2, "moe_ep": 2, "dead_experts": []}``, recorded in
+        the manifest (``manifest_meta``).  ``shardings``: a tree of
+        ``sharding.api.NamedSharding`` (or None) matching ``state``, whose
+        leaves are then this host's shards; ``like``: the tree of global
+        shapes (tensors, meta tensors included)."""
         self.wait()  # double-buffer: drain previous async write
         t0 = time.perf_counter()
         kind = "full"
@@ -486,8 +548,16 @@ class CheckpointManager:
         # restore refuses to mix generations
         sid = uuid.uuid4().hex[:16]
         named = flatten_named(state)
+        layout = None
+        if shardings is not None:
+            from repro_torch.tree import leaves
+            if like is None:
+                raise ValueError("a sharded save needs like= (the global "
+                                 "shapes)")
+            layout = [None if sh is None else (sh, tuple(g.shape))
+                      for sh, g in zip(leaves(shardings), leaves(like))]
         (shard_plan, manifest_arrays, pending_base, dirty, total,
-         hash_s) = self._snapshot(named, step, kind, sid)
+         hash_s) = self._snapshot(named, step, kind, sid, layout)
         snapshot_s = time.perf_counter() - t0
 
         def write():
@@ -506,6 +576,8 @@ class CheckpointManager:
                     "kind": kind,
                     "arrays": manifest_arrays,
                 }
+                if mesh_meta is not None:
+                    manifest["mesh"] = dict(mesh_meta)
                 if local_shards is not None:
                     manifest["local_shards"] = [int(sd.get("shard", k))
                                                 for k, sd in
@@ -516,15 +588,27 @@ class CheckpointManager:
                     lpath = os.path.join(staging,
                                          f"local_h{self.host_id}.json")
                     paths.append(write_json(lpath, local_state))
-                for k, sd in enumerate(local_shards or ()):
+                for k, sd in enumerate((local_shards or ())
+                                       if self.host_id == 0 else ()):
                     idx = int(sd.get("shard", k))
                     spath = os.path.join(staging, f"local_s{idx:05d}.json")
                     paths.append(write_json(spath, sd))
                 apath = os.path.join(staging, f"ack_h{self.host_id}")
-                open(apath, "w").close()
-                paths.append(apath)
-                self._engine.finalize(staging, paths)
-                # commit when all hosts acked (single-process: immediately)
+                if self.num_hosts > 1:
+                    # this host's files are durable before its ack shows:
+                    # host 0 may rename the staging dir on the last ack
+                    self._engine.finalize(staging, paths)
+                    open(apath, "w").close()
+                else:
+                    open(apath, "w").close()
+                    paths.append(apath)
+                    self._engine.finalize(staging, paths)
+                # host 0 commits once every host acked (single-process:
+                # immediately)
+                if self.host_id == 0 and self.num_hosts > 1:
+                    self._wait_acks(staging)
+                    if self._engine.fsync_mode != "none":
+                        fsync_path(staging)     # the acks' entries
                 acks = [os.path.exists(os.path.join(staging, f"ack_h{h}"))
                         for h in range(self.num_hosts)]
                 if all(acks) and self.host_id == 0:
@@ -566,6 +650,18 @@ class CheckpointManager:
         self._writer = threading.Thread(target=run, daemon=True)
         self._writer.start()
         return stats
+
+    def _wait_acks(self, staging: str) -> None:
+        deadline = time.monotonic() + _COMMIT_TIMEOUT
+        want = [os.path.join(staging, f"ack_h{h}")
+                for h in range(self.num_hosts)]
+        while not all(os.path.exists(p) for p in want):
+            if time.monotonic() > deadline:
+                missing = [h for h, p in enumerate(want)
+                           if not os.path.exists(p)]
+                raise IOError(f"{staging}: hosts {missing} did not ack "
+                              f"within {_COMMIT_TIMEOUT} s")
+            time.sleep(0.005)
 
     def wait(self) -> None:
         if self._writer is not None:
@@ -634,13 +730,28 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
+    def manifest_meta(self, step: Optional[int]) -> Optional[Dict[str, Any]]:
+        """The ``mesh_meta`` dict recorded at ``save`` time (None when the
+        step has none or does not exist): the (dp, tp, ep) grid and the
+        dead experts the checkpoint was written under."""
+        if step is None:
+            return None
+        p = os.path.join(self._final(step), "manifest_h0.json")
+        if not os.path.exists(p):
+            return None
+        with open(p) as f:
+            return json.load(f).get("mesh")
+
     def _load_manifests(self, step: int) -> Dict[str, Any]:
+        """Every host's manifest of ``step`` merged (the hosts that wrote
+        it, however many this manager's run has now)."""
         final = self._final(step)
         merged: Dict[str, Any] = {}
-        for h in range(self.num_hosts):
+        hosts = sorted(int(m.group(1)) for m in
+                       (re.match(r"^manifest_h(\d+)\.json$", fn)
+                        for fn in os.listdir(final)) if m)
+        for h in hosts:
             p = os.path.join(final, f"manifest_h{h}.json")
-            if not os.path.exists(p):
-                continue
             with open(p) as f:
                 man = json.load(f)
             for name, entry in man["arrays"].items():
@@ -866,11 +977,24 @@ class CheckpointManager:
                          "pad": ncb * 256 - size, "blocks": ncb})
 
     def _load_shard(self, step: int, name: str, entry: Dict[str, Any],
-                    sh: Dict[str, Any],
-                    man_cache: Dict[int, Dict]) -> np.ndarray:
+                    sh: Dict[str, Any], man_cache: Dict[int, Dict],
+                    keep_encoded: bool = False):
+        """One stored shard's values (a delta shard through its chain;
+        bfloat16 as raw 2-byte void), or, ``keep_encoded``, its int8
+        blocks as ``_Encoded`` where the shard (its whole chain) is
+        int8-coded."""
         if "delta" in sh:
+            if keep_encoded:
+                try:
+                    return self._assemble_delta(step, name, entry, sh,
+                                                man_cache, encoded=True)
+                except _NotEncoded:
+                    pass            # a raw link: assemble the values
             return self._assemble_delta(step, name, entry, sh, man_cache)
-        return self._decode_payload(self._final(step), sh, entry["dtype"])
+        if keep_encoded and "codec" in sh:
+            return self._decode_payload(self._final(step), sh,
+                                        entry["dtype"], keep_encoded=True)
+        return self._load_plain(self._final(step), sh, entry["dtype"])
 
     def _read_leaf(self, step: int, name: str, entry: Dict[str, Any], *,
                    keep_encoded: bool = False, parallel: bool = True,
@@ -880,19 +1004,11 @@ class CheckpointManager:
         encoded when ``keep_encoded``."""
         man_cache = {} if man_cache is None else man_cache
         shape = tuple(entry["shape"])
-        want = entry["dtype"]
         shards = self._check_tiling(name, shape, entry["shards"])
         if keep_encoded and len(shards) == 1:
-            sh = shards[0]
-            if "delta" in sh:
-                try:
-                    return self._assemble_delta(step, name, entry, sh,
-                                                man_cache, encoded=True)
-                except _NotEncoded:
-                    pass            # a raw link: assemble the values
-            elif "codec" in sh:
-                return self._decode_payload(self._final(step), sh, want,
-                                            keep_encoded=True)
+            raw = self._load_shard(step, name, entry, shards[0], man_cache,
+                                   keep_encoded=True)
+            return raw if isinstance(raw, _Encoded) else raw.reshape(shape)
         if parallel and len(shards) > 1:
             payloads = self._engine.read_many(
                 [functools.partial(self._load_shard, step, name, entry, sh,
@@ -913,10 +1029,53 @@ class CheckpointManager:
             raise IOError(f"leaf {name!r} has no shards")
         return out.reshape(shape)
 
+    def _read_region(self, step: int, name: str, entry: Dict[str, Any],
+                     region, man_cache: Dict[int, Dict],
+                     keep_encoded: bool = False):
+        """The part ``region`` (``[start, stop)`` per dim) of one leaf,
+        from only the stored shards that overlap it: numpy; or, with
+        ``keep_encoded``, a ``_Region`` whose int8-coded shards are
+        decoded on the target device."""
+        shape = tuple(entry["shape"])
+        shards = self._check_tiling(name, shape, entry["shards"])
+        if not shape:
+            return self._load_shard(step, name, entry, shards[0],
+                                    man_cache).reshape(())
+        extent = tuple(d - c for c, d in region)
+        pieces = []
+        for sh in shards:
+            over = [(max(a, c), min(b, d))
+                    for (a, b), (c, d) in zip(sh["spans"], region)]
+            if any(lo >= hi for lo, hi in over):
+                continue
+            payload = self._load_shard(step, name, entry, sh, man_cache,
+                                       keep_encoded=keep_encoded)
+            src = tuple(slice(lo - a, hi - a) for (lo, hi), (a, _)
+                        in zip(over, sh["spans"]))
+            dst = tuple(slice(lo - c, hi - c) for (lo, hi), (c, _)
+                        in zip(over, region))
+            pieces.append((payload, tuple(b - a for a, b in sh["spans"]),
+                           src, dst))
+        if keep_encoded:
+            return _Region(extent, pieces)
+        want = entry["dtype"]
+        out = np.empty(extent, dtype=(np.dtype("V2") if want == "bfloat16"
+                                      else np.dtype(want)))
+        for payload, ext, src, dst in pieces:
+            out[dst] = payload.reshape(ext)[src]
+        return out
+
     def _to_leaf(self, raw, entry: Dict[str, Any], device) -> Any:
         """A loaded leaf on its target: numpy when ``device`` is None, else
         a tensor on ``device``; an encoded int8 leaf is decoded there."""
         want = entry["dtype"]
+        if isinstance(raw, _Region):
+            out = torch.empty(raw.shape, dtype=_FROM_NAME[want],
+                              device=device)
+            for payload, ext, src, dst in raw.pieces:
+                out[dst] = self._to_leaf(payload, entry, device).reshape(
+                    ext)[src]
+            return out
         if isinstance(raw, _Encoded):
             nb = int(raw.meta["blocks"])
             q = torch.from_numpy(raw.q).to(device or "cpu").view(
@@ -937,12 +1096,11 @@ class CheckpointManager:
         ``like``: template tree defining the structure; each restored leaf
         lands on the device of its template tensor (numpy where the
         template leaf is not a tensor).  With ``like=None`` the tree is
-        rebuilt from the dotted names, as CPU tensors.  Restoring resets
-        the delta base: the next ``save`` is a full checkpoint."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "restore onto shardings waits for the elastic-mesh slice "
-                "of the port (ROADMAP item 10)")
+        rebuilt from the dotted names, as CPU tensors.  ``shardings``: a
+        matching tree of ``NamedSharding`` (or None): such a leaf comes
+        back as the calling rank's shard, on its mesh's device, whatever
+        mesh wrote the checkpoint.  Restoring resets the delta base: the
+        next ``save`` is a full checkpoint."""
         # join (without consuming its error) an in-flight async writer
         # first: its completion updates the delta base, which must not
         # outlive the reset below
@@ -963,14 +1121,36 @@ class CheckpointManager:
                     raise KeyError(f"leaf {name!r} missing from checkpoint "
                                    f"{self._final(step)}")
             names = [n for n, _ in named]
-            devices = [leaf.device if isinstance(leaf, torch.Tensor)
-                       else None for _, leaf in named]
+            # a "meta" template gives shapes only: its leaves land on CPU
+            devices = [(leaf.device if leaf.device.type != "meta"
+                        else torch.device("cpu"))
+                       if isinstance(leaf, torch.Tensor) else None
+                       for _, leaf in named]
+        shards = [None] * len(names)
+        if shardings is not None:
+            from repro_torch.tree import leaves
+            shards = leaves(shardings)
+            if len(shards) != len(names):
+                raise ValueError(f"{len(shards)} shardings for "
+                                 f"{len(names)} leaves")
+            for i, sh in enumerate(shards):
+                if sh is not None:
+                    devices[i] = torch.device(sh.mesh.device or devices[i]
+                                              or "cpu")
         keep = self._dcodec is not None
         man_cache: Dict[int, Dict] = {step: merged}
-        fns = [functools.partial(self._read_leaf, step, n, merged[n],
-                                 keep_encoded=keep and d is not None,
-                                 parallel=False, man_cache=man_cache)
-               for n, d in zip(names, devices)]
+        fns = []
+        for n, d, sh in zip(names, devices, shards):
+            if sh is not None and merged[n]["shape"]:
+                fns.append(functools.partial(
+                    self._read_region, step, n, merged[n],
+                    sh.spans(merged[n]["shape"]), man_cache,
+                    keep_encoded=keep))
+            else:
+                fns.append(functools.partial(
+                    self._read_leaf, step, n, merged[n],
+                    keep_encoded=keep and d is not None, parallel=False,
+                    man_cache=man_cache))
         raws = self._engine.read_many(fns)
         leaves = [self._to_leaf(r, merged[n], d)
                   for r, n, d in zip(raws, names, devices)]

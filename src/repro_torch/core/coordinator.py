@@ -40,31 +40,36 @@ from repro_torch.train.step import metrics_to_host
 def run_bsp(dep: Dependability, train_step: Callable, state, data,
             num_steps: int, *, fault_injector: Optional[FaultInjector] = None,
             on_metrics: Optional[Callable[[int, Dict], None]] = None,
+            stop_check: Optional[Callable[[], Optional[str]]] = None,
             proactive: Optional[Callable[[int], Optional[str]]] = None,
             final_save: bool = True) -> Tuple[Any, str, List[Dict]]:
     """Runs supersteps until ``num_steps`` or interruption.
 
-    Returns (state, status, history); status in {"done", "interrupted"}
-    (an interruption takes a final save first unless ``final_save`` is
-    False).  ``proactive`` is the telemetry plane's precursor hook
+    Returns (state, status, history); status in {"done", "interrupted",
+    "paused:<reason>"} (an interruption or a pause takes a final save
+    first unless ``final_save`` is False).  ``stop_check`` is polled at
+    each step boundary: a non-None reason pauses the loop exactly like an
+    interruption but reports the reason — the elastic layer stops so for
+    mesh changes (a failed host, a rejoining one).  ``proactive`` is the telemetry plane's precursor hook
     (``repro_torch.obs.make_proactive_hook``): polled after each
     superstep when the policy cadence does NOT already save; a non-None
     reason forces a checkpoint now, ahead of the failure the precursors
     predict.  Forced saves flow through ``dep.save`` like any other, so
     they re-anchor the policy cadence.  May raise SimulatedFailure
     (injected fail-stop) or CorruptionDetected (an SDC tier tripped) —
-    run_with_recovery handles both.  The elastic layer's ``stop_check``
-    (pause for a mesh resize) waits for ROADMAP item 10."""
+    run_with_recovery handles both."""
     history: List[Dict] = []
     step = int(state["step"])
     while step < num_steps:
-        if dep.interrupted():
+        pause = stop_check() if stop_check is not None else None
+        if dep.interrupted() or pause is not None:
             if final_save:
                 dep.save(step, state, final=True)
             # the final save may have queued behind a still-running async
             # write: do not hand back control with the checkpoint in flight
             dep.manager.wait()
-            return state, "interrupted", history
+            status = "interrupted" if pause is None else f"paused:{pause}"
+            return state, status, history
 
         if fault_injector is not None:
             # SDC strikes the at-rest state inside the record->verify window
@@ -166,6 +171,9 @@ def run_with_recovery(dep: Dependability, train_step: Callable, state, data,
             if restarts > max_restarts:
                 raise
             dep.manager.wait()
+            if dep.world is not None:
+                # every rank's last save has landed and host 0 committed
+                dep.world.barrier("restore")
             if (is_corruption and last_corrupt_restore is not None
                     and len(dep.save_history) == last_corrupt_restore[1]):
                 # corruption re-tripped without a single new checkpoint:

@@ -42,8 +42,16 @@ tightens the Young/Daly interval):
         --proactive-checkpoint --telemetry-dir /tmp/telemetry \
         --metrics-snapshot /tmp/metrics.json --ckpt-dir /tmp/ckpt_obs
 
-``--data-par``/``--model-par`` > 1 raise ``NotImplementedError`` naming
-ROADMAP item 10.
+``--data-par D --model-par M`` trains on a D x M rank mesh (one process
+a rank, ``sharding/launch.py``; every rank on the one card, or on the
+CPU with ``--device cpu``): each rank holds its shards of the state and
+computes its batch rows, heads and ``d_ff`` columns
+(``train/mesh_step.py``); the saves are sharded and every rank restores
+its own shards.  Rank 0 prints the run's lines:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --tiny --device cpu \
+        --data-par 2 --model-par 2 --steps 12 --policy every_n \
+        --every-n 4 --inject-failure 6 --ckpt-dir /tmp/ckpt_mesh
 """
 from __future__ import annotations
 
@@ -78,19 +86,7 @@ def build(args):
     return cfg
 
 
-def _refuse(args) -> None:
-    """The reference's options this slice of the port does not carry."""
-    missing = [
-        (args.data_par > 1, "--data-par > 1", 10),
-        (args.model_par > 1, "--model-par > 1", 10),
-    ]
-    for used, flag, item in missing:
-        if used:
-            raise NotImplementedError(
-                f"{flag} is not in the port yet (ROADMAP item {item})")
-
-
-def main(argv=None) -> int:
+def parse(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-8b", choices=ALL_ARCHS)
     ap.add_argument("--tiny", action="store_true",
@@ -151,10 +147,41 @@ def main(argv=None) -> int:
                          "--telemetry-plane)")
     ap.add_argument("--risk-threshold", type=float, default=0.5)
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
-    _refuse(args)
+    return ap.parse_args(argv)
 
-    device = resolve_device(args.device)
+
+def main(argv=None) -> int:
+    args = parse(argv)
+    ranks = args.data_par * args.model_par
+    if ranks > 1:
+        from repro_torch.sharding.launch import spawn
+
+        if args.abft:
+            raise ValueError("--abft runs on one rank (the checksummed "
+                             "projections have no mesh layout)")
+        from repro_torch.models.base import FULL, LOCAL
+
+        if any(k not in (FULL, LOCAL) for k in build(args).layer_kinds()):
+            raise NotImplementedError(
+                f"{args.arch}: a rank mesh trains causal attention stacks "
+                "(dense or MoE); this stack trains on one rank")
+        device = str(resolve_device(args.device))
+        spawn(_rank_entry, ranks, args=(argv,), device=device,
+              run_dir=os.path.join(args.ckpt_dir, ".ranks"),
+              join_timeout=24 * 3600.0)
+        return 0
+    return run(args)
+
+
+def _rank_entry(world, argv) -> int:
+    return run(parse(argv), world)
+
+
+def run(args, world=None) -> int:
+    """One rank's run (``world`` None: the whole run on one rank)."""
+    device = resolve_device(args.device if world is None
+                            else str(world.device))
+    rank0 = world is None or world.rank == 0
     cfg = build(args)
     data = make_pipeline(cfg, args.seq_len, args.global_batch,
                          seed=args.seed)
@@ -167,7 +194,8 @@ def main(argv=None) -> int:
         delta_checkpoint=args.delta_checkpoint,
         delta_block=args.delta_block,
         full_every=args.full_every,
-        heartbeat=args.heartbeat,
+        heartbeat=args.heartbeat and rank0,
+        monitor_hosts=1,
         scrub=args.scrub,
         scrub_fraction=args.scrub_fraction,
         sentinel=args.sentinel,
@@ -175,10 +203,23 @@ def main(argv=None) -> int:
                            num_nodes=args.num_nodes),
     )).start()
     dep.register_local_state(data)
+    mesh = shardings = None
+    if world is not None:
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.train.mesh_step import mesh_combos
+
+        if rank0:
+            world.publish("train/pid/0", str(os.getpid()))
+        dep.manager.set_hosts(world.rank, world.size,
+                              owner_pid=int(world.fetch("train/pid/0")))
+        dep.world = world
+        mesh = make_host_mesh(args.data_par, args.model_par, rank=world.rank,
+                              device=device)
+        mesh.init_groups(mesh_combos(mesh))
 
     obs = None
-    want_plane = args.telemetry_plane or args.proactive_checkpoint
-    if args.telemetry_dir or args.metrics_snapshot or want_plane:
+    want_plane = (args.telemetry_plane or args.proactive_checkpoint) and rank0
+    if rank0 and (args.telemetry_dir or args.metrics_snapshot or want_plane):
         obs = Observability(
             jsonl_path=(os.path.join(args.telemetry_dir, "events.jsonl")
                         if args.telemetry_dir else None))
@@ -200,15 +241,29 @@ def main(argv=None) -> int:
                 _p.observe_risk(max(_a.risk_scores().values(), default=0.0))
                 return None
 
-    step_fn = make_train_step(cfg, microbatches=args.microbatches,
-                              total_steps=args.steps,
-                              impl=("abft" if args.abft else None))
-    state = init_state(cfg, seed=args.seed, device=device)
-    template = state
+    if mesh is None:
+        step_fn = make_train_step(cfg, microbatches=args.microbatches,
+                                  total_steps=args.steps,
+                                  impl=("abft" if args.abft else None))
+        state = init_state(cfg, seed=args.seed, device=device)
+        template = state
+    else:
+        from repro_torch.train.mesh_step import (init_sharded_state,
+                                                 make_mesh_train_step,
+                                                 state_shardings)
+
+        shardings = state_shardings(cfg, mesh)
+        template = init_state(cfg, seed=args.seed, device="meta")
+        step_fn = make_mesh_train_step(cfg, mesh, shardings, template,
+                                       microbatches=args.microbatches,
+                                       total_steps=args.steps)
+        state = init_sharded_state(cfg, shardings, seed=args.seed,
+                                   device=device, world=world)
     if dep.manager.latest_step() is not None:
-        state, got = dep.restore_latest(like=template)
-        print(f"[train] restored checkpoint step {got}")
-    dep.register_global_state(template)
+        state, got = dep.restore_latest(like=template, shardings=shardings)
+        if rank0:
+            print(f"[train] restored checkpoint step {got}")
+    dep.register_global_state(template, shardings)
 
     injector = None
     if args.inject_failure:
@@ -220,7 +275,7 @@ def main(argv=None) -> int:
         injector.schedule_bitflip(int(step_s), leaf, int(bit_s))
 
     def on_metrics(step, rec):
-        if step % 10 == 0 or step == args.steps:
+        if rank0 and (step % 10 == 0 or step == args.steps):
             print(f"[train] step {step:5d} loss={rec['loss']:.4f} "
                   f"gnorm={rec['grad_norm']:.3f} "
                   f"{rec['seconds']*1e3:.1f} ms"
@@ -232,12 +287,17 @@ def main(argv=None) -> int:
         fault_injector=injector, like=template, on_metrics=on_metrics,
         proactive=proactive)
     wall = time.perf_counter() - t0
+    if not rank0:
+        dep.stop()
+        return 0
 
     n_saves = len(dep.save_history)
     n_delta = sum(1 for s in dep.save_history if s.kind == "delta")
     delta_info = (f" ({n_saves - n_delta} full + {n_delta} delta)"
                   if args.delta_checkpoint else "")
-    print(f"[train] {info['status']} in {wall:.1f}s; restarts="
+    where = (f" on {args.data_par}x{args.model_par} ranks"
+             if world is not None else "")
+    print(f"[train] {info['status']} in {wall:.1f}s{where}; restarts="
           f"{info['restarts']}; checkpoints={n_saves}{delta_info}; "
           f"young-daly interval={dep.policy.interval_steps()} steps")
     events = [h["event"] for h in info["history"] if "event" in h]

@@ -1,11 +1,13 @@
 """Model configuration + registry (the port's ``ModelConfig``).
 
 The same frozen dataclass as the reference's, with torch dtypes and the
-fields the dense attention and Mamba-1 paths read.  ``use_pallas`` is
-gone: the tensor's device decides between a kernel and its plain
+fields the dense attention, MoE and Mamba-1 paths read.  ``use_pallas``
+is gone: the tensor's device decides between a kernel and its plain
 version.  The train state always stacks homogeneous blocks, as the
-reference does with ``scan_layers=True``, so that flag is gone too.  The
-MoE and RG-LRU fields wait for their slices.
+reference does with ``scan_layers=True``, so that flag is gone too.
+``seq_shard`` is kept for the reference's configs but changes nothing:
+on a mesh the port keeps the residual stream whole on every rank of a
+``"model"`` group.  The RG-LRU fields wait for their slice.
 """
 from __future__ import annotations
 
@@ -43,6 +45,13 @@ class ModelConfig:
     query_scale: float = 0.0               # 0 => 1/sqrt(head_dim)
     # --- mlp ---
     mlp_act: str = "silu"                  # silu (SwiGLU) | gelu (GeGLU) | gelu_plain
+    # --- MoE ---
+    num_experts: int = 0
+    experts_per_token: int = 0
+    capacity_factor: float = 1.25
+    dead_experts: Tuple[int, ...] = ()    # expert ids lost to failures:
+                                          # masked out of routing, capacity
+                                          # computed from the live count
     # --- SSM (mamba-1) ---
     ssm_state: int = 0
     conv_width: int = 4
@@ -54,6 +63,7 @@ class ModelConfig:
     sandwich_norm: bool = False            # gemma2 post-attn/post-mlp norms
     norm_eps: float = 1e-6
     # --- execution ---
+    seq_shard: bool = False                # the reference's Megatron SP flag
     param_dtype: Any = torch.float32
     dtype: Any = torch.bfloat16
 
@@ -68,6 +78,17 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // max(self.num_heads, 1))
+
+    @property
+    def effective_num_heads(self) -> int:
+        """The reference pads q-heads for even TP sharding
+        (``pad_heads_to``); the port's configs never pad."""
+        return self.num_heads
+
+    @property
+    def live_experts(self) -> int:
+        """Expert count still routable after failures (degraded MoE)."""
+        return self.num_experts - len(self.dead_experts)
 
     @property
     def resolved_dt_rank(self) -> int:
@@ -89,6 +110,53 @@ class ModelConfig:
         """Per-layer kinds, pattern repeated/truncated to num_layers."""
         reps = -(-self.num_layers // len(self.pattern))
         return tuple((self.pattern * reps)[: self.num_layers])
+
+    def num_params(self) -> int:
+        """Analytic parameter count of the layer kinds the port builds
+        (the reference's formula for attention, MoE and SSM layers)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        hd = self.resolved_head_dim
+        h, k = self.num_heads, self.num_kv_heads
+        n = v * d
+        if not self.tie_embeddings:
+            n += v * d
+        for kind in self.layer_kinds():
+            if kind in (FULL, LOCAL, BIDIR):
+                n += d * h * hd + 2 * d * k * hd + h * hd * d   # q,k,v,o
+                if self.qkv_bias:
+                    n += (h + 2 * k) * hd
+                n += 2 * d                                      # ln1, ln2
+                if self.sandwich_norm:
+                    n += 2 * d
+                if self.num_experts:
+                    n += d * self.num_experts
+                    n += self.num_experts * (2 * d * f + f * d)
+                else:
+                    gated = self.mlp_act in ("silu", "gelu")
+                    n += (2 * d * f if gated else d * f) + f * d
+            elif kind == SSM:
+                di, ns = self.d_inner, self.ssm_state
+                dtr = self.resolved_dt_rank
+                n += d * 2 * di                                  # in_proj
+                n += self.conv_width * di + di                   # conv + bias
+                n += di * (dtr + 2 * ns)                         # x_proj
+                n += dtr * di + di                               # dt_proj
+                n += di * ns + di                                # A_log, D
+                n += di * d                                      # out_proj
+                n += d                                           # norm
+        n += d                                                   # final norm
+        return n
+
+    def num_active_params(self) -> int:
+        """Active params per token (MoE: only top-k experts)."""
+        if not self.num_experts:
+            return self.num_params()
+        d, f = self.d_model, self.d_ff
+        per_layer_moe = self.num_experts * (2 * d * f + f * d)
+        active_moe = self.experts_per_token * (2 * d * f + f * d)
+        n_attn = sum(1 for k in self.layer_kinds()
+                     if k in (FULL, LOCAL, BIDIR))
+        return self.num_params() - n_attn * (per_layer_moe - active_moe)
 
 
 _REGISTRY: dict = {}

@@ -1,12 +1,17 @@
 """The decoder stack, PyTorch port of the reference's
 ``models/transformer.py`` FULL/LOCAL attention path (GQA, sliding window,
 attention and final logit soft-caps, tied or untied embeddings, padded
-vocab) and its Mamba-1 SSM layers (``models/mamba.py``).  A Python loop
-over layers replaces the reference's ``scan``; the sharding constraints
-have no counterpart on one card and are dropped.
+vocab, top-k MoE feed-forward blocks with degraded experts) and its
+Mamba-1 SSM layers (``models/mamba.py``).  A Python loop over layers
+replaces the reference's ``scan``; the sharding constraints have no
+counterpart on one card.  On a mesh, ``train/mesh_step.py`` runs the
+train mode over each rank's shards through ``par`` (Megatron column and
+row parallel projections, experts over ``"expert"``).
 
 Modes of ``forward``:
-  ``train``        — logits for every position from the train state's
+  ``train``        — logits for every position and the MoE aux loss
+                     (summed over layers; zero for a dense stack) from
+                     the train state's
                      parameters (``init_train_params``: float32 master
                      weights, blocks stacked as the reference stacks them
                      for ``scan``), cast to the compute dtype inside the
@@ -31,7 +36,8 @@ Modes of ``forward``:
 Parameters are plain nested dicts of tensors: ``{"embed": {"tok"},
 "layers": [...], "final_norm"[, "lm_head"]}`` with an attention layer
 ``{"ln1", "attn": {"wq","wk","wv","wo"[,"bq","bk","bv"]}, "ln2", "mlp":
-{...}}`` and an SSM layer ``{"ln", "ssm": {...}}``, cast to the compute
+{...}}`` (an MoE stack: ``"moe": {"router","w_in","w_gate","w_out"}``
+in place of ``"mlp"``) and an SSM layer ``{"ln", "ssm": {...}}``, cast to the compute
 dtype once at load except the recurrence leaves ``A_log`` and ``D``,
 which stay float32 (the reference's ``_KEEP_FP32``).
 """
@@ -48,7 +54,8 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import (paged_decode_attention,
                                                      row_decode_attention,
                                                      row_page_table)
-from repro_torch.layers.mlp import dot, mlp_apply, mlp_init
+from repro_torch.layers.mlp import _act, dot, mlp_apply, mlp_init
+from repro_torch.layers.moe import moe_apply, moe_init
 from repro_torch.layers.norms import rms_norm
 from repro_torch.layers.rope import apply_rope, make_positions
 from repro_torch.models.base import BIDIR, FULL, LOCAL, SSM, ModelConfig
@@ -134,8 +141,11 @@ def init_params(cfg: ModelConfig, *, seed: int, device=None) -> Params:
                 "wo": normal((h, hd, d), (h * hd) ** -0.5)}
         if cfg.qkv_bias:
             attn.update(bq=zeros(h, hd), bk=zeros(kv, hd), bv=zeros(kv, hd))
-        layer = {"ln1": ones(d), "attn": attn, "ln2": ones(d),
-                 "mlp": mlp_init(normal, d, cfg.d_ff, cfg.mlp_act)}
+        layer = {"ln1": ones(d), "attn": attn, "ln2": ones(d)}
+        if cfg.num_experts:
+            layer["moe"] = moe_init(normal, d, cfg.d_ff, cfg.num_experts)
+        else:
+            layer["mlp"] = mlp_init(normal, d, cfg.d_ff, cfg.mlp_act)
         if cfg.sandwich_norm:
             layer.update(ln1_post=ones(d), ln2_post=ones(d))
         layers.append(layer)
@@ -152,7 +162,8 @@ def init_train_params(cfg: ModelConfig, *, seed: int, device=None) -> Params:
     reference's stacked layout ``{"embed": {"tok"}, "blocks": {"l<p>":
     {...}}, "final_norm"[, "lm_head"]}`` where every block leaf has a
     leading axis of ``num_layers / len(pattern)`` (layer ``g * len(pattern)
-    + p``).  Same shapes and scales as the reference's ``init_params``."""
+    + p``).  Same shapes and scales as the reference's ``init_params``.
+    ``device="meta"`` gives the shapes and dtypes alone."""
     _check_kinds(cfg)
     device = resolve_device(device)
     P_ = len(cfg.pattern)
@@ -160,8 +171,12 @@ def init_train_params(cfg: ModelConfig, *, seed: int, device=None) -> Params:
         raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not "
                          f"stack into blocks of {P_}")
     G = cfg.num_layers // P_
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
+    # on the "meta" device (shapes and dtypes only, the port's
+    # ``jax.eval_shape``) nothing is drawn
+    gen = None
+    if device.type != "meta":
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
     pd = cfg.param_dtype
 
     def normal(shape, std):
@@ -196,8 +211,11 @@ def init_train_params(cfg: ModelConfig, *, seed: int, device=None) -> Params:
             attn.update(bq=torch.zeros(G, h, hd, device=device, dtype=pd),
                         bk=torch.zeros(G, kv, hd, device=device, dtype=pd),
                         bv=torch.zeros(G, kv, hd, device=device, dtype=pd))
-        blk = {"ln1": ones(G, d), "attn": attn, "ln2": ones(G, d),
-               "mlp": mlp_init(stacked, d, cfg.d_ff, cfg.mlp_act)}
+        blk = {"ln1": ones(G, d), "attn": attn, "ln2": ones(G, d)}
+        if cfg.num_experts:
+            blk["moe"] = moe_init(stacked, d, cfg.d_ff, cfg.num_experts)
+        else:
+            blk["mlp"] = mlp_init(stacked, d, cfg.d_ff, cfg.mlp_act)
         if cfg.sandwich_norm:
             blk.update(ln1_post=ones(G, d), ln2_post=ones(G, d))
         blocks[f"l{p}"] = blk
@@ -322,13 +340,20 @@ def _attn_apply(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig,
                 positions: torch.Tensor, *, entry=None, n_valid: int = 0,
                 pages=None, layer: int = 0, paged=None,
                 rows: Optional[_RowDecode] = None,
-                impl: Optional[str] = None) -> torch.Tensor:
+                impl: Optional[str] = None,
+                par=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One attention layer and its feed-forward block: (x, aux) with
+    ``aux`` the MoE load-balancing loss (None for a dense block).
+    ``par`` (train mode on a mesh): the rank's heads and ``d_ff``
+    columns, entered and left through the mesh's Megatron hooks."""
     a = p["attn"]
     B, S, _ = x.shape
     scale = cfg.query_scale or None
     window = cfg.window if kind == LOCAL else 0
 
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if par is not None:
+        h = par.enter_tp(h)
     q = _project(h, a["wq"], a.get("bq"), impl)
     k = _project(h, a["wk"], a.get("bk"), impl)
     v = _project(h, a["wv"], a.get("bv"), impl)
@@ -367,14 +392,31 @@ def _attn_apply(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig,
 
     H, hd, d = a["wo"].shape
     o = dot(o.reshape(B, S, H * hd), a["wo"].reshape(H * hd, d), impl)
+    if par is not None:
+        o = par.exit_tp(o)
     if cfg.sandwich_norm:
         o = rms_norm(o, p["ln1_post"], cfg.norm_eps)
     x = x + o
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    m = mlp_apply(p["mlp"], h2, cfg.mlp_act, impl)
+    aux = None
+    if cfg.num_experts:
+        if impl is not None:
+            raise ValueError(f"impl={impl!r}: the MoE experts' products "
+                             "have no checksummed route")
+        m, aux = moe_apply(p["moe"], h2, num_experts=cfg.num_experts,
+                           k=cfg.experts_per_token,
+                           capacity_factor=cfg.capacity_factor,
+                           act=_act(cfg.mlp_act), compute_dtype=cfg.dtype,
+                           dead_experts=cfg.dead_experts, par=par)
+    else:
+        if par is not None:
+            h2 = par.enter_tp(h2)
+        m = mlp_apply(p["mlp"], h2, cfg.mlp_act, impl)
+        if par is not None:
+            m = par.exit_tp(m)
     if cfg.sandwich_norm:
         m = rms_norm(m, p["ln2_post"], cfg.norm_eps)
-    return x + m
+    return x + m, aux
 
 
 # --------------------------------------------------------------------------
@@ -422,19 +464,26 @@ def _train_weights(cfg: ModelConfig,
     return top, layers
 
 
-def _train_block(x, layers, kinds, cfg, positions, impl):
+def _train_block(x, layers, kinds, cfg, positions, impl, par=None):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(layers, kinds):
         if kind == SSM:
             x = ssm_apply(p, x, cfg)
-        else:
-            x = _attn_apply(p, x, kind, cfg, positions, impl=impl)
-    return x
+            continue
+        x, a = _attn_apply(p, x, kind, cfg, positions, impl=impl, par=par)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def _forward_train(cfg: ModelConfig, params: Params,
-                   batch: Dict[str, Any],
-                   impl: Optional[str] = None) -> torch.Tensor:
-    top, layers = _train_weights(cfg, params)
+                   batch: Dict[str, Any], impl: Optional[str] = None,
+                   par=None, weights=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(logits, aux).  ``weights``: (top, layers) already cast and
+    unbound (a mesh step gathers its shards into them)."""
+    top, layers = (weights if weights is not None
+                   else _train_weights(cfg, params))
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = F.embedding(tokens.long(), top["embed"]["tok"])
@@ -446,10 +495,13 @@ def _forward_train(cfg: ModelConfig, params: Params,
     P_ = len(cfg.pattern)
     # one recomputed unit per stacked block (the reference checkpoints its
     # scan body): only each block's input is kept for the backward
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(0, cfg.num_layers, P_):
-        x = checkpoint(_train_block, x, layers[g:g + P_], kinds[g:g + P_],
-                       cfg, positions, impl, use_reentrant=False)
-    return _logits_out(cfg, top, x)
+        x, a = checkpoint(_train_block, x, layers[g:g + P_],
+                          kinds[g:g + P_], cfg, positions, impl, par,
+                          use_reentrant=False)
+        aux = aux + a
+    return _logits_out(cfg, top, x), aux
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
@@ -457,7 +509,9 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     """Returns (logits, cache); the cache is updated in place.
 
     batch: ``tokens`` (B, S).  ``train`` takes the train state's
-    parameters (``init_train_params``) and returns (logits, None).
+    parameters (``init_train_params``) and returns (logits, aux), the
+    MoE load-balancing loss summed over layers (zero for a dense
+    stack).
     ``prefill`` may carry ``length``: only the first ``length`` positions
     are real (the rest is padding past them, which causal attention keeps
     out of every real position) and only those enter the cache; an SSM
@@ -471,7 +525,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     kinds = cfg.layer_kinds()
     _check_kinds(cfg)
     if mode == "train":
-        return _forward_train(cfg, params, batch, impl), None
+        return _forward_train(cfg, params, batch, impl)
     if impl is not None:
         raise ValueError(f"impl={impl!r} applies to train mode only")
     tokens = batch["tokens"]
@@ -518,10 +572,10 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
         if kind == SSM:
             x = ssm_apply(params["layers"][i], x, cfg, entry)
             continue
-        x = _attn_apply(params["layers"][i], x, kind, cfg, positions,
-                        entry=entry, n_valid=n_valid,
-                        pages=cache if paged is not None else None,
-                        layer=i, paged=paged, rows=rows)
+        x, _ = _attn_apply(params["layers"][i], x, kind, cfg, positions,
+                           entry=entry, n_valid=n_valid,
+                           pages=cache if paged is not None else None,
+                           layer=i, paged=paged, rows=rows)
     if mode == "prefill" and cache is not None:
         cache["index"].fill_(n_valid)
     elif mode == "decode":

@@ -21,6 +21,11 @@ own length (padding would run through the scan state; a retry
 re-prefills the same prompt at the same shape).  Decode is ONE batched
 step over all ``num_slots`` rows, each at its own position.
 
+An MoE stack prefills at the prompt's own length on either pool, as the
+reference does: padding positions would route too, and the expert
+capacity ``ceil(S k cf / E)`` grows with the padded S, so a padded
+prefill would keep tokens the reference drops.
+
 Warm standbys (``make_standby_source``) restore the parameters from the
 newest checkpoint that verifies, through ``CheckpointManager``.
 
@@ -64,6 +69,7 @@ class ServeFns:
         self.num_slots = num_slots
         self.max_len = max_len
         self.paged = paged
+        own_length = bool(cfg.num_experts)   # see the module docstring
         if not paged:
             self.decode = make_serve_decode_step(cfg)
             if SSM in cfg.layer_kinds():
@@ -73,7 +79,8 @@ class ServeFns:
                 # the paged path's one prefill shape (train/serve.py)
                 self.cache_len = (-(-max_len // DEFAULT_PAGE_SIZE)
                                   * DEFAULT_PAGE_SIZE)
-                self.prefill = make_prefill_step(cfg, pad_to=self.cache_len)
+                self.prefill = make_prefill_step(
+                    cfg, pad_to=None if own_length else self.cache_len)
             return
         self.page_size = page_size
         self.pages_per_row = -(-max_len // page_size)
@@ -82,7 +89,8 @@ class ServeFns:
                           else num_slots * self.cache_len // page_size + 1)
         self.max_active = max_active if max_active is not None else num_slots
         self.prefix_cache = prefix_cache
-        self.prefill = make_prefill_step(cfg, pad_to=self.cache_len)
+        self.prefill = make_prefill_step(
+            cfg, pad_to=None if own_length else self.cache_len)
         self.paged_decode = make_paged_decode_step(cfg)
 
     @property

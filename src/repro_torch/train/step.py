@@ -29,20 +29,27 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
             impl: Optional[str] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Causal-LM cross entropy over the padded vocab (padded logits masked
-    to ``NEG_INF``), in float32.  ``impl="abft"``: checksummed
-    projections (SDC tier 1)."""
-    logits, _ = forward(cfg, params, batch, mode="train", impl=impl)
+    to ``NEG_INF``), in float32, plus ``AUX_WEIGHT`` x the MoE
+    load-balancing loss.  ``impl="abft"``: checksummed projections (SDC
+    tier 1)."""
+    logits, aux = forward(cfg, params, batch, mode="train", impl=impl)
+    nll = causal_nll(cfg, logits, batch["targets"])
+    return nll + AUX_WEIGHT * aux, {"nll": nll, "aux": aux}
+
+
+def causal_nll(cfg: ModelConfig, logits: torch.Tensor,
+               targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy of ``logits`` (B, S, padded vocab) against
+    ``targets``, the padded columns masked out."""
     logits = logits.to(torch.float32)
     v, vp = cfg.vocab_size, cfg.padded_vocab
     if vp > v:
         pad = torch.arange(vp, device=logits.device) >= v
         logits = torch.where(pad, NEG_INF, logits)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, batch["targets"].long()[..., None],
+    gold = torch.take_along_dim(logits, targets.long()[..., None],
                                 dim=-1)[..., 0]
-    nll = torch.mean(logz - gold)
-    aux = torch.zeros((), dtype=torch.float32, device=logits.device)
-    return nll + AUX_WEIGHT * aux, {"nll": nll, "aux": aux}
+    return torch.mean(logz - gold)
 
 
 def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,

@@ -206,13 +206,42 @@ def test_restore_walks_back_past_a_corrupt_checkpoint(tmp_path):
     m.close()
 
 
+def test_int8_bfloat16_leaf_restores_alike_without_the_device_codec(
+        tmp_path):
+    """A bfloat16 leaf that ``device_codec`` wrote int8-coded restores to
+    the same bfloat16 values through the host codec (a manager without
+    the device codec), as a tensor and as numpy."""
+    g = torch.Generator().manual_seed(0)
+    x = {"a": torch.randn(4096, generator=g).to(torch.bfloat16),
+         "b": torch.randn(3000, generator=g)}
+    m = CheckpointManager(str(tmp_path), fsync="none", device_codec=True)
+    m.save(1, x)
+    m.close()
+    dev, _ = CheckpointManager(str(tmp_path), device_codec=True).restore(
+        like=x)
+    host, _ = CheckpointManager(str(tmp_path)).restore(like=x)
+    for k in x:
+        assert host[k].dtype == x[k].dtype and host[k].shape == x[k].shape
+        assert torch.equal(host[k], dev[k]), k
+    raw, _ = CheckpointManager(str(tmp_path)).restore(
+        like={"a": np.zeros(4096), "b": np.zeros(3000)})
+    assert raw["a"].dtype == np.dtype("V2") and raw["a"].shape == (4096,)
+    assert np.array_equal(raw["a"].view(np.int16),
+                          dev["a"].view(torch.int16).numpy())
+
+
 def test_unsupported_paths_say_so(tmp_path):
     # delta saves are ported; a block that breaks the codec's is refused
     with pytest.raises(ValueError, match="multiple of 256"):
         CheckpointManager(str(tmp_path), delta=True, delta_block=1000)
     m = CheckpointManager(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        m.restore(step=0, shardings=object())
+    # restores onto shardings are ported (tests/test_torch_sharded_ckpt.py);
+    # a sharded save without the global shapes is refused
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.api import P, resolve
+    sh = resolve(P("model"), make_host_mesh(1, 2, ranks=[0, 1], rank=0))
+    with pytest.raises(ValueError, match="needs like="):
+        m.save(1, {"x": torch.zeros(4)}, shardings={"x": sh})
     m.close()
 
 

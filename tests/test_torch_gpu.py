@@ -1275,3 +1275,101 @@ def test_tiny_mamba_training_on_the_card_matches_the_cpu(cuda):
             for a, b in zip(leaves(s1), leaves(s2)):
                 assert torch.equal(a, b)
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# slice 8: MoE train steps, the compressed reduction over ranks
+# --------------------------------------------------------------------------
+
+def test_mixtral_moe_steps_bit_equal_under_deterministic_algorithms(cuda):
+    """Two identical MoE train steps from one state on the card give the
+    same bits (deterministic algorithms: the dispatch writes each kept
+    copy's slot by index, the combine's gather backward sorts); the
+    kernels of the attention path launch."""
+    from repro_torch.data import ShardedPipeline
+    from repro_torch.models import get_config
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.tree import flatten_named
+
+    cfg = dataclasses.replace(get_config("mixtral-8x7b"), num_layers=1,
+                              d_model=1024, num_heads=8, num_kv_heads=2,
+                              head_dim=128, d_ff=2048)
+    state = init_state(cfg, seed=0, device=cuda)
+    batch = ShardedPipeline(cfg, 256, 4, dp_width=1).next_batch()
+    step = make_train_step(cfg, total_steps=10, microbatches=2)
+    flash_attention_bshd.launches = 0
+    a, ma = step(state, batch)
+    b, mb = step(state, batch)
+    assert flash_attention_bshd.launches == 2 * 2 * 2    # fwd + recompute
+    assert float(ma["aux"]) > 0 and np.isfinite(float(ma["loss"]))
+    for k in ma:
+        assert torch.equal(ma[k], mb[k]), k
+    for (n, x), (_, y) in zip(flatten_named(a), flatten_named(b)):
+        assert torch.equal(x, y), n
+
+
+def test_compressed_psum_over_two_ranks_on_the_card(cuda, tmp_path):
+    """``compressed_psum`` on 2 ranks sharing the card: each payload is
+    the plain codec's bytes, the reduced value the rank-order mean of the
+    dequantized payloads bit for bit on both ranks, the residual exactly
+    ``g_eff - deQ(Q(g_eff))``; the codec kernels launch."""
+    import torch_mesh_workers as W
+    from repro_torch.sharding.launch import spawn
+
+    rounds, n = 3, 5000
+    out = spawn(W.compress_card, 2, run_dir=str(tmp_path), device="cuda",
+                args=(0, rounds, n), join_timeout=300)
+    for t in range(rounds):
+        deq = []
+        for r in out:
+            rec = r["rounds"][t]
+            g_eff = torch.from_numpy(rec["g"] + rec["ef"])
+            q, s = quantize_ref(g_eff)
+            assert np.array_equal(q.numpy(), rec["q"])
+            assert np.array_equal(s.numpy(), rec["s"])
+            d = dequantize_ref(q, s, (n,)).numpy()
+            assert np.array_equal(rec["new_ef"], g_eff.numpy() - d)
+            deq.append(d)
+        want = (deq[0] + deq[1]) / 2
+        for r in out:
+            assert np.array_equal(r["rounds"][t]["red"], want)
+    for r in out:
+        # psum: a quantize and 1 + 2 dequantizes a round; the record's
+        # own quantize one more
+        assert r["quantize"] == 2 * rounds
+        assert r["dequantize"] == 3 * rounds
+
+
+def test_sharded_device_codec_restore_decodes_on_the_card(cuda, tmp_path):
+    """A ``device_codec`` sharded save on a (2, 2) mesh of ranks on the
+    card, restored onto (1, 2): each rank's int8 shards reach the card
+    encoded and the dequantize kernel decodes them (one launch a shard
+    overlapping the rank's region), with the plain codec's bits."""
+    import torch_mesh_workers as W
+    from repro_torch.sharding.launch import spawn
+
+    leaves = {"big": np.linspace(-3, 3, 3 * 2048,
+                                 dtype=np.float32).reshape(3, 2048),
+              "w": np.arange(60, dtype=np.float32).reshape(6, 10)}
+    spec_a = {"big": [None, "model"], "w": ["data", "model"]}
+    spec_b = {"big": ["model", "data"], "w": [None, "model"]}
+    ck = str(tmp_path / "ckpt")
+    info = spawn(W.ckpt_save, 4, run_dir=str(tmp_path / "a"), device="cuda",
+                 args=(ck, (2, 2), leaves, spec_a, None, False, (1,), True),
+                 join_timeout=300)
+    want = {k: v.copy() for k, v in leaves.items()}
+    for i in info:
+        sl = tuple(slice(a, b) for a, b in i["spans"]["big"])
+        part = torch.from_numpy(leaves["big"][sl].copy())
+        q, s = quantize_ref(part)
+        want["big"][sl] = dequantize_ref(q, s, part.shape).numpy()
+    shapes = {k: (list(v.shape), str(v.dtype)) for k, v in leaves.items()}
+    out = spawn(W.ckpt_restore, 2, run_dir=str(tmp_path / "b"),
+                device="cuda", args=(ck, (1, 2), shapes, spec_b, None, True),
+                join_timeout=300)
+    for r in out:
+        for k, (arr, spans) in r["leaves"].items():
+            sl = tuple(slice(a, b) for a, b in spans)
+            assert np.array_equal(arr, want[k][sl]), k
+        assert r["decodes"] == ["cuda", "cuda"]
+        assert r["dequantize"] == 2

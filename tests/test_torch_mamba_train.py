@@ -294,7 +294,8 @@ def test_cli_trains_falcon_mamba(tmp_path, capsys):
         "--inject-failure", "4", "--ckpt-dir", str(tmp_path / "ck")]) == 0
     out = capsys.readouterr().out
     assert "[train] done" in out and "restarts=1" in out
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # a rank mesh trains attention stacks; Mamba stacks train on one rank
+    with pytest.raises(NotImplementedError, match="on one rank"):
         train_cli.main(["--arch", ARCH, "--tiny", "--device", "cpu",
                         "--data-par", "2", "--ckpt-dir",
                         str(tmp_path / "ck2")])
