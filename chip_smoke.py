@@ -166,9 +166,10 @@ ends the run with a non-zero exit code and no result line:
                  nothing dropped, launches held to each path, the decode
                  sentinel's entropy under its ceiling; then
                  ``steps-moe``;
-20. ``elastic`` — granite-3-8b at full width (2 of 40 layers, S 1024,
+20. ``elastic`` — granite-3-8b at full width (1 of 40 layers, S 1024,
                  global batch 8) on 4 ranks sharing the card (2 hosts x 2
-                 ranks, gloo over host memory, ``sharding/launch.py``)
+                 ranks, tensors exchanged through files in the run's directory between
+                 gloo barriers, ``sharding/launch.py``)
                  through ``run_elastic``: host 1's heartbeats stop after
                  step 3 (the mesh shrinks (2, 2) -> (1, 2), resharded
                  from the pause's checkpoint) and start again after step
@@ -197,7 +198,33 @@ ends the run with a non-zero exit code and no result line:
                  dequantized payloads bit for bit, the residual exactly
                  ``g_eff - deQ(Q(g_eff))``, the long-run mean converging,
                  quantize and dequantize launches counted, its ms beside
-                 a plain gloo all-reduce of the same leaves.
+                 the plain rank-order sum of the same leaves over the
+                 same transport (``comm.ordered_sum``);
+23. ``chaos-sim`` — ``ControlPlaneSim`` through every canned trace
+                 (``scenarios/*.json``) at 1000 virtual hosts, and
+                 ``axis_loss`` at 1000 hosts x 2 devices over a
+                 mixtral-8x7b (dp, tp, ep) grid: every invariant green;
+                 ticks, detections, detection latency, final dp and wall
+                 seconds (host work on the card's machine);
+24. ``chaos-serve`` — ``ServeScenarioDriver`` replays ``compound`` (4
+                 replicas x 2 slots, 4 warm standbys) and
+                 ``flash_crowd_paged`` (2 paged replicas, 64 rows) against
+                 granite-3-8b at full width and depth, one set of weights
+                 shared: zero drop, conservation, monotonic drain, page
+                 conservation, the kills and storm failures landed, every
+                 stream equal to the port's B=1 prefill and decode on the
+                 card, launches held to the path;
+25. ``chaos-train`` — ``compound`` through ``run_scenario_elastic`` on 8
+                 ranks sharing the card (4 hosts x 2 ranks, (4, 2)),
+                 granite-3-8b at full width and 1 of 40 layers, S 1024,
+                 global batch 8, 20 steps, raw saves every 2, the
+                 scrubber over every leaf, the telemetry plane on rank 0:
+                 agreed rollbacks for the storm's flips, hosts 2 and 3
+                 shrunk at 6 and grown at 16, no step lost, the trajectory
+                 within the elastic phase's limits of a single-rank run,
+                 the log back to compound.json and replayed through the
+                 simulator, every incident closed, launches held to the
+                 path (the train step's and the scrubber's block hashes).
 
 The kernel phase also holds selective_scan to its plain version within
 1e-5 + 1e-5 |want| (tests/test_kernels.py) at the serve shape (B 1,
@@ -225,7 +252,8 @@ also without programmatic dependent launch.
 
 Then the kernels summary (one JSON object, launches by path: serve,
 train, sdc, abft, serve_ssm, fwi, train_ssm, train_obs, serve_predrain,
-serve_slots, serve_standby, serve_moe, elastic, elastic_moe, compress),
+serve_slots, serve_standby, serve_moe, elastic, elastic_moe, compress,
+chaos_serve, chaos_train),
 the ``nvidia-smi`` line,
 and the last line
 ``{"ok": true, "device": {...}}``.
@@ -352,7 +380,14 @@ KERNELS = {
 }
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (``t_s``)."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=round(time.perf_counter() - _T0, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -910,7 +945,7 @@ def _hash_check(label, leaves, block):
 def _block_hash_cases(gen, bw, seed):
     """The embed leaf (main), leaves of every element size, a ragged leaf
     at two block sizes, and one grouped launch over the full-width train
-    state (4 layers), each bit-equal to the plain version."""
+    state (TRAIN_LAYERS layers), each bit-equal to the plain version."""
     from repro_torch.kernels.block_hash.kernel import hash_leaves
     from repro_torch.kernels.block_hash.ref import block_hashes_ref
     from repro_torch.models import get_config
@@ -3212,8 +3247,9 @@ def phase_fwi():
 # (2.90 GB of bf16 a layer: 32 need 93.6 GB)
 MOE_SERVE_LAYERS = 4
 MOE_LM_BATCH = 8                 # the launch/serve_lm twin: 8 x 256, 32 new
-# elastic: granite-3-8b at full width, 2 of 40 layers, on 2 hosts x 2 ranks
-ELASTIC_LAYERS = 2
+# elastic: granite-3-8b at full width, 1 of 40 layers (2 until the chaos
+# phases needed the time), on 2 hosts x 2 ranks
+ELASTIC_LAYERS = 1
 ELASTIC_SEQ = 1024
 ELASTIC_BATCH = 8
 ELASTIC_STEPS = 7
@@ -3641,8 +3677,39 @@ def _comm_totals(rec):
     return tot
 
 
+def _trajectory_gaps(steps, history, param_sq, ref, ref_norms, ref_sq):
+    """A mesh run's surviving steps against the single-rank run's: each
+    step's loss (absolute), gradient norm (relative) and change of the
+    parameters' sum of squares (relative to the reference's mean change a
+    step; a step run again after a restore: its last record counts).
+    Returns the gaps and the names of the limits missed."""
+    from repro_torch.chaos import invariants as inv
+
+    losses = [h["loss"] for h in history if "loss" in h]
+    norms = [h["grad_norm"] for h in history if "loss" in h]
+    tm = inv.check_trajectory_match(losses, ref, tol=ELASTIC_LOSS_TOL)
+    norm_gap = [abs(a - b) / b for a, b in zip(norms, ref_norms)]
+    sq = dict((k, v) for k, v in param_sq)
+    ref_d = [ref_sq[k] - ref_sq[k - 1] for k in range(1, steps + 1)]
+    scale = sum(abs(d) for d in ref_d) / steps
+    update_gap = [abs(sq.get(k, math.nan) - sq.get(k - 1, math.nan) - d)
+                  / scale for k, d in enumerate(ref_d, 1)]
+    bad = [] if bool(tm) else [f"trajectory {tm}"]
+    if not max(norm_gap) <= ELASTIC_GNORM_RTOL:
+        bad.append(f"gradient norms off the single-rank run's by {norm_gap}")
+    if not all(g <= ELASTIC_UPDATE_RTOL for g in update_gap):
+        bad.append(f"the steps' changes of the parameters' sum of squares "
+                   f"off the single-rank run's by {update_gap} of them")
+    return {"losses": losses, "grad_norms": norms,
+            "trajectory_max_diff": max(abs(a - b)
+                                       for a, b in zip(losses, ref)),
+            "grad_norm_max_rel_diff": max(norm_gap),
+            "param_sq": [sq.get(k) for k in range(steps + 1)],
+            "update_rel_gap": update_gap}, bad
+
+
 def phase_elastic(seed: int, mode: str):
-    """``elastic`` / ``elastic-moe`` on ranks sharing the card (gloo over
+    """``elastic`` / ``elastic-moe`` on ranks sharing the card (files over
     host memory: a collective's time here says nothing of a network's
     bandwidth).  Checks: the events, the survivor grid (and for MoE the
     degraded experts and the manifest's mesh) equal what ``best_grid3d``
@@ -3709,7 +3776,6 @@ def phase_elastic(seed: int, mode: str):
             raise AssertionError(f"{mode}: rank {r['rank']} {r['status']} "
                                  f"{r['events']}")
     losses = [h["loss"] for h in lead["history"] if "loss" in h]
-    norms = [h["grad_norm"] for h in lead["history"] if "loss" in h]
     lost = inv.check_no_lost_steps(lead["history"], steps)
     if not bool(lost) or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{mode}: steps {lost} losses {losses}")
@@ -3727,20 +3793,8 @@ def phase_elastic(seed: int, mode: str):
     ref, ref_norms, ref_sq = _single_rank_run(
         cfg, steps, micro, seed, dead_at=fail_step if moe else None,
         dead=tuple(range(cfg.num_experts // 2)) if moe else ())
-    tm = inv.check_trajectory_match(losses, ref, tol=ELASTIC_LOSS_TOL)
-    norm_gap = [abs(a - b) / b for a, b in zip(norms, ref_norms)]
-    # a step run again after a restore: its last record counts
-    sq = dict((k, v) for k, v in lead["param_sq"])
-    ref_d = [ref_sq[k] - ref_sq[k - 1] for k in range(1, steps + 1)]
-    scale = sum(abs(d) for d in ref_d) / steps
-    update_gap = [abs(sq.get(k, math.nan) - sq.get(k - 1, math.nan) - d)
-                  / scale for k, d in enumerate(ref_d, 1)]
-    bad = [] if bool(tm) else [f"trajectory {tm}"]
-    if not max(norm_gap) <= ELASTIC_GNORM_RTOL:
-        bad.append(f"gradient norms off the single-rank run's by {norm_gap}")
-    if not all(g <= ELASTIC_UPDATE_RTOL for g in update_gap):
-        bad.append(f"the steps' changes of the parameters' sum of squares "
-                   f"off the single-rank run's by {update_gap} of them")
+    gaps, bad = _trajectory_gaps(steps, lead["history"], lead["param_sq"],
+                                 ref, ref_norms, ref_sq)
     # launches held to the path: every step each member ran
     ran = sum(len(r["step_s"]) for r in out)
     launches = {k: sum(r["launches"][k] for r in out)
@@ -3759,19 +3813,16 @@ def phase_elastic(seed: int, mode: str):
           "events": [dict(e, hosts=list(e["hosts"])) for e in lead["events"]],
           "history_events": [h["event"] for h in lead["history"]
                              if "event" in h],
-          "manifest_mesh": lead["meta"], "losses": losses,
-          "single_rank_losses": ref,
-          "trajectory_max_diff": max(abs(a - b) for a, b in zip(losses, ref)),
-          "grad_norms": norms, "single_rank_grad_norms": ref_norms,
-          "grad_norm_max_rel_diff": max(norm_gap),
-          "param_sq": [sq.get(k) for k in range(steps + 1)],
-          "single_rank_param_sq": ref_sq, "update_rel_gap": update_gap,
+          "manifest_mesh": lead["meta"], "single_rank_losses": ref,
+          "single_rank_grad_norms": ref_norms,
+          "single_rank_param_sq": ref_sq, **gaps,
           "restores": restores, "restored_bit_equal": True,
           "step_s_rank0": step_s,
           "comm_rank0": comm_tot,
           "comm_s_per_step_rank0": sum(v["seconds"] for v in
                                        comm_tot.values()) / len(step_s),
-          "transport": "gloo over host memory, every rank on one card",
+          "transport": "files in the run's directory (page cache) between "
+                       "gloo barriers, every rank on one card",
           "peak_gb_by_rank": [round(r["peak_gb"], 3) for r in out],
           "launches": launches, "wall_s": wall})
     if bad:
@@ -3783,8 +3834,9 @@ def _rank_compress(world, seed: int, rounds: int):
     """One rank of ``compress``: granite-3-8b's layer-0 gradient leaves
     (float32, random from ``seed`` and the rank), ``compressed_psum``
     over the ranks for ``rounds`` rounds, each checked against its
-    definition on the card; then the same leaves through gloo's plain
-    all-reduce, timed."""
+    definition on the card; then the same leaves through the plain
+    rank-order sum over the same transport (``comm.ordered_sum``),
+    timed."""
     from repro_torch.kernels.ckpt_codec.kernel import (dequantize_blocks,
                                                        quantize_blocks)
     from repro_torch.launch.mesh import make_host_mesh
@@ -3858,11 +3910,11 @@ def _rank_compress(world, seed: int, rounds: int):
         torch.cuda.synchronize()
         t = time.perf_counter()
         for k in shapes:
-            comm.all_reduce_sum(grads[k], group)
+            comm.ordered_sum(grads[k], group)
         torch.cuda.synchronize()
         plain.append(time.perf_counter() - t)
     return {"quantize": q_launch.launches, "dequantize": dq_launch.launches,
-            "round_s": times, "plain_allreduce_s": plain,
+            "round_s": times, "plain_sum_s": plain,
             "long_run_rel_err": worst,
             "elements": sum(math.prod(s) for s in shapes.values())}
 
@@ -3888,10 +3940,559 @@ def phase_compress(seed: int):
           "reduced_equal_rank_order_mean": True, "residual_exact": True,
           "long_run_rel_err": max(r["long_run_rel_err"] for r in out),
           "compressed_round_ms": [t * 1e3 for t in r0["round_s"]],
-          "plain_allreduce_ms": [t * 1e3 for t in r0["plain_allreduce_s"]],
-          "transport": "gloo over host memory, both ranks on one card",
+          "plain_sum_ms": [t * 1e3 for t in r0["plain_sum_s"]],
+          "transport": "files in the run's directory between gloo "
+                       "barriers, both ranks on one card (the compressed "
+                       "and the plain sum alike)",
           "launches": {"ckpt_quantize": q, "ckpt_dequantize": dq}})
     return {"ckpt_quantize": q, "ckpt_dequantize": dq}
+
+
+
+# --------------------------------------------------------------------------
+# slice 9: the chaos scenario engine
+# --------------------------------------------------------------------------
+
+# chaos-sim: every canned trace at 1000 virtual hosts (bench_chaos.py's
+# arguments), and axis_loss at 1000 hosts x 2 devices over a mixtral grid
+CHAOS_SIM_HOSTS = 1000
+CHAOS_SIM_RATE = 20
+CHAOS_SIM_SLOTS = 4
+# chaos-serve: granite-3-8b as registered (40 layers, bf16); compound on 4
+# replicas x 2 slots with 4 standbys (tests/test_chaos.py's set-up), then
+# flash_crowd_paged on 2 paged replicas of 64 rows (tests/test_paged.py's).
+# compound's streams are held to the B=1 prefill and decode; the 64-row
+# decode rounds otherwise than a 1-row one in bf16 (88 of 195 streams
+# differed from B=1 on an H100 80GB HBM3 at 700 W, and the B=1 replay took
+# 193 s; PERF.md §6), so flash_crowd_paged's are held to a run of the same
+# trace without its kill, at the same shapes, and the streams that the
+# reference's test holds to B=1 (the retried ones and 8 others) to the
+# port's B=1 prefill of prompt and stream, position by position: the
+# stream's token within CHAOS_TF_RATIO of the B=1 logits' spread (max -
+# median) of their max.  A near tie that bf16 rounding breaks the other
+# way sits a few hundredths of the spread under the max; a token of
+# another row, page or request sits about one spread under it.
+CHAOS_TF_RATIO = 0.1
+CHAOS_SERVE = {
+    "compound": (dict(num_replicas=4, slots_per_replica=2, max_len=32,
+                      max_pending=256, max_retries=8), 4,
+                 dict(base_rate=1, prompt_len=6, max_new_tokens=6)),
+    "flash_crowd_paged": (dict(num_replicas=2, slots_per_replica=4,
+                               max_len=32, max_pending=512,
+                               max_prefill_per_step=16, paged=True,
+                               max_active=64, num_pages=200), 0,
+                          dict(base_rate=1, prompt_len=8,
+                               max_new_tokens=16)),
+}
+# chaos-train: compound through run_scenario_elastic, granite-3-8b at full
+# width and 1 of 40 layers on 4 hosts x 2 ranks, (4, 2), S 1024, global
+# batch 8 (ELASTIC_SEQ, ELASTIC_BATCH), 20 steps, raw saves every 2, the
+# scrubber over every leaf, the telemetry plane on rank 0
+CHAOS_LAYERS = 1
+CHAOS_STEPS = 20
+CHAOS_EVERY = 2
+CHAOS_HOSTS = 4
+CHAOS_RANKS = 8
+
+
+def _scenario_path(name: str) -> str:
+    return str(ROOT / "scenarios" / f"{name}.json")
+
+
+def phase_chaos_sim():
+    """``chaos-sim``: ``ControlPlaneSim`` through every canned trace at
+    CHAOS_SIM_HOSTS hosts (``base_rate`` CHAOS_SIM_RATE, CHAOS_SIM_SLOTS
+    slots a host), and ``axis_loss`` at 1000 hosts x 2 devices over a
+    mixtral-8x7b (dp, tp, ep) grid: every invariant green.  Host work on
+    the card's machine: no device work."""
+    from repro_torch.chaos import ControlPlaneSim, Scenario, verify
+    from repro_torch.core import MeshSpec
+    from repro_torch.models import get_config
+
+    runs = [(p.stem, ControlPlaneSim(CHAOS_SIM_HOSTS,
+                                     base_rate=CHAOS_SIM_RATE,
+                                     slots_per_host=CHAOS_SIM_SLOTS))
+            for p in sorted((ROOT / "scenarios").glob("*.json"))]
+    spec = MeshSpec.from_config(get_config("mixtral-8x7b"), data=500,
+                                model=2, expert=2)
+    runs.append(("axis_loss", ControlPlaneSim(CHAOS_SIM_HOSTS,
+                                              devices_per_host=2,
+                                              mesh_spec=spec)))
+    total = 0.0
+    for name, sim in runs:
+        rep = sim.run(Scenario.from_json(_scenario_path(name)))
+        d = rep.to_dict()
+        emit({"phase": "chaos-sim", "scenario": name,
+              "hosts": sim.num_hosts,
+              "devices_per_host": sim.devices_per_host,
+              "mesh_spec": (list(spec.shape()) if sim.mesh_spec else None),
+              "ticks": rep.ticks, "detected": d["detected"],
+              "detection_latency_p50_s": d["detection_latency_p50"],
+              "detection_latency_p99_s": d["detection_latency_p99"],
+              "final_dp": d["final_dp"], "grids": sorted({
+                  (m["dp"], m["mp"], m["ep"]) for m in rep.mesh_history}),
+              "stale_rejected": [rep.stale_rejected, rep.stale_delivered],
+              "drained": rep.drained_total,
+              "completed": rep.completed_total,
+              "invariants": d["invariants"],
+              "wall_s": rep.wall_seconds,
+              "where": "host CPU of the card's machine (no device work)"})
+        verify(rep.invariants)
+        total += rep.wall_seconds
+    return total
+
+
+def _b1_streams(cfg, params, prompts, gen, max_len):
+    """Each prompt alone through the port's B=1 prefill and decode steps
+    on the card (a fresh cache row of ``max_len``), greedy."""
+    from repro_torch.models import init_cache
+    from repro_torch.train import make_decode_step, make_prefill_step
+
+    pre, dec = make_prefill_step(cfg), make_decode_step(cfg)
+    out = {}
+    with torch.no_grad():
+        for rid, prompt in prompts.items():
+            toks = torch.tensor([prompt], dtype=torch.int32, device="cuda")
+            tok, row = pre(params, {"tokens": toks},
+                           init_cache(cfg, 1, max_len, device="cuda"))
+            s = [int(tok[0])]
+            for _ in range(gen - 1):
+                tok, row = dec(params, {"tokens": tok[:, None]}, row)
+                s.append(int(tok[0]))
+            out[rid] = s
+    return out
+
+
+def _teacher_forced(cfg, params, prompts, streams, cache_len):
+    """Each stream against the port's B=1 prefill (at the engine's one
+    prefill length ``cache_len``) of its prompt followed by its tokens:
+    at each generated position the B=1 logits' max less the stream
+    token's logit, over their spread (max - median).  Returns the
+    positions, how many took the B=1 argmax, and the largest ratio."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import forward, init_cache
+
+    n = agree = 0
+    worst = 0.0
+    with torch.no_grad():
+        for rid, stream in streams.items():
+            prompt = prompts[rid]
+            seq = list(prompt) + list(stream[:-1])
+            toks = torch.tensor([seq], dtype=torch.long, device="cuda")
+            batch = {"tokens": F.pad(toks, (0, cache_len - len(seq))),
+                     "length": len(seq)}
+            logits, _ = forward(cfg, params, batch, mode="prefill",
+                                cache=init_cache(cfg, 1, cache_len,
+                                                 device="cuda"))
+            lg = logits[0, len(prompt) - 1:len(seq), :cfg.vocab_size]
+            lg = lg.float()
+            top = lg.max(dim=-1).values
+            spread = top - lg.median(dim=-1).values
+            tok = torch.tensor(stream, dtype=torch.long, device="cuda")
+            gap = top - lg.gather(1, tok[:, None])[:, 0]
+            n += len(stream)
+            agree += int((gap == 0).sum())
+            worst = max(worst, float((gap / spread).max()))
+    return n, agree, worst
+
+
+def _fault_free(sc):
+    """``sc`` without its kills."""
+    from repro_torch.chaos import Scenario
+
+    d = sc.to_dict()
+    d["events"] = [e for e in d["events"] if e["kind"] != "kill_hosts"]
+    return Scenario.from_dict(d)
+
+
+def _drive_serve(cfg, params, sc, eng_kw, standbys, drv_kw):
+    from repro_torch.chaos import ServeScenarioDriver
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(cfg, params, device="cuda", fault_tolerant=True,
+                      heartbeat_period=HEARTBEAT,
+                      heartbeat_timeout_factor=40.0, **eng_kw)
+    for _ in range(standbys):
+        eng.add_standby(lambda: params)
+    return eng, ServeScenarioDriver(eng, sc, **drv_kw)
+
+
+def phase_chaos_serve(seed: int):
+    """``chaos-serve``: ``ServeScenarioDriver`` replays ``compound`` and
+    ``flash_crowd_paged`` (CHAOS_SERVE) against granite-3-8b at full
+    width and depth, one set of weights on the card shared by every
+    replica and standby.  Launch counters zeroed just before each run and
+    held to the path after it; every admitted request served (zero drop),
+    conservation and monotonic drain at every engine step, page
+    conservation on the paged pool; compound's injected kills and storm
+    (``sentinel:``) failures landed and ``rejoin`` skipped, every stream
+    equal to the port's B=1 prefill and decode of its prompt on the card;
+    flash_crowd_paged's kill landed mid-spike, every stream equal to a
+    run of the trace without the kill, and the reference test's sample
+    (the retried streams and 8 others) within CHAOS_TF_RATIO of the B=1
+    prefill's logits at every position (``_teacher_forced``)."""
+    from repro_torch.chaos import (Scenario, check_conservation,
+                                   check_monotonic_drain,
+                                   check_page_conservation,
+                                   check_token_identical, check_zero_drop,
+                                   verify)
+    from repro_torch.models import get_config, init_params
+
+    cfg = get_config("granite-3-8b")
+    L = cfg.num_layers
+    params = init_params(cfg, seed=seed, device="cuda")
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("rmsnorm", "flash_attention", "paged_attention",
+                         "selective_scan")}
+    total = {k: 0 for k in counters}
+    for name, (eng_kw, standbys, drv_kw) in CHAOS_SERVE.items():
+        sc = Scenario.from_json(_scenario_path(name))
+        eng, drv = _drive_serve(cfg, params, sc, eng_kw, standbys, drv_kw)
+        for fn in counters.values():
+            fn.launches = 0
+        try:
+            t0 = time.perf_counter()
+            results = drv.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            reps = list(eng.router.replicas.values())
+            res = {"prefills": sum(r.prefills for r in reps),
+                   "decode_calls": sum(r.steps for r in reps)}
+            launches = _serve_launches(f"chaos-serve {name}", counters, res,
+                                       L)
+            failures = [e for e in eng.events
+                        if e["event"] == "replica_failed"]
+            checks = [check_zero_drop(eng.scheduler, drv.submitted_rids),
+                      check_conservation(drv.samples),
+                      check_monotonic_drain(drv.drained_series)]
+            if eng.paged:
+                checks.append(check_page_conservation(drv.page_samples))
+            rep = drv.report()
+            steps = eng.engine_step
+        finally:
+            eng.shutdown()
+        t1 = time.perf_counter()
+        if name == "compound":
+            oracle_kind = "b1"
+            oracle = _b1_streams(cfg, params, drv.prompts,
+                                 drv.max_new_tokens, eng_kw["max_len"])
+        else:
+            oracle_kind = "the trace without its kill"
+            ref_eng, ref = _drive_serve(cfg, params, _fault_free(sc),
+                                        eng_kw, standbys, drv_kw)
+            try:
+                oracle = ref.run()
+            finally:
+                ref_eng.shutdown()
+            if ref.prompts != drv.prompts:
+                raise AssertionError(f"chaos-serve {name}: the fault-free "
+                                     f"run drew other prompts")
+        oracle_s = time.perf_counter() - t1
+        checks.append(check_token_identical(results, oracle))
+        tf = None
+        if name != "compound":
+            t1 = time.perf_counter()
+            retried = sorted(set(eng.scheduler.retried_rids))
+            sample = retried + [r for r in drv.submitted_rids[:8]
+                                if r not in retried]
+            n, agree, worst = _teacher_forced(
+                cfg, params, drv.prompts, {r: results[r] for r in sample},
+                -(-eng_kw["max_len"] // PAGE_SIZE) * PAGE_SIZE)
+            tf = {"streams": len(sample), "positions": n,
+                  "b1_argmax": agree, "max_gap_over_spread": worst,
+                  "limit": CHAOS_TF_RATIO,
+                  "seconds": time.perf_counter() - t1}
+        reasons = [f["reason"] for f in failures]
+        emit({"phase": "chaos-serve", "scenario": name, "arch": cfg.name,
+              "layers": L, "paged": eng.paged, "standbys": standbys,
+              "engine_steps": steps, "submitted": rep["submitted"],
+              "rejected": rep["rejected"], "retried": rep["retried"],
+              "skipped": rep["skipped"],
+              "failure_reasons": sorted({":".join(r.split(":")[:2])
+                                         for r in reasons}),
+              "peak_in_flight": max(x["in_flight"] for x in drv.samples),
+              "wall_s": wall, "eager_ms_per_step": wall / steps * 1e3,
+              "tokens": sum(len(v) for v in results.values()),
+              "oracle": oracle_kind, "oracle_s": oracle_s,
+              "streams_off_oracle": sorted(r for r in results
+                                           if results[r] != oracle.get(r)),
+              "teacher_forced_b1": tf,
+              "invariants": [(c.name, bool(c.passed)) for c in checks],
+              "launches": launches})
+        verify(checks)
+        if name == "compound":
+            if (rep["skipped"] != ["rejoin"] or not rep["retried"]
+                    or not any(r.startswith("injected:replica-kill")
+                               for r in reasons)
+                    or not any(r.startswith("sentinel:") for r in reasons)):
+                raise AssertionError(f"chaos-serve compound: the trace did "
+                                     f"not strike as scheduled: {rep} "
+                                     f"{reasons}")
+        elif not failures or not rep["retried"] or rep["rejected"]:
+            raise AssertionError(f"chaos-serve {name}: {rep} {reasons}")
+        elif not tf["max_gap_over_spread"] <= CHAOS_TF_RATIO:
+            raise AssertionError(f"chaos-serve {name}: a stream's token "
+                                 f"off the B=1 logits' max: {tf}")
+        for k in total:
+            total[k] += launches[k]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def _rank_chaos(world, ckpt: str, seed: int):
+    """One rank of ``chaos-train``: ``compound.json`` through
+    ``run_scenario_elastic`` (see ``phase_chaos_train``).  Returns the
+    rank's run, its launches, step and restore seconds, scrub checksum
+    calls, peak memory and its steps' parameter sums of squares; on rank
+    0 the telemetry log's round trip, replay and timeline."""
+    import json as _json
+
+    from repro_torch.chaos import (ControlPlaneSim, Scenario,
+                                   run_scenario_elastic)
+    from repro_torch.core import (Dependability, DependabilityConfig,
+                                  HeartbeatEmitter)
+    from repro_torch.data import ShardedPipeline
+    from repro_torch.launch.mesh import host_device_map
+    from repro_torch.models import get_config
+    from repro_torch.obs import (Observability, Timeline, load_jsonl,
+                                 to_scenario)
+    from repro_torch.sharding import comm
+    from repro_torch.train import init_state
+    from repro_torch.train.mesh_step import (init_sharded_state,
+                                             make_mesh_train_step,
+                                             state_shardings)
+    from repro_torch.tree import flatten_named, leaves
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"),
+                              num_layers=CHAOS_LAYERS)
+    hosts = host_device_map(CHAOS_HOSTS)
+    r0 = world.rank == 0
+    dep = Dependability(DependabilityConfig(
+        checkpoint_dir=os.path.join(ckpt, "ckpt"), policy_mode="every_n",
+        every_n=CHAOS_EVERY, fsync="none", heartbeat=r0,
+        heartbeat_period=HEARTBEAT, heartbeat_timeout_factor=40.0,
+        signal_detection=False, scrub=True, scrub_fraction=1.0,
+        monitor_hosts=CHAOS_HOSTS)).start()
+    jsonl = os.path.join(ckpt, "telemetry", "events.jsonl")
+    emitters = {}
+    if r0:
+        dep.attach_obs(Observability(jsonl_path=jsonl))
+        world.publish("monaddr", _json.dumps(list(dep.monitor.addr)))
+        emitters[0] = dep.emitter
+    addr = tuple(_json.loads(world.fetch("monaddr")))
+    my_host = next(h for h, rs in hosts.items() if world.rank in rs)
+    if hosts[my_host][0] == world.rank and my_host != 0:
+        emitters[my_host] = HeartbeatEmitter(my_host, addr,
+                                             HEARTBEAT).start()
+    like = init_state(cfg, seed=seed, device="meta")
+    rec = {"step_s": [], "param_sq": [], "restore_s": [], "comm": []}
+
+    def shardings_for(mesh):
+        return state_shardings(cfg, mesh)
+
+    def make_step(mesh):
+        sh = shardings_for(mesh)
+        fn = make_mesh_train_step(cfg, mesh, sh, like,
+                                  warmup_steps=ELASTIC_WARMUP,
+                                  total_steps=CHAOS_STEPS, donate=True)
+        own = [s.replica_id() == 0 for s in leaves(sh["params"])]
+        group = mesh.group(mesh.axis_names)
+
+        def param_sq(state):
+            # each shard counted once, summed over the mesh in rank order
+            rec["param_sq"].append([int(state["step"]), float(
+                comm.ordered_sum(_param_sq(state["params"], own), group))])
+
+        def step(state, batch):
+            if not rec["param_sq"]:
+                param_sq(state)              # the initial state
+            state, m = fn(state, batch)
+            param_sq(state)
+            return state, m
+        return step
+
+    def on_metrics(s, r):
+        rec["step_s"].append([s, r["seconds"]])
+        rec["comm"].append(comm.stats())
+        comm.reset_stats()
+
+    restore = dep.restore_latest
+
+    def timed_restore(**kw):
+        t = time.perf_counter()
+        out = restore(**kw)
+        torch.cuda.synchronize()
+        rec["restore_s"].append([out[1], time.perf_counter() - t])
+        return out
+
+    dep.restore_latest = timed_restore
+    leaf_names = [n for n, _ in flatten_named(like)
+                  if n.startswith("params.") and "attn.wk" in n]
+    data = ShardedPipeline(cfg, ELASTIC_SEQ, ELASTIC_BATCH,
+                           dp_width=CHAOS_RANKS // 2)
+    sc = Scenario.from_json(_scenario_path("compound"))
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    comm.reset_stats()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        state, info = run_scenario_elastic(
+            dep, make_step,
+            lambda mesh, sh: init_sharded_state(cfg, sh, seed=seed,
+                                                device=world.device,
+                                                world=world,
+                                                ranks=mesh.ranks()),
+            data, CHAOS_STEPS, world=world, scenario=sc, emitters=emitters,
+            host_devices=hosts, model_axis=2, like=like,
+            shardings_fn=shardings_for, leaf_names=leaf_names,
+            on_metrics=on_metrics, control_timeout=600.0)
+        wall = time.perf_counter() - t0
+        out = {"rank": world.rank, "status": info["status"],
+               "dp": info["dp"], "rollbacks": info["rollbacks"],
+               "events": [dataclasses.asdict(e) for e in info["events"]],
+               "history": info["history"], "report": info["report"],
+               "member": state is not None, "wall_s": wall,
+               "launches": {k: fn.launches for k, fn in counters.items()},
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "mismatches": list(dep.scrubber.mismatches), **rec}
+        if r0:
+            dep.obs.close()
+            log = load_jsonl(jsonl)
+            back = to_scenario(log)
+            sim = ControlPlaneSim(CHAOS_HOSTS, devices_per_host=2,
+                                  model_axis=2).run(back)
+            out.update(scenario=back.to_dict(),
+                       sim_invariants=[(r.name, bool(r.passed))
+                                       for r in sim.invariants],
+                       sim_detected=sorted(d["host"]
+                                           for d in sim.detections),
+                       timeline=Timeline.from_events(log).summary(),
+                       log_events=len(log))
+    finally:
+        for h, em in emitters.items():
+            if h != 0:
+                em.stop()
+        dep.stop()
+    return out
+
+
+def phase_chaos_train(seed: int):
+    """``chaos-train``: ``compound.json`` through ``run_scenario_elastic``
+    on CHAOS_RANKS ranks sharing the card (CHAOS_HOSTS hosts x 2 ranks,
+    (4, 2), files over host memory), granite-3-8b at full width and
+    CHAOS_LAYERS layer, S ELASTIC_SEQ, global batch ELASTIC_BATCH,
+    CHAOS_STEPS steps, raw saves every CHAOS_EVERY, the scrubber over
+    every leaf, the peak learning rate from step 1 and the telemetry plane
+    on rank 0 writing JSONL.  Checks: every rank ``done`` with the same
+    events, at least one agreed rollback, a shrink of exactly hosts 2
+    and 3 at step 6 and a grow of both at 16, dp 4 at the end, flips
+    landed, ``traffic_spike`` skipped, no step lost, no dead host grown,
+    each surviving step's loss, gradient norm and change of the
+    parameters' sum of squares within the elastic phase's limits of a
+    single-rank run; the log converts back to compound.json, replays
+    through ``ControlPlaneSim`` with every invariant green and detections
+    {2, 3}, and its timeline's incidents all closed; launches held to the
+    path (the train step's kernels for every step each rank ran, and one
+    block-hash launch for each scrubber checksum pass: a record a step, a
+    verify each attempt but a rank's first after each entry, a rebase a
+    mesh-change restore)."""
+    from repro_torch.chaos import (Scenario, check_no_dead_growth,
+                                   check_no_lost_steps, verify)
+    from repro_torch.models import get_config
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"),
+                              num_layers=CHAOS_LAYERS)
+    ckpt = tempfile.mkdtemp(dir=_ckpt_root(), prefix="chaos_")
+    t0 = time.perf_counter()
+    try:
+        out = _run_ranks(_rank_chaos, CHAOS_RANKS, (ckpt, seed), 1200.0)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    lead = out[0]
+    kinds = [(e["kind"], sorted(e["hosts"]), e["step"], e["dp"])
+             for e in lead["events"]]
+    rep = lead["report"]
+    bad = []
+    for r in out:
+        if (r["status"] != "done" or r["events"] != lead["events"]
+                or r["rollbacks"] != lead["rollbacks"] or not r["member"]):
+            bad.append(f"rank {r['rank']}: {r['status']} {r['events']} "
+                       f"rollbacks {r['rollbacks']}")
+    if kinds != [("shrink", [2, 3], 6, 2), ("grow", [2, 3], 16, 4)]:
+        bad.append(f"events {kinds}")
+    if lead["rollbacks"] < 1 or lead["dp"] != 4:
+        bad.append(f"rollbacks {lead['rollbacks']} dp {lead['dp']}")
+    if not rep["sdc_injected"] or rep["skipped"] != ["traffic_spike"]:
+        bad.append(f"report {rep}")
+    grown = [(e["step"], list(e["hosts"])) for e in lead["events"]
+             if e["kind"] == "grow"]
+    invariants = [check_no_lost_steps(lead["history"], CHAOS_STEPS),
+                  check_no_dead_growth(grown, {2: [(6.0, 16.0)],
+                                               3: [(6.0, 16.0)]})]
+    if lead["scenario"] != Scenario.from_json(
+            _scenario_path("compound")).to_dict():
+        bad.append("the log's scenario is not compound.json")
+    if (not all(ok for _, ok in lead["sim_invariants"])
+            or lead["sim_detected"] != [2, 3]):
+        bad.append(f"replay {lead['sim_invariants']} "
+                   f"{lead['sim_detected']}")
+    tl = lead["timeline"]
+    if not tl["incidents"] or tl["closed"] != tl["incidents"]:
+        bad.append(f"timeline {tl}")
+    ref, ref_norms, ref_sq = _single_rank_run(cfg, CHAOS_STEPS, 1, seed)
+    gaps, missed = _trajectory_gaps(CHAOS_STEPS, lead["history"],
+                                    lead["param_sq"], ref, ref_norms, ref_sq)
+    bad += missed
+    # launches held to the path
+    ran = sum(len(r["step_s"]) for r in out)
+    want = _train_launches(cfg.num_layers, 1, ran)
+    resumes = [sum(1 for h in r["history"]
+                   if str(h.get("event", "")).startswith("resume:"))
+               for r in out]
+    want["block_hash"] = sum(2 * len(r["step_s"]) - 1 + n
+                             for r, n in zip(out, resumes))
+    launches = {k: sum(r["launches"][k] for r in out)
+                for k in out[0]["launches"]}
+    if any(launches[k] != want.get(k, 0) for k in launches):
+        bad.append(f"launches {launches}, the path implies {want}")
+    step_s = [t for _, t in lead["step_s"]]
+    restores = sorted({(got, round(s, 3)) for r in out
+                       for got, s in r["restore_s"]})
+    emit({"phase": "chaos-train", "arch": cfg.name,
+          "layers": cfg.num_layers, "ranks": CHAOS_RANKS,
+          "hosts": CHAOS_HOSTS, "seq": ELASTIC_SEQ,
+          "global_batch": ELASTIC_BATCH, "steps": CHAOS_STEPS,
+          "events": kinds, "rollbacks": lead["rollbacks"],
+          "history_events": [h["event"] for h in lead["history"]
+                             if "event" in h],
+          "applied": [(a["phase"], a["at"], a["step"])
+                      for a in rep["applied"]],
+          "skipped": rep["skipped"], "sdc_injected": rep["sdc_injected"],
+          "ranks_that_saw_a_flip": [r["rank"] for r in out
+                                    if r["mismatches"]],
+          "invariants": [(c.name, bool(c.passed)) for c in invariants],
+          "single_rank_losses": ref, "single_rank_grad_norms": ref_norms,
+          "single_rank_param_sq": ref_sq, **gaps,
+          "step_s_rank0": step_s, "step_executions": ran,
+          "restores": restores,
+          "mttr_s": tl["mttr_s"], "availability": tl["availability"],
+          "incidents": [tl["incidents"], tl["closed"]],
+          "causes": tl["causes"], "log_events": lead["log_events"],
+          "comm_rank0": _comm_totals(lead),
+          "transport": "files in the run's directory (page cache) between "
+                       "gloo barriers, every rank on one card",
+          "peak_gb_by_rank": [round(r["peak_gb"], 3) for r in out],
+          "launches": launches, "wall_s": wall})
+    verify(invariants)
+    if bad:
+        raise AssertionError("chaos-train: " + "; ".join(bad))
+    return launches
 
 
 def main(argv=None) -> int:
@@ -3955,6 +4556,11 @@ def main(argv=None) -> int:
     elastic_moe = phase_elastic(args.seed, "elastic-moe")
     compress = phase_compress(args.seed)
     emit({"phase": "slice8-time", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    phase_chaos_sim()
+    chaos_serve = phase_chaos_serve(args.seed)
+    chaos_train = phase_chaos_train(args.seed)
+    emit({"phase": "slice9-time", "seconds": time.perf_counter() - t0})
 
     summary = []
     for kname, case_list in cases.items():
@@ -3972,7 +4578,9 @@ def main(argv=None) -> int:
                    "serve_moe": serve_moe.get(kname, 0),
                    "elastic": elastic.get(kname, 0),
                    "elastic_moe": elastic_moe.get(kname, 0),
-                   "compress": compress.get(kname, 0)}
+                   "compress": compress.get(kname, 0),
+                   "chaos_serve": chaos_serve.get(kname, 0),
+                   "chaos_train": chaos_train.get(kname, 0)}
         summary.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/{source}", "replaces": replaces,

@@ -42,8 +42,9 @@ precursor_storm ``host`` straggles at ``factor``x over ``window`` and
 
 Drivers apply the kinds that exist on their plane and ignore the rest
 (``traffic_spike`` means nothing to a training loop; ``preempt`` nothing
-to the serving engine).  The drivers and the simulator are ROADMAP
-item 11; this module holds the schema they replay.
+to the serving engine) — one JSON trace drives ``run_elastic`` (through
+``chaos.driver.run_scenario_elastic``), the ``ServeEngine``, and the
+simulator (``chaos.sim``).
 """
 from __future__ import annotations
 

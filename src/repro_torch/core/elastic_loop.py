@@ -24,11 +24,20 @@ DP width (``repartition``), the per-shard local state remaps inside
 ``restore_latest``, and training continues from the step the event
 interrupted.
 
-Control-plane keys in the store (``el/`` prefix, ``e`` the mesh epoch):
-``start/e`` (the mesh's first step), ``at/e/s`` (the mesh leader reached
-boundary ``s``; only read when rank 0 is outside the mesh), ``v/e/s``
-(rank 0's verdict at ``s``: empty to continue), ``done/e`` (the mesh
-finished) and ``ev/e`` (the event, JSON).
+Scrubbed corruption is agreed too: with the scrubber on, every rank of
+the mesh checks its own shards at the top of each superstep and reads
+every other rank's verdict from the store, so a flip that only the ranks
+holding its shard can see stops every rank at the same step with the same
+``CorruptionDetected`` (and the ranks outside the mesh learn of it while
+they wait); the caller rolls back (``chaos.run_scenario_elastic``).
+
+Control-plane keys in the store (``el#n/`` prefix, a new ``n`` each call
+of ``run_elastic``, ``e`` the mesh epoch): ``start/e`` (the mesh's first
+step), ``at/e/s`` (the mesh leader reached boundary ``s``; only read when
+rank 0 is outside the mesh), ``v/e/s`` (rank 0's verdict at ``s``: empty
+to continue), ``done/e`` (the mesh finished), ``ev/e`` (the event,
+JSON), ``sdc/e/s/r`` (rank ``r``'s scrub verdict at ``s``: the corrupt
+leaves, comma-separated) and ``sdc/e`` (the agreed corruption, JSON).
 """
 from __future__ import annotations
 
@@ -45,10 +54,9 @@ from repro_torch.core.coordinator import run_bsp
 from repro_torch.core.elastic import (MeshSpec, NoSurvivorsError, best_grid3d,
                                       dp_width, largest_grid, mesh_axis_sizes,
                                       survivor_mesh, survivor_mesh3d)
+from repro_torch.core.failures import CorruptionDetected
 from repro_torch.sharding.api import mesh_context
 from repro_torch.sharding.launch import backoff
-
-_P = "el/"
 
 
 @dataclasses.dataclass
@@ -116,16 +124,40 @@ class _HostLatch:
 class _AgreedStops:
     """The facade as ``run_bsp`` sees it inside ``run_elastic``: every
     stop comes from the agreed verdict (``stop_check``), never from one
-    rank's own view of the monitor or signals."""
+    rank's own view of the monitor or signals, and a scrub verdict is the
+    mesh's (``verify_state``)."""
 
-    def __init__(self, dep: Dependability):
+    def __init__(self, dep: Dependability, drive: "_Drive", epoch: int,
+                 ranks: List[int]):
         self._dep = dep
+        self._drive, self._epoch, self._ranks = drive, epoch, ranks
 
     def __getattr__(self, name):
         return getattr(self._dep, name)
 
     def interrupted(self) -> bool:
         return False
+
+    def verify_state(self, state, step: int) -> None:
+        """Each rank re-checksums its own shards; the corrupt leaves of
+        every rank of the mesh are read back from the store, and all
+        raise the same ``CorruptionDetected`` when any rank found one."""
+        dep = self._dep
+        if dep.scrubber is None:
+            return
+        d, w = self._drive, self._drive.world
+        key = f"{d.P}sdc/{self._epoch}/{step}/"
+        w.publish(key + str(w.rank), ",".join(dep.scrubber.verify(state)))
+        w.wait_keys([key + str(r) for r in self._ranks], d.timeout)
+        bad = sorted({n for r in self._ranks
+                      for n in w.fetch(key + str(r)).split(",") if n})
+        if not bad:
+            return
+        detail = ",".join(bad)
+        w.publish(f"{d.P}sdc/{self._epoch}",
+                  json.dumps({"step": step, "detail": detail}))
+        dep._emit_sdc(step, "scrub", detail)
+        raise CorruptionDetected(step, "scrub", detail)
 
 
 def _release(device) -> None:
@@ -184,6 +216,7 @@ def run_elastic(dep: Dependability, make_step: Callable, state, data,
                 on_event: Optional[Callable[[MeshEvent], None]] = None,
                 proactive: Optional[Callable[[int], Optional[str]]] = None,
                 on_idle: Optional[Callable[[], None]] = None,
+                on_boundary: Optional[Callable[[int], None]] = None,
                 control_timeout: float = 600.0) -> Tuple[Any, Dict]:
     """Train to ``num_steps`` surviving host failures and rejoins; every
     rank of ``world`` (``sharding.launch.World``) calls it.
@@ -210,11 +243,15 @@ def run_elastic(dep: Dependability, make_step: Callable, state, data,
       its per-shard cursors ride in the checkpoint.
     - ``initial_hosts``: the hosts believed alive at entry.
     - ``on_idle()``: called while the rank waits outside the mesh.
+    - ``on_boundary(step)``: rank 0, at each superstep boundary before it
+      decides the verdict there (``step`` the state's step).
 
     Returns ``(state, info)`` with ``info["events"]`` the MeshEvent list
     and ``info["history"]`` this rank's superstep history (a rank outside
     the final mesh returns ``state=None``).  Raises ``NoSurvivorsError``
-    on every rank when every host is gone."""
+    on every rank when every host is gone, and ``CorruptionDetected`` on
+    every rank when the scrubber found a corrupt shard on any rank of the
+    mesh (the state is then the caller's to roll back)."""
     if world.rank == 0 and dep.monitor is None:
         raise ValueError(
             "run_elastic requires the heartbeat monitor on rank 0: "
@@ -226,7 +263,8 @@ def run_elastic(dep: Dependability, make_step: Callable, state, data,
         if bad:
             raise ValueError(f"initial_hosts {bad} not in host_devices "
                              f"{sorted(host_devices)}")
-    world.publish(f"{_P}pid/{world.rank}", str(os.getpid()))
+    run = world._next("el") + "/"        # this call's control-plane keys
+    world.publish(f"{run}pid/{world.rank}", str(os.getpid()))
     prev_on_failure = dep.on_host_failure
     prev_on_rejoin = dep.on_host_rejoin
     fail_latch = _HostLatch(also=prev_on_failure)
@@ -239,14 +277,14 @@ def run_elastic(dep: Dependability, make_step: Callable, state, data,
     dep.world = world
     try:
         return _Drive(dep, make_step, data, num_steps, world, fail_latch,
-                      rejoin_latch, host_devices=host_devices,
+                      rejoin_latch, run, host_devices=host_devices,
                       initial_hosts=initial_hosts, model_axis=model_axis,
                       mesh_spec=mesh_spec, degrade_experts=degrade_experts,
                       like=like, shardings_fn=shardings_fn,
                       allow_grow=allow_grow, max_events=max_events,
                       fault_injector=fault_injector, on_metrics=on_metrics,
                       on_event=on_event, proactive=proactive,
-                      on_idle=on_idle,
+                      on_idle=on_idle, on_boundary=on_boundary,
                       control_timeout=control_timeout).run(state)
     finally:
         # the latches only mean something inside this run
@@ -257,10 +295,12 @@ def run_elastic(dep: Dependability, make_step: Callable, state, data,
 
 class _Drive:
     def __init__(self, dep, make_step, data, num_steps, world, fail_latch,
-                 rejoin_latch, *, host_devices, initial_hosts, model_axis,
-                 mesh_spec, degrade_experts, like, shardings_fn, allow_grow,
-                 max_events, fault_injector, on_metrics, on_event,
-                 proactive, on_idle, control_timeout):
+                 rejoin_latch, run, *, host_devices, initial_hosts,
+                 model_axis, mesh_spec, degrade_experts, like, shardings_fn,
+                 allow_grow, max_events, fault_injector, on_metrics,
+                 on_event, proactive, on_idle, on_boundary,
+                 control_timeout):
+        self.P = run
         self.dep, self.make_step, self.data = dep, make_step, data
         self.num_steps, self.world = num_steps, world
         self.fail_latch, self.rejoin_latch = fail_latch, rejoin_latch
@@ -271,6 +311,7 @@ class _Drive:
         self.max_events, self.fault_injector = max_events, fault_injector
         self.on_metrics, self.on_event = on_metrics, on_event
         self.proactive, self.on_idle = proactive, on_idle
+        self.on_boundary = on_boundary
         self.timeout = control_timeout
         self.active = sorted(host_devices if initial_hosts is None
                              else initial_hosts)
@@ -280,6 +321,7 @@ class _Drive:
         self.events: List[MeshEvent] = []
         self.history: List[Dict] = []
         self.last_why: Optional[str] = None     # rank 0's last verdict
+        self.paused_at: Optional[int] = None    # the last pause's step
 
     # ---------------------------------------------------------------
     def grid_of(self, n: int) -> Tuple[int, int, int]:
@@ -309,8 +351,10 @@ class _Drive:
         return mesh.init_groups(mesh_combos(mesh))
 
     # ---------------------------------------------------------------
-    def decide(self) -> Optional[str]:
-        """Rank 0: the reason to pause at this boundary, or None."""
+    def decide(self, step: int) -> Optional[str]:
+        """Rank 0: the reason to pause at boundary ``step``, or None."""
+        if self.on_boundary is not None:
+            self.on_boundary(step)
         dep = self.dep
         failed = ((set(dep.monitor.failed_hosts())
                    | set(self.fail_latch.pending())) & set(self.active))
@@ -334,14 +378,14 @@ class _Drive:
         def check() -> Optional[str]:
             s = box["step"]
             box["step"] = s + 1
-            key = f"{_P}v/{epoch}/{s}"
+            key = f"{self.P}v/{epoch}/{s}"
             if w.rank == 0:
-                why = self.decide()
+                why = self.decide(s)
                 self.last_why = why
                 w.publish(key, why or "")
                 return why
             if w.rank == leader:
-                w.publish(f"{_P}at/{epoch}/{s}", "1")
+                w.publish(f"{self.P}at/{epoch}/{s}", "1")
             return w.fetch(key, self.timeout) or None
         return check
 
@@ -349,39 +393,47 @@ class _Drive:
         """Rank 0 outside the mesh: answer the leader's boundaries until
         the mesh pauses or finishes; returns the step it stopped at."""
         w = self.world
-        w.wait_keys([f"{_P}start/{epoch}"], self.timeout)
-        s = int(w.fetch(f"{_P}start/{epoch}"))
+        w.wait_keys([f"{self.P}start/{epoch}"], self.timeout)
+        s = int(w.fetch(f"{self.P}start/{epoch}"))
         deadline = time.monotonic() + self.timeout
         pause = 0.001
         while True:
-            if w.has(f"{_P}at/{epoch}/{s}"):
-                why = self.decide()
+            if w.has(f"{self.P}at/{epoch}/{s}"):
+                why = self.decide(s)
                 self.last_why = why
-                w.publish(f"{_P}v/{epoch}/{s}", why or "")
+                w.publish(f"{self.P}v/{epoch}/{s}", why or "")
                 if why:
                     return s
                 s += 1
                 deadline = time.monotonic() + self.timeout
                 pause = 0.001
-            elif w.has(f"{_P}done/{epoch}"):
-                return int(w.fetch(f"{_P}done/{epoch}"))
+            elif w.has(f"{self.P}done/{epoch}"):
+                return int(w.fetch(f"{self.P}done/{epoch}"))
             elif time.monotonic() > deadline:
                 raise TimeoutError(f"rank 0: no boundary {s} of mesh "
                                    f"epoch {epoch} within {self.timeout} s")
-            if self.on_idle is not None:
-                self.on_idle()
+            self.idle(epoch)
             pause = backoff(pause)
+
+    def idle(self, epoch: int) -> None:
+        """A poll outside the mesh (or at the epoch's barrier): the mesh's
+        agreed corruption ends the wait; then ``on_idle``."""
+        key = f"{self.P}sdc/{epoch}"
+        if self.world.has(key):
+            got = json.loads(self.world.fetch(key))
+            raise CorruptionDetected(got["step"], "scrub", got["detail"])
+        if self.on_idle is not None:
+            self.on_idle()
 
     def wait_event(self, epoch: int) -> None:
         w = self.world
         deadline = time.monotonic() + self.timeout
         pause = 0.001
-        while not w.has(f"{_P}ev/{epoch}"):
+        while not w.has(f"{self.P}ev/{epoch}"):
             if time.monotonic() > deadline:
                 raise TimeoutError(f"rank {w.rank}: no event for mesh "
                                    f"epoch {epoch} within {self.timeout} s")
-            if self.on_idle is not None:
-                self.on_idle()
+            self.idle(epoch)
             pause = backoff(pause)
 
     def make_event(self, status: str, cur: int) -> Dict:
@@ -423,9 +475,9 @@ class _Drive:
             if mesh.member:
                 dep.manager.set_hosts(
                     ranks.index(w.rank), len(ranks),
-                    owner_pid=int(w.fetch(f"{_P}pid/{leader}",
+                    owner_pid=int(w.fetch(f"{self.P}pid/{leader}",
                                           self.timeout)))
-                dep.set_ckpt_tag(f"el{epoch}")
+                dep.set_ckpt_tag(f"{self.P}{epoch}")
                 shardings = self.call_meshed(self.shardings_fn, mesh)
                 dep.register_global_state(self.like, shardings)
                 train_step = self.call_meshed(self.make_step, mesh)
@@ -440,8 +492,17 @@ class _Drive:
                         # the old mesh's shards go before the new ones come
                         state = None
                         _release(w.device)
-                        state, got = dep.restore_latest(like=self.like,
-                                                        shardings=shardings)
+                        # the pause's final save, by its step: a rank that
+                        # sat outside the mesh has not seen the saves
+                        # since, and its scrub-verified steps would prefer
+                        # an older one
+                        state, got = dep.restore_latest(
+                            like=self.like, shardings=shardings,
+                            step=self.paused_at)
+                        if dep.scrubber is not None:
+                            # the pause's state in this mesh's shards: the
+                            # scrub window's leaves, checksummed anew
+                            dep.scrubber.rebase(state)
                         tail = (f":tp={tp}:ep={ep}" if self.spec is not None
                                 else "")
                         self.history.append({"step": got,
@@ -458,9 +519,10 @@ class _Drive:
                                     "elastic.ep_width").set(ep)
                     start = int(state["step"])
                     if w.rank == leader:
-                        w.publish(f"{_P}start/{epoch}", str(start))
+                        w.publish(f"{self.P}start/{epoch}", str(start))
                     state, bsp_status, hist = run_bsp(
-                        _AgreedStops(dep), train_step, state, self.data,
+                        _AgreedStops(dep, self, epoch, ranks), train_step,
+                        state, self.data,
                         self.num_steps, fault_injector=self.fault_injector,
                         on_metrics=self.on_metrics,
                         stop_check=self.stop_check(epoch, start, leader),
@@ -469,25 +531,25 @@ class _Drive:
                 cur = int(state["step"])
                 status = "done" if bsp_status == "done" else "paused"
                 if status == "done" and w.rank == leader:
-                    w.publish(f"{_P}done/{epoch}", str(cur))
+                    w.publish(f"{self.P}done/{epoch}", str(cur))
             else:
                 if state is not None and not callable(state):
                     state = None
                     _release(w.device)
                 if w.rank == 0:
                     cur = self.serve_verdicts(epoch)
-                    status = ("done" if w.has(f"{_P}done/{epoch}")
+                    status = ("done" if w.has(f"{self.P}done/{epoch}")
                               and cur >= self.num_steps else "paused")
             first = False
             # every rank's final save has landed and been committed
-            w.barrier(f"{_P}epoch{epoch}", timeout=self.timeout,
-                      poll=self.on_idle)
+            w.barrier(f"{self.P}epoch{epoch}", timeout=self.timeout,
+                      poll=lambda: self.idle(epoch))
             if w.rank == 0:
                 ev = self.make_event(status, cur)
-                w.publish(f"{_P}ev/{epoch}", json.dumps(ev))
+                w.publish(f"{self.P}ev/{epoch}", json.dumps(ev))
             else:
                 self.wait_event(epoch)
-                ev = json.loads(w.fetch(f"{_P}ev/{epoch}"))
+                ev = json.loads(w.fetch(f"{self.P}ev/{epoch}"))
             epoch += 1
             out = self.apply(ev, mesh, dp)
             if out is not None:
@@ -498,6 +560,7 @@ class _Drive:
         the run ends."""
         dep = self.dep
         cur, failed, rejoined = ev["cur"], ev["failed"], ev["rejoined"]
+        self.paused_at = cur
         if ev["status"] == "done":
             return {"status": "done", "events": self.events,
                     "history": self.history, "dp": dp}

@@ -22,6 +22,7 @@ loop treats it as a failure whose cure is rollback.
 """
 from __future__ import annotations
 
+import math
 import statistics
 import time
 from collections import deque
@@ -74,6 +75,25 @@ def flip_bit(leaf, bit: int):
     return arr
 
 
+def flip_shard_bit(shard, bit: int, shape, spans):
+    """``shard`` (a rank's piece of a leaf of global ``shape``, ``spans``
+    its ``[start, stop)`` per dim) with absolute ``bit`` of the GLOBAL
+    leaf flipped where the shard holds that byte (``flip_bit``'s byte
+    order over the whole leaf), else ``shard`` itself."""
+    size = shard.element_size()
+    total = math.prod(int(n) for n in shape) * size
+    if not 0 <= bit < total * 8:
+        raise IndexError(f"bit {bit} out of range for {total}-byte leaf")
+    elem, byte = divmod(bit // 8, size)
+    idx = np.unravel_index(elem, tuple(int(n) for n in shape))
+    if not all(a <= i < b for i, (a, b) in zip(idx, spans)):
+        return shard
+    local = np.ravel_multi_index(
+        tuple(int(i) - a for i, (a, _) in zip(idx, spans)),
+        tuple(shard.shape))
+    return flip_bit(shard, (int(local) * size + byte) * 8 + bit % 8)
+
+
 class FaultInjector:
     """Deterministic fault scheduler for the serving tests and drivers.
 
@@ -92,6 +112,10 @@ class FaultInjector:
         # telemetry: fired injections land on the bus as ground truth to
         # hold the detectors' events against (injected vs detected)
         self.obs = obs
+        # on a rank mesh: () -> (global template tree, shardings tree) of
+        # the state, so that a flip lands only in the shards holding its
+        # byte of the global leaf (``flip_shard_bit``)
+        self.layout = None
 
     def _emit(self, kind: str, **data) -> None:
         if self.obs is not None:
@@ -217,6 +241,13 @@ class FaultInjector:
         named = flatten_named(state)
         names = [n for n, _ in named]
         leaves = [v for _, v in named]
+        placed = {}                          # name -> (global shape, sharding)
+        template, shardings = (self.layout() if self.layout is not None
+                               else (None, None))
+        if shardings is not None:
+            by_name = dict(flatten_named(shardings))
+            placed = {n: (tuple(g.shape), by_name.get(n))
+                      for n, g in flatten_named(template)}
         for ev in flips:
             del self._events[ev["id"]]
             leaf_name, bit = ev["leaf"], ev["bit"]
@@ -224,7 +255,12 @@ class FaultInjector:
                 raise KeyError(f"no state leaf {leaf_name!r}; have "
                                f"{names[:8]}...")
             i = names.index(leaf_name)
-            leaves[i] = flip_bit(leaves[i], bit)
+            shape, sh = placed.get(leaf_name, (None, None))
+            if sh is None or not shape:
+                leaves[i] = flip_bit(leaves[i], bit)
+            else:
+                leaves[i] = flip_shard_bit(leaves[i], bit, shape,
+                                           sh.spans(shape))
             self.sdc_injected.append((step, leaf_name, bit))
             self._emit("bitflip", step=step, leaf=leaf_name, bit=bit)
         return unflatten(state, leaves)

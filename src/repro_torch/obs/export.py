@@ -27,9 +27,8 @@ Two consumers of a recorded bus:
      window — on a ``clock="time"`` axis relative to the first event.
      That is the "replay recorded production failure logs" path.
 
-The chaos drivers and the control-plane simulator that replay a
-``Scenario`` are ROADMAP item 11; here the result is built and
-validated.
+The result replays through the chaos drivers
+(``chaos.driver``) and the control-plane simulator (``chaos.sim``).
 """
 from __future__ import annotations
 

@@ -73,6 +73,18 @@ class StateScrubber:
         return dict(zip((n for n, _ in named),
                         checksums([v for _, v in named])))
 
+    def rebase(self, state) -> None:
+        """Checksum the recorded window's leaves anew from ``state``: the
+        same values held in another layout (the elastic loop's restore of
+        the pause's state onto a new mesh, each rank its own shards), so
+        a flip before the next update is still caught."""
+        if not self._window:
+            return
+        leaves = dict(named_leaves(state))
+        names = [n for n in self._window if n in leaves]
+        self._window = dict(zip(names, checksums([leaves[n]
+                                                  for n in names])))
+
     def reset(self) -> None:
         """Drop the window (call after a rollback: the restored state is a
         different set of buffers than the recorded one)."""

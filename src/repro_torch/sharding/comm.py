@@ -1,19 +1,27 @@
 """Every collective of the port's meshes, in one module.
 
-The transport is ``gloo``: the ranks of a run may share one card, and
-NCCL refuses two ranks on one device.  A CUDA tensor is copied to host
-memory, exchanged there, and copied back; only ``all_gather`` and
-``all_reduce`` are used (gloo has no reduce-scatter).
-A later transport swaps in here alone.
+The ranks of a run share one host (``sharding.launch.spawn`` starts
+them, and may start them on one card, where NCCL refuses two ranks).
+They exchange tensors through files in the run's directory
+(``spawn`` sets ``set_host_dir``), with gloo's barriers around each
+exchange: each rank writes its tensor's bytes once, and reads its peers'
+(all of them for ``all_gather``, its own slice of each for
+``reduce_scatter``).  A CUDA tensor's bytes pass through a small pinned
+host buffer in chunks, so the page cache is the only host copy.  gloo
+carries nothing but the barriers.  A transport across hosts or cards
+swaps in here alone.
 
 Sums are taken in a fixed order: ``ordered_sum`` gathers every rank's
 tensor and adds them in group order (in float32 for a narrower dtype),
-so every rank of a group gets the same bits, run after run.
+so every rank of a group gets the same bits, run after run;
+``reduce_scatter`` gives each rank the same bits on its slice alone,
+from one all-to-all of the slices (each rank receives a slice from each
+peer, where ``ordered_sum`` receives every peer's whole tensor).
 
 The autograd functions carry the collectives of the mesh step
 (``train/mesh_step.py``) through the backward pass (the library's
-``torch.distributed.nn.functional.all_gather`` would differentiate
-through reduce-scatter or all-to-all, which this transport lacks):
+``torch.distributed.nn.functional.all_gather`` would run gloo's own
+collectives):
 
 - ``enter`` (Megatron's f): identity forward, gradient summed over the
   group — a replicated input entering rank-partial computation;
@@ -23,16 +31,17 @@ through reduce-scatter or all-to-all, which this transport lacks):
   sums the gradient over the group and weights it — a batch statistic
   whose row mean the group's ranks split;
 - ``gather_sum``: forward gathers a leaf's shards along a dim (FSDP),
-  backward sums the whole gradient over the group and keeps this rank's
-  slice (each rank saw other data);
+  backward sums the gradient over the group on this rank's slice
+  (``reduce_scatter``: each rank saw other data);
 - ``gather_slice``: forward gathers the same way, backward keeps this
   rank's slice unsummed (every rank of the group ran the same
   computation on the gathered leaf, so their gradients are equal).
 """
 from __future__ import annotations
 
+import os
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -69,9 +78,116 @@ def group_rank(group: Group) -> int:
     return 0 if group is None else dist.get_rank(group)
 
 
-def _host(x: torch.Tensor) -> torch.Tensor:
-    x = x.detach()
-    return (x.cpu() if x.device.type != "cpu" else x).contiguous()
+# the directory the ranks of one host exchange tensors through, and
+# each group's count of exchanges so far: every rank of a group makes the
+# same exchanges in the same order
+_HOST_DIR: Optional[str] = None
+_SEQ: Dict[Tuple[int, ...], int] = {}
+# the pinned buffer a CUDA tensor's bytes pass through, in chunks of its
+# size (allocated at a rank's first CUDA exchange)
+_STAGE_BYTES = 64 << 20
+_STAGE: Optional[torch.Tensor] = None
+
+
+def set_host_dir(path: str) -> None:
+    """Exchange through files in ``path`` (every rank of the run)."""
+    global _HOST_DIR
+    os.makedirs(path, exist_ok=True)
+    _HOST_DIR = path
+    _SEQ.clear()
+
+
+def _stage() -> torch.Tensor:
+    global _STAGE
+    if _STAGE is None:
+        _STAGE = torch.empty(_STAGE_BYTES, dtype=torch.uint8,
+                             pin_memory=True)
+    return _STAGE
+
+
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    return x.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def _writeall(f, buf: torch.Tensor) -> None:
+    view = memoryview(buf.numpy())
+    done = 0
+    while done < len(view):
+        done += f.write(view[done:])
+
+
+def _write(path: str, parts: Sequence[torch.Tensor]) -> None:
+    """The bytes of ``parts``, one after another, into a new file
+    ``path``."""
+    with open(path + ".tmp", "wb", buffering=0) as f:
+        for p in parts:
+            flat = _bytes(p)
+            if flat.device.type == "cpu":
+                _writeall(f, flat)
+                continue
+            st = _stage()
+            for a in range(0, flat.numel(), _STAGE_BYTES):
+                n = min(_STAGE_BYTES, flat.numel() - a)
+                st[:n].copy_(flat[a:a + n])
+                _writeall(f, st[:n])
+    os.replace(path + ".tmp", path)
+
+
+def _readinto(f, buf: torch.Tensor) -> None:
+    view = memoryview(buf.numpy())
+    got = 0
+    while got < len(view):
+        k = f.readinto(view[got:])
+        if not k:
+            raise EOFError(f"{f.name}: {got} of {len(view)} bytes")
+        got += k
+
+
+def _read(path: str, offset: int, out: torch.Tensor) -> None:
+    """``out.numel()`` bytes of file ``path`` from ``offset`` into
+    ``out`` (uint8, any device)."""
+    with open(path, "rb", buffering=0) as f:
+        f.seek(offset)
+        if out.device.type == "cpu":
+            _readinto(f, out)
+            return
+        st = _stage()
+        for a in range(0, out.numel(), _STAGE_BYTES):
+            n = min(_STAGE_BYTES, out.numel() - a)
+            _readinto(f, st[:n])
+            out[a:a + n].copy_(st[:n])
+
+
+def _exchange(parts: Sequence[torch.Tensor], group: Group,
+              pick: int = 0) -> List[torch.Tensor]:
+    """Each rank writes ``parts`` (one shape and dtype for every part on
+    every rank) and reads part ``pick`` of every rank's, in group order,
+    on the parts' device: ``[x]`` and 0 gather ``x``; one slice a rank
+    and the rank's index are an all-to-all."""
+    if _HOST_DIR is None:
+        raise RuntimeError("comm: no exchange directory; start the ranks "
+                           "with sharding.launch.spawn")
+    ranks = tuple(dist.get_process_group_ranks(group))
+    seq = _SEQ.get(ranks, 0)
+    _SEQ[ranks] = seq + 1
+    stem = os.path.join(_HOST_DIR, f"{'-'.join(map(str, ranks))}.{seq}.")
+    me = dist.get_rank()
+    like = parts[pick]
+    _write(stem + str(me), parts)
+    dist.barrier(group=group)
+    count = like.numel() * like.element_size()
+    out = []
+    for r in ranks:
+        if r == me:
+            out.append(like.detach().clone(
+                memory_format=torch.contiguous_format))
+            continue
+        got = torch.empty(count, dtype=torch.uint8, device=like.device)
+        _read(stem + str(r), pick * count, got)
+        out.append(got.view(like.dtype).reshape(like.shape))
+    dist.barrier(group=group)
+    os.remove(stem + str(me))
+    return out
 
 
 def all_gather(x: torch.Tensor, group: Group) -> List[torch.Tensor]:
@@ -80,11 +196,8 @@ def all_gather(x: torch.Tensor, group: Group) -> List[torch.Tensor]:
     if group is None:
         return [x]
     t0 = time.perf_counter()
-    h = _host(x)
-    out = [torch.empty_like(h) for _ in range(group_size(group))]
-    dist.all_gather(out, h, group=group)
-    out = [o.to(x.device) for o in out]
-    _note("all_gather", t0, h.numel() * h.element_size() * len(out))
+    out = _exchange([x], group)
+    _note("all_gather", t0, x.numel() * x.element_size() * len(out))
     return out
 
 
@@ -102,17 +215,34 @@ def ordered_sum(x: torch.Tensor, group: Group) -> torch.Tensor:
     return acc.to(x.dtype)
 
 
-def all_reduce_sum(x: torch.Tensor, group: Group) -> torch.Tensor:
-    """gloo's own all-reduce (a plain sum; used only to time against the
-    compressed reduction)."""
+def reduce_scatter(x: torch.Tensor, group: Group, dim: int,
+                   sizes: Sequence[int]) -> torch.Tensor:
+    """This rank's slice (``sizes`` along ``dim``, in group order) of the
+    group-order sum of every rank's ``x``: the bits of ``ordered_sum(x)``
+    on that slice.  One all-to-all of the slices, each padded to the
+    largest."""
     if group is None:
         return x
     t0 = time.perf_counter()
-    h = _host(x).clone()
-    dist.all_reduce(h, group=group)
-    out = h.to(x.device)
-    _note("all_reduce", t0, h.numel() * h.element_size())
-    return out
+    r, m = group_rank(group), max(sizes)
+    x = x.detach()
+    parts, off = [], 0
+    for k in sizes:
+        part = x.narrow(dim, off, k)
+        off += k
+        if k < m:
+            shape = list(part.shape)
+            shape[dim] = m - k
+            part = torch.cat([part, part.new_zeros(shape)], dim=dim)
+        parts.append(part)
+    got = [p.narrow(dim, 0, sizes[r]) for p in _exchange(parts, group, r)]
+    _note("all_to_all", t0, sum(p.numel() for p in got) * x.element_size())
+    acc_dtype = (torch.float32 if x.is_floating_point()
+                 and x.element_size() < 4 else x.dtype)
+    acc = got[0].to(acc_dtype).clone()
+    for p in got[1:]:
+        acc += p.to(acc_dtype)
+    return acc.to(x.dtype).contiguous()
 
 
 def _cat_gather(x: torch.Tensor, group: Group, dim: int,
@@ -179,10 +309,10 @@ class _GatherSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = ordered_sum(g.contiguous(), ctx.group)
-        if ctx.dim is not None:
-            g = _own_slice(g, ctx.group, ctx.dim, ctx.sizes)
-        return g, None, None, None
+        if ctx.dim is None:
+            return ordered_sum(g.contiguous(), ctx.group), None, None, None
+        return (reduce_scatter(g.contiguous(), ctx.group, ctx.dim,
+                               ctx.sizes), None, None, None)
 
 
 class _GatherSlice(torch.autograd.Function):

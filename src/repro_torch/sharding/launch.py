@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import os
 import pickle
+import shutil
 import time
 import traceback
 from typing import Any, Callable, List, Optional, Sequence
@@ -97,6 +98,9 @@ def _entry(rank: int, nprocs: int, run_dir: str, fn: Callable, args,
     dist.init_process_group("gloo", store=store, rank=rank,
                             world_size=nprocs)
     world = World(rank, nprocs, store, device, run_dir)
+    # the ranks share this host: their collectives exchange through files
+    from repro_torch.sharding import comm
+    comm.set_host_dir(os.path.join(run_dir, "comm"))
     try:
         if world.device.type == "cuda":
             torch.cuda.set_device(world.device.index or 0)
@@ -123,6 +127,7 @@ def spawn(fn: Callable, nprocs: int, *, run_dir: str, args=(),
     for name in os.listdir(run_dir):
         if name == "store" or name.startswith(("result_", "error_")):
             os.remove(os.path.join(run_dir, name))
+    shutil.rmtree(os.path.join(run_dir, "comm"), ignore_errors=True)
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_entry,
                          args=(r, nprocs, run_dir, fn, args, device),

@@ -344,6 +344,18 @@ def test_elastic_all_hosts_dead_raises_no_survivors(tmp_path):
     assert all(r.get("error") == "NoSurvivorsError" for r in out), out
 
 
+@pytest.mark.parametrize("n", [2, 4])
+def test_reduce_scatter_is_the_ordered_sum_of_each_slice(tmp_path, n):
+    """The FSDP gradient's reduce-scatter gives each rank the bits of the
+    group-order sum on its slice (float32 and bfloat16, uneven and empty
+    slices), as the all-gathered sum does, and that sum is every rank's
+    tensor added in group order."""
+    out = spawn(W.reduce_scatter_vs_sum, n, run_dir=str(tmp_path),
+                args=(3,), join_timeout=300)
+    for r in out:
+        assert all(v for v in r if isinstance(v, bool)), r
+
+
 # --------------------------------------------------------------------------
 # ranks: compressed_psum
 # --------------------------------------------------------------------------

@@ -666,9 +666,9 @@ def test_verify_pass_rate_and_summarize_match():
     with pytest.raises(PC.InvariantViolation, match="b: bad"):
         PC.verify(port)
     assert PC.verify(port[:1]) == port[:1]
-    assert set(PC.__all__) <= set(RC.__all__)
-    assert not {"ControlPlaneSim", "ServeScenarioDriver",
-                "TrainScenarioDriver"} & set(PC.__all__)
+    assert set(PC.__all__) == set(RC.__all__)
+    assert {"ControlPlaneSim", "ServeScenarioDriver",
+            "TrainScenarioDriver"} <= set(PC.__all__)
 
 
 # ---------------------------------------------------------------------------

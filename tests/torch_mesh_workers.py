@@ -369,3 +369,242 @@ def unshard(tree, shardings, like):
                 leaf_sizes(ref.shape[i], sh.mesh.shape[axes[0]]))
         out.append(x)
     return unflatten(tree, out)
+
+
+def chaos_compound(world, tmp, scenario_path, steps):
+    """``compound.json`` through ``run_scenario_elastic`` on tiny granite,
+    4 hosts x 2 ranks on (4, 2), saves every 2 steps, the scrubber over
+    every leaf, the telemetry plane on rank 0 writing JSONL: each rank's
+    run, and on rank 0 the log's round trip (``to_scenario``, replayed
+    through ``ControlPlaneSim``), the incident timeline and the final
+    parameters (whole, as numpy)."""
+    import os
+
+    from repro_torch.chaos import (ControlPlaneSim, Scenario,
+                                   run_scenario_elastic)
+    from repro_torch.core import (Dependability, DependabilityConfig,
+                                  HeartbeatEmitter)
+    from repro_torch.data import ShardedPipeline
+    from repro_torch.launch.mesh import host_device_map
+    from repro_torch.obs import Observability, Timeline, load_jsonl
+    from repro_torch.obs import to_scenario
+    from repro_torch.train import init_state
+    from repro_torch.train.mesh_step import (init_sharded_state,
+                                             make_mesh_train_step,
+                                             state_shardings)
+    from repro_torch.tree import flatten_named
+
+    cfg = _cfg("granite-3-8b")
+    hosts = host_device_map(4)
+    r0 = world.rank == 0
+    dep = Dependability(DependabilityConfig(
+        checkpoint_dir=os.path.join(tmp, "ckpt"), policy_mode="every_n",
+        every_n=2, keep=10, heartbeat=r0, heartbeat_period=PERIOD,
+        heartbeat_timeout_factor=40.0, signal_detection=False, scrub=True,
+        scrub_fraction=1.0, monitor_hosts=4)).start()
+    jsonl = os.path.join(tmp, "events.jsonl")
+    ems = {}
+    if r0:
+        dep.attach_obs(Observability(jsonl_path=jsonl))
+        world.publish("monaddr", json.dumps(list(dep.monitor.addr)))
+        ems[0] = dep.emitter                 # host 0 beats from dep itself
+    addr = tuple(json.loads(world.fetch("monaddr")))
+    my_host = next(h for h, rs in hosts.items() if world.rank in rs)
+    if hosts[my_host][0] == world.rank and my_host != 0:
+        ems[my_host] = HeartbeatEmitter(my_host, addr, PERIOD).start()
+    like = init_state(cfg, seed=0, device="meta")
+
+    def shardings_for(mesh):
+        return state_shardings(cfg, mesh)
+
+    def make_step(mesh):
+        return make_mesh_train_step(cfg, mesh, shardings_for(mesh), like,
+                                    warmup_steps=0, total_steps=steps)
+
+    sc = Scenario.from_json(scenario_path)
+    leaf_names = [n for n, _ in flatten_named(like)
+                  if n.startswith("params.") and "attn.wk" in n]
+    data = ShardedPipeline(cfg, 16, 8, dp_width=4)
+    try:
+        state, info = run_scenario_elastic(
+            dep, make_step,
+            lambda mesh, sh: init_sharded_state(cfg, sh, seed=0,
+                                                device="cpu"),
+            data, steps, world=world, scenario=sc, emitters=ems,
+            host_devices=hosts, model_axis=2, like=like,
+            shardings_fn=shardings_for, leaf_names=leaf_names,
+            control_timeout=120.0)
+        out = {"status": info["status"], "dp": info["dp"],
+               "rollbacks": info["rollbacks"],
+               "events": [dataclasses.asdict(e) for e in info["events"]],
+               "history": info["history"], "report": info["report"],
+               "member": state is not None,
+               "mismatches": list(dep.scrubber.mismatches)}
+        if state is not None:
+            full = unshard(state, dep._global_shardings, like)
+            if r0:
+                out["params"] = {n: v.numpy() for n, v in
+                                 flatten_named(full["params"])}
+        if r0:
+            dep.obs.close()
+            rec = load_jsonl(jsonl)
+            back = to_scenario(rec)
+            sim = ControlPlaneSim(4, devices_per_host=2,
+                                  model_axis=2).run(back)
+            out.update(
+                scenario=back.to_dict(),
+                sim_invariants=[(r.name, bool(r.passed))
+                                for r in sim.invariants],
+                sim_detected=sorted(d["host"] for d in sim.detections),
+                timeline=Timeline.from_events(rec).summary())
+    finally:
+        for h, em in ems.items():
+            if h != 0:
+                em.stop()
+        dep.stop()
+    return out
+
+
+def chaos_one_rank(world, tmp, scenario_dict, steps, signals=False):
+    """A scenario on 2 hosts x 1 rank, (1, 2), the scrubber on, saves
+    every 2 steps (``signals``: rank 0's facade detects termination
+    signals): each rank's run, the leaves its own scrubber found corrupt
+    and the newest checkpoint."""
+    import os
+
+    from repro_torch.chaos import Scenario, run_scenario_elastic
+    from repro_torch.core import (Dependability, DependabilityConfig,
+                                  HeartbeatEmitter)
+    from repro_torch.data import ShardedPipeline
+    from repro_torch.train import init_state
+    from repro_torch.train.mesh_step import (init_sharded_state,
+                                             make_mesh_train_step,
+                                             state_shardings)
+    from repro_torch.tree import flatten_named
+
+    cfg = _cfg("granite-3-8b")
+    hosts = {0: [0], 1: [1]}
+    r0 = world.rank == 0
+    dep = Dependability(DependabilityConfig(
+        checkpoint_dir=os.path.join(tmp, "ckpt"), policy_mode="every_n",
+        every_n=2, heartbeat=r0, heartbeat_period=PERIOD,
+        heartbeat_timeout_factor=40.0, signal_detection=signals and r0,
+        scrub=True, scrub_fraction=1.0, monitor_hosts=2)).start()
+    if r0:
+        world.publish("monaddr", json.dumps(list(dep.monitor.addr)))
+        ems = {0: dep.emitter}
+    else:
+        addr = tuple(json.loads(world.fetch("monaddr")))
+        ems = {1: HeartbeatEmitter(1, addr, PERIOD).start()}
+    like = init_state(cfg, seed=0, device="meta")
+
+    def make_step(mesh):
+        return make_mesh_train_step(cfg, mesh, state_shardings(cfg, mesh),
+                                    like, warmup_steps=0, total_steps=steps)
+
+    try:
+        state, info = run_scenario_elastic(
+            dep, make_step,
+            lambda mesh, sh: init_sharded_state(cfg, sh, seed=0,
+                                                device="cpu"),
+            ShardedPipeline(cfg, 16, 4, dp_width=1), steps, world=world,
+            scenario=Scenario.from_dict(scenario_dict), emitters=ems,
+            host_devices=hosts, model_axis=2, like=like,
+            shardings_fn=lambda mesh: state_shardings(cfg, mesh),
+            control_timeout=120.0)
+        full = unshard(state, dep._global_shardings, like)
+        return {"status": info["status"], "rollbacks": info["rollbacks"],
+                "events": [h for h in info["history"] if "event" in h],
+                "losses": [h["loss"] for h in info["history"]
+                           if "loss" in h],
+                "mismatches": list(dep.scrubber.mismatches),
+                "report": info["report"],
+                "sdc_injected": info["report"]["sdc_injected"],
+                "latest": dep.manager.latest_step(),
+                "step": int(state["step"]),
+                "params": {n: v.numpy() for n, v in
+                           flatten_named(full["params"])}}
+    finally:
+        if not r0:
+            ems[1].stop()
+        dep.stop()
+
+
+def flip_shards(world, flips):
+    """Tiny granite's state sharded on (2, 2); ``flips`` ((leaf, bit)
+    pairs) applied through a ``FaultInjector`` that knows the layout.
+    The whole leaves before and after (numpy), the same on every rank."""
+    from repro_torch.core import FaultInjector
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import init_state
+    from repro_torch.train.mesh_step import (init_sharded_state,
+                                             mesh_combos, state_shardings)
+    from repro_torch.tree import flatten_named
+
+    cfg = _cfg("granite-3-8b")
+    mesh = make_host_mesh(2, 2, rank=world.rank, device=world.device)
+    mesh.init_groups(mesh_combos(mesh))
+    sh = state_shardings(cfg, mesh)
+    like = init_state(cfg, seed=0, device="meta")
+    st = init_sharded_state(cfg, sh, seed=0, device="cpu")
+    before = unshard(st, sh, like)
+    inj = FaultInjector()
+    inj.layout = lambda: (like, sh)
+    for leaf, bit in flips:
+        inj.schedule_bitflip(1, leaf, bit)
+    after = unshard(inj.apply_sdc(1, st), sh, like)
+    names = sorted({leaf for leaf, _ in flips})
+    return {"before": {n: v.numpy() for n, v in flatten_named(before)
+                       if n in names},
+            "after": {n: v.numpy() for n, v in flatten_named(after)
+                      if n in names},
+            "injected": inj.sdc_injected}
+
+
+def reduce_scatter_vs_sum(world, seed):
+    """``comm.reduce_scatter`` against ``comm.ordered_sum`` sliced, and
+    ``ordered_sum`` against the group-order sum of every rank's tensor
+    drawn again here, bit for bit, for float32 and bfloat16 tensors split
+    along each dim in even, uneven and empty slices; and ``gather_sum``'s
+    gradient through it."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import comm
+
+    mesh = make_host_mesh(world.size, 1, rank=world.rank,
+                          device=world.device)
+    mesh.init_groups([("data",)])
+    group = mesh.group(("data",))
+    n, r = world.size, world.rank
+    gens = [torch.Generator().manual_seed(seed * 97 + p) for p in range(n)]
+    gen = gens[r]
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape, dim, sizes in (((8, 6), 0, [2] * n),
+                                  ((5, 7, 3), 1, [2, 2, 2, 1][:n]),
+                                  ((6, 4), 0, [3, 3, 0, 0][:n]),
+                                  ((3, 9), 1, [3, 3, 3, 0][:n])):
+            if sum(sizes) != shape[dim]:
+                sizes = sizes[:-1] + [shape[dim] - sum(sizes[:-1])]
+            xs = [(torch.randn(shape, generator=g) * 10).to(dtype)
+                  for g in gens]
+            x = xs[r]
+            got = comm.reduce_scatter(x, group, dim, sizes)
+            full = comm.ordered_sum(x, group)
+            acc = xs[0].to(torch.float32).clone()
+            for p in xs[1:]:
+                acc += p.to(torch.float32)
+            want = full.narrow(dim, sum(sizes[:r]), sizes[r])
+            out.append(bool(got.dtype == want.dtype
+                            and got.shape == want.shape
+                            and torch.equal(got, want)
+                            and torch.equal(full, acc.to(dtype))))
+            out.append(got)
+    # gather_sum's gradient: each rank's slice of the group-order sum
+    w = torch.randn(3, 4, generator=gen, requires_grad=True)
+    full = comm.gather_sum(w, group, 0, [3] * n)
+    g = torch.randn(full.shape, generator=gen)
+    (full * g).sum().backward()
+    want = comm.ordered_sum(g, group).narrow(0, 3 * r, 3)
+    out.append(bool(torch.equal(w.grad, want)))
+    out.append(w.grad)
+    return out
