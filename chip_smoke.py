@@ -38,15 +38,17 @@ ends the run with a non-zero exit code and no result line:
                  token, nothing dropped, the sentinel quiet (its entropy
                  printed), no slot held, launches held to the path (the
                  decode's attention is the paged kernel over a page view
-                 of the rows); then ``serve-standby``, the same engine
-                 with one warm standby restored through
-                 ``make_standby_source`` from a raw ``CheckpointManager``
-                 save of the parameters (under ``build/``, removed
-                 after), replica 1 killed at step 5: the standby
-                 activated after the failure, nothing dropped, streams
-                 token-identical, its parameters bit-equal to the live
-                 ones, the save's bytes and seconds and the restore's
-                 seconds printed; then ``serve-predrain`` (after
+                 of the rows); then ``serve-standby`` at 8 of the 40
+                 layers (the serve phase's first 8): a fault-free slot
+                 run, then the same engine with one warm standby
+                 restored through ``make_standby_source`` from a raw
+                 ``CheckpointManager`` save of the parameters (under
+                 ``build/``, removed after), replica 1 killed at step 5:
+                 the standby activated after the failure, nothing
+                 dropped, streams token-identical to the fault-free
+                 run's, its parameters bit-equal to the live ones, the
+                 save's bytes and seconds and the restore's seconds
+                 printed; then ``serve-predrain`` (after
                  ``steps``): the
                  same engine with an ``Observability``, an
                  ``AnomalyEngine`` (step-time drift: factor 2, 3 in a row,
@@ -209,8 +211,10 @@ ends the run with a non-zero exit code and no result line:
 24. ``chaos-serve`` — ``ServeScenarioDriver`` replays ``compound`` (4
                  replicas x 2 slots, 4 warm standbys) and
                  ``flash_crowd_paged`` (2 paged replicas, 64 rows) against
-                 granite-3-8b at full width and depth, one set of weights
-                 shared: zero drop, conservation, monotonic drain, page
+                 granite-3-8b at full width and 8 of 40 layers (its
+                 host-bound engine steps cut to pay for 26-27), one set
+                 of weights shared: zero drop, conservation, monotonic
+                 drain, page
                  conservation, the kills and storm failures landed, every
                  stream equal to the port's B=1 prefill and decode on the
                  card, launches held to the path;
@@ -224,7 +228,32 @@ ends the run with a non-zero exit code and no result line:
                  within the elastic phase's limits of a single-rank run,
                  the log back to compound.json and replayed through the
                  simulator, every incident closed, launches held to the
-                 path (the train step's and the scrubber's block hashes).
+                 path (the train step's and the scrubber's block hashes);
+26. ``tiny-families`` — the TINY configs of gemma-7b, recurrentgemma-2b,
+                 phi3.5-moe and qwen1.5-110b in float32 through
+                 ``ServeEngine`` on the card and on the CPU, the streams
+                 token for token; qwen2-vl-2b's prefill (text, an image's
+                 (t, h, w) ids, text) and decode steps and hubert-xlarge's
+                 encoder forward, card against CPU within 1e-4;
+27. ``serve-families`` — at full width, random weights from ``--seed``,
+                 one model at a time: gemma-7b (28 layers, 2 paged
+                 replicas, the serve phase's 8 requests, fault-free);
+                 recurrentgemma-2b (26 layers, 2 x 4 slots, the 8
+                 requests and one of 2300 tokens past its window of
+                 2048, fault-free and replica 1 killed at step 5, streams
+                 token-identical); phi3.5-moe and qwen1.5-110b at 4
+                 layers (16 new, fault-free); qwen2-vl-2b (28 layers, 2 x
+                 (64 text + a 24 x 24 image + 16 text) then 16 decode
+                 steps in bf16, then in float32 each within 1e-4 of a
+                 full forward's last position); hubert-xlarge (48
+                 layers, 4 x 1000 frames, within 2e-2 of the same
+                 forward through the plain attention); nothing dropped,
+                 the decode sentinel on at its defaults (each run's
+                 entropy beside its ceiling),
+                 launches held to each path, the flash kernel launched at
+                 head_dim 256 and 80 and the paged kernel at G hd 4096;
+                 then ``steps-families``, each decoding family's decode
+                 step eager against device time.
 
 The kernel phase also holds selective_scan to its plain version within
 1e-5 + 1e-5 |want| (tests/test_kernels.py) at the serve shape (B 1,
@@ -237,7 +266,11 @@ train-ssm microbatch (B 2, S 2048, Di 8192, N 16) and at a ragged S and
 Di with a carried state: every gradient within 1e-4 of its largest
 magnitude, two launches bit-equal, its time beside its bound (bytes and
 exponentials) and its registers, spills and shared memory;
-and block_hash bit-equal to its plain version
+Flash attention is also held at head_dim 256 (gemma-7b's prefill,
+recurrentgemma-2b's long windowed prompt over one kv head) and 80
+(hubert-xlarge's non-causal encoder), and paged decode at gemma-7b's G 1
+x 256 and recurrentgemma-2b's G 16 x 256 = 4096; and block_hash
+bit-equal to its plain version
 (the embed leaf, every element size, a ragged leaf, one grouped launch
 over the full-width train state) and abft_matmul to its float32 plain
 version at one microbatch's ``w_in`` and its two backward contractions
@@ -253,7 +286,7 @@ also without programmatic dependent launch.
 Then the kernels summary (one JSON object, launches by path: serve,
 train, sdc, abft, serve_ssm, fwi, train_ssm, train_obs, serve_predrain,
 serve_slots, serve_standby, serve_moe, elastic, elastic_moe, compress,
-chaos_serve, chaos_train),
+chaos_serve, chaos_train, serve_families),
 the ``nvidia-smi`` line,
 and the last line
 ``{"ok": true, "device": {...}}``.
@@ -332,6 +365,27 @@ GEN = 32
 MAX_LEN = max(PROMPT_LENS) + GEN                     # 288 = 18 pages
 MAX_ACTIVE = 8
 KILL_STEP = 5
+# serve-standby: granite-3-8b at 8 of its 40 layers (its raw save and
+# restore of 16.4 GB at 40 layers took 42.6 s of the whole script on a
+# slow host, PERF.md §4: the cut keeps the script inside its limit)
+STANDBY_LAYERS = 8
+# the other families (tiny-families, serve-families): recurrentgemma-2b's
+# long prompt, past its window of 2048; phi3.5-moe and qwen1.5-110b cut to
+# 4 layers (32 layers of phi3.5-moe need ~84 GB of bf16 weights, 80 of
+# qwen1.5-110b ~222 GB), 16 new tokens; qwen2-vl-2b's batch of 2: 64 text
+# embeddings, a 24 x 24 patch grid, 16 text embeddings, then 16 decode
+# steps; hubert-xlarge's 4 x 1000 frames (20 s at 50 Hz)
+FAMILY_LONG_PROMPT = 2300
+FAMILY_GEN = 16
+FAMILY_CUT_LAYERS = 4
+VL_TEXT, VL_GRID, VL_TAIL, VL_DECODE = 64, 24, 16, 16
+HUBERT_BATCH, HUBERT_FRAMES = 4, 1000
+# qwen2-vl-2b's bf16 decode against a full forward, of the largest
+# magnitude: the readings are 2.0-2.7 % over 28 layers, with the plain
+# attention on both sides too, and granite-3-8b's 28 layers over token
+# ids drift 1.6-1.9 % (PERF.md §7, scripts/decode_gap.py); the limit
+# keeps about twice that, so a gross bf16-only fault still fails
+VL_BF16_DECODE_TOL = 5e-2
 # the steps phases: the decode step's device ms in these kernel groups
 # (launch/profile_steps.GROUPS), beside the readings of the tree before
 # the redesign of the paged-attention kernel and the RMSNorm forward
@@ -579,22 +633,31 @@ def _flash_cases(gen, bw, flops):
         flash_attention_bshd
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-    H, K, hd = 32, 8, 128
     B_train = TRAIN_BATCH // TRAIN_MICRO
-    out = []
-    # S = MAX_LEN is the serve path's (padded) prefill length, 300 is
+    # (B, S, H, K, hd, causal, window, softcap).  granite's 32/8 heads of
+    # 128: S = MAX_LEN is the serve path's (padded) prefill length, 300 is
     # ragged; the train path calls it a microbatch at a time with the LSE
-    # (B_train, TRAIN_SEQ), here also with a window and a softcap
-    for B, S, window, softcap in ((1, 128, 0, 0.0), (1, MAX_LEN, 0, 0.0),
-                                  (1, 300, 0, 0.0), (1, 512, 0, 0.0),
-                                  (1, 512, 64, 30.0),
-                                  (B_train, TRAIN_SEQ, 0, 0.0),
-                                  (B_train, TRAIN_SEQ, 512, 30.0)):
+    # (B_train, TRAIN_SEQ), here also with a window and a softcap.  Then
+    # the other families' prefills: gemma-7b's 16 heads of 256 at the
+    # serve length, recurrentgemma-2b's LOCAL layers (16 padded q heads of
+    # 256 over one kv head, window 2048) at the long prompt, and
+    # hubert-xlarge's encoder (16 heads of 80, non-causal) at its batch.
+    cases = [(1, S, 32, 8, 128, True, w, c)
+             for S, w, c in ((128, 0, 0.0), (MAX_LEN, 0, 0.0), (300, 0, 0.0),
+                             (512, 0, 0.0), (512, 64, 30.0))]
+    cases += [(B_train, TRAIN_SEQ, 32, 8, 128, True, w, c)
+              for w, c in ((0, 0.0), (512, 30.0))]
+    cases += [(1, MAX_LEN, 16, 16, 256, True, 0, 0.0),
+              (1, FAMILY_LONG_PROMPT, 16, 1, 256, True, 2048, 0.0),
+              (HUBERT_BATCH, HUBERT_FRAMES, 16, 16, 80, False, 0, 0.0)]
+    out = []
+    for B, S, H, K, hd, causal, window, softcap in cases:
         q, k, v = (torch.randn(B, S, n, hd, generator=gen, device="cuda"
                                ).to(torch.bfloat16) for n in (H, K, K))
-        kw = dict(causal=True, window=window, softcap=softcap)
+        kw = dict(causal=causal, window=window, softcap=softcap)
         train = S == TRAIN_SEQ
-        label = f"flash B={B} S={S} window={window} softcap={softcap}"
+        label = (f"flash B={B} S={S} H={H} K={K} hd={hd} causal={causal} "
+                 f"window={window} softcap={softcap}")
         if train:
             o, lse = flash_attention_bshd(q, k, v, lse=True, **kw)
             err = max(check_close(label, o, flash_attention_ref(q, k, v, **kw),
@@ -612,14 +675,30 @@ def _flash_cases(gen, bw, flops):
             del o
         if not same:
             raise AssertionError(f"{label}: two calls differ")
-        kw_t = dict(iters=3, reps=3) if train else {}
-        library_ms = None
-        if not window and not softcap:
+        kw_t = dict(iters=3, reps=3) if train or S * B >= 2048 else {}
+        # One SDPA call computes the same function unless a softcap is set:
+        # a window goes in as a boolean (S, S) mask, built outside the
+        # timed call.  The library's output is held to the plain version
+        # too, so the time is that of the same function.
+        library_ms = library_err = None
+        if not softcap:
+            from repro_torch.layers.attention import _mask
+
             qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-            library_ms = time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True), **kw_t)
-        ops = 4 * B * H * hd * _attended_pairs(S, True, window)
+            pos = torch.arange(S, device="cuda")
+            sdpa_kw = (dict(attn_mask=_mask(pos, pos, causal=causal,
+                                            window=window))
+                       if window else dict(is_causal=causal))
+
+            def library():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, enable_gqa=True, **sdpa_kw)
+
+            library_err = check_close(
+                label + " sdpa", library().transpose(1, 2),
+                flash_attention_ref(q, k, v, **kw), BF16_TOL)
+            library_ms = time_ms(library, **kw_t)
+        ops = 4 * B * H * hd * _attended_pairs(S, causal, window)
         op_s = ops / flops
         byte_s = (2 * B * (2 * S * H * hd + 2 * S * K * hd)
                   + (B * H * S * 4 if train else 0)) / bw
@@ -627,14 +706,17 @@ def _flash_cases(gen, bw, flops):
             lambda: flash_attention_bshd(q, k, v, lse=train, **kw), **kw_t)
         out.append({
             "shape": f"q ({B}, {S}, {H}, {hd}) kv ({B}, {S}, {K}, {hd}) "
-                     f"bf16 causal window={window} softcap={softcap}"
+                     f"bf16 {'causal' if causal else 'bidirectional'} "
+                     f"window={window} softcap={softcap}"
                      + (" lse" if train else ""),
-            "main": S == MAX_LEN and not window, "max_abs_err": err,
+            "main": S == MAX_LEN and not window and hd == 128,
+            "head_dim": hd, "max_abs_err": err,
             "tol": {"o": BF16_TOL, "lse": FP32_TOL} if train else BF16_TOL,
             "kernel_ms": kernel_ms,
             "plain_ms": time_ms(lambda: flash_attention_ref(q, k, v, **kw),
                                 **kw_t),
-            "library_ms": library_ms, "bound_ms": max(op_s, byte_s) * 1e3,
+            "library_ms": library_ms, "library_max_abs_err": library_err,
+            "bound_ms": max(op_s, byte_s) * 1e3,
             "bound_by": "operations" if op_s >= byte_s else "bytes",
             "tflops": ops / kernel_ms / 1e9,
             "share_of_bound": max(op_s, byte_s) * 1e3 / kernel_ms})
@@ -643,26 +725,44 @@ def _flash_cases(gen, bw, flops):
 
 
 def _paged_cases(gen, bw):
+    from repro_torch.launch.profile_steps import LENGTHS
+
+    ps = PAGE_SIZE
+    # (K, G, hd, lengths, windows): granite's decode (8 rows, 32/8 heads
+    # of 128: an inactive row (0, zeroed table), page boundaries, a full
+    # table), gemma-7b's (16 kv heads of 256, G 1) and recurrentgemma-2b's
+    # LOCAL layers over its 4 slot rows (16 padded q heads of 256 over one
+    # kv head: G hd 4096, past one block's group; lengths up to the long
+    # prompt's, window 2048)
+    long_len = FAMILY_LONG_PROMPT + GEN - 1
+    groups = ((8, 4, 128, list(LENGTHS), ((0, 0.0), (64, 30.0))),
+              (16, 1, 256, list(LENGTHS), ((0, 0.0),)),
+              (1, 16, 256, [long_len, 1500, 290, 140], ((2048, 0.0),)))
+    out = []
+    for K, G, hd, lengths, windows in groups:
+        out += _paged_group(gen, bw, ps, K, G, hd, lengths, windows)
+    return out
+
+
+def _paged_group(gen, bw, ps, K, G, hd, lengths, windows):
     from repro_torch.kernels.paged_attention.kernel import \
         paged_attention_rhd
     from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
                                                          split_positions)
-    from repro_torch.launch.profile_steps import LENGTHS, profile_step
+    from repro_torch.launch.profile_steps import profile_step
 
-    R, K, G, hd, ps = MAX_ACTIVE, 8, 4, 128, PAGE_SIZE
-    mpr = -(-MAX_LEN // ps)
+    R = len(lengths)
+    mpr = -(-(max(lengths) + 1) // ps)
     P = R * mpr + 1
-    # an inactive row (0, zeroed table), page boundaries, a full table
-    lengths = list(LENGTHS)
     perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
     table = torch.zeros(R, mpr, dtype=torch.int32, device="cuda")
     for r, n in enumerate(lengths):
-        if r == 0:
+        if n == 0:
             continue
         used = n // ps + 1
         table[r, :used] = perm[r * mpr:r * mpr + used].to(torch.int32)
-    # the same rows through a 40-entry table
-    wide = torch.zeros(R, 40, dtype=torch.int32, device="cuda")
+    # the same rows through a table of 22 more entries
+    wide = torch.zeros(R, mpr + 22, dtype=torch.int32, device="cuda")
     wide[:, :mpr] = table
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     q = torch.randn(R, K * G, hd, generator=gen, device="cuda"
@@ -671,7 +771,7 @@ def _paged_cases(gen, bw):
                           ).to(torch.bfloat16) for _ in range(2))
     C = split_positions(hd, q.dtype)
     out = []
-    for window, softcap in ((0, 0.0), (64, 30.0)):
+    for window, softcap in windows:
         kw = dict(window=window, softcap=softcap)
 
         def kernel():
@@ -688,8 +788,9 @@ def _paged_cases(gen, bw):
             raise AssertionError(f"paged window={window}: two calls differ")
         if not torch.equal(paged_attention_rhd(q, kp, vp, wide, lens, **kw),
                            got):
-            raise AssertionError(f"paged window={window}: a 40-entry table "
-                                 f"changed the bits of the {mpr}-entry one")
+            raise AssertionError(f"paged window={window}: a {mpr + 22}-entry "
+                                 f"table changed the bits of the "
+                                 f"{mpr}-entry one")
         kv_bytes = sum(min(n + 1, window) if window else n + 1
                        for n in lengths) * K * hd * 2 * 2
         io_bytes = 2 * R * K * G * hd * 2 + R * mpr * 4 + R * 4
@@ -703,9 +804,10 @@ def _paged_cases(gen, bw):
         out.append({
             "shape": f"R={R} K={K} G={G} hd={hd} ps={ps} MPR={mpr} bf16 "
                      f"lengths={lengths} window={window} softcap={softcap}",
-            "main": not window, "max_abs_err": err, "tol": BF16_TOL,
+            "main": not window and hd == 128, "group_width": G * hd,
+            "max_abs_err": err, "tol": BF16_TOL,
             "split_positions": C, "repeat_bit_equal": True,
-            "table_40_bit_equal": True,
+            "wider_table_bit_equal": True,
             "kernel_ms": kernel_ms,
             "kernel_ms_no_pdl": _no_pdl(time_ms, kernel),
             "kernels_ms": {_kernel_name(n): ms for n, ms in split.items()},
@@ -1471,7 +1573,7 @@ def _serve(cfg, params, prompts, gen_len, device, *, kill=False,
         failures = [e for e in eng.events if e["event"] == "replica_failed"]
         lat = eng.request_latencies()
         return {
-            "rids": rids, "scheduler": eng.scheduler,
+            "rids": rids, "scheduler": eng.scheduler, "paged": eng.paged,
             "hosts": {rep.id: list(rep.hosts) for rep in reps},
             "predrained": [e for e in eng.events
                            if e["event"] == "replica_predrained"],
@@ -1646,9 +1748,8 @@ def phase_serve(seed: int):
         raise AssertionError(f"streams after the replica kill differ from "
                              f"the uninterrupted run for requests {diff}")
     emit({"phase": "serve", "token_identical_after_kill": True})
-    slots, slot_launches = phase_serve_slots(cfg, params, prompts, a,
-                                             counters)
-    standby = phase_serve_standby(cfg, params, prompts, slots, counters)
+    slot_launches = phase_serve_slots(cfg, params, prompts, a, counters)
+    standby = phase_serve_standby(cfg, params, prompts, counters)
     phase_steps(cfg, params, seed)
     predrain = phase_serve_predrain(cfg, params, prompts, a,
                                     timing.events("telemetry",
@@ -1658,15 +1759,18 @@ def phase_serve(seed: int):
             "serve_standby": standby, "serve_predrain": predrain}
 
 
-def _serve_launches(label, counters, res, L):
-    """The launch counters after an attention stack's serve run, held to
-    its path: an RMSNorm per norm (2 a layer + the final one) of every
-    prefill and decode call, a flash launch a layer a prefill, a paged
-    launch a layer a decode call (paged pool or slot rows), no scan."""
+def _serve_launches(label, counters, res, L, attn=None):
+    """The launch counters after a serve run, held to its path: an
+    RMSNorm per norm (2 a layer + the final one) of every prefill and
+    decode call, a flash launch an attention layer (``attn`` of the L, all
+    by default; an RG-LRU stack's LOCAL layers) a prefill, a paged launch
+    an attention layer a decode call (paged pool or slot rows), no
+    scan."""
+    attn = L if attn is None else attn
     launches = {k: fn.launches for k, fn in counters.items()}
     want = {"rmsnorm": (2 * L + 1) * (res["prefills"] + res["decode_calls"]),
-            "flash_attention": L * res["prefills"],
-            "paged_attention": L * res["decode_calls"],
+            "flash_attention": attn * res["prefills"],
+            "paged_attention": attn * res["decode_calls"],
             "selective_scan": 0}
     if launches != want or min(v for k, v in launches.items()
                                if want[k]) <= 0:
@@ -1721,23 +1825,33 @@ def phase_serve_slots(cfg, params, prompts, paged, counters):
           "sentinel_ceiling": 0.98 * math.log(cfg.padded_vocab),
           "launches": launches,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-    return res, launches
+    return launches
 
 
-def phase_serve_standby(cfg, params, prompts, slots, counters):
-    """``serve-standby``: the serve-slots engine with one warm standby.
-    The parameters are saved once, raw, with ``CheckpointManager`` into a
-    temporary directory under ``build/`` (removed afterwards), and the
-    standby comes from ``make_standby_source``.  Replica 1 is killed at
-    ``KILL_STEP``: a ``standby_activated`` event after the failure,
-    nothing dropped, streams token-identical to the fault-free run, the
-    restored parameters bit-equal to the live ones leaf by leaf, launches
-    held to the path.  The restore blocks the engine's loop for seconds,
-    so the heartbeat timeout is wide (the injector kills, not the
-    monitor)."""
+def phase_serve_standby(cfg, params, prompts, counters):
+    """``serve-standby``: the serve-slots engine with one warm standby, at
+    STANDBY_LAYERS of granite's layers (the serve phase's first ones,
+    shared, not copied).  A fault-free slot run gives the streams to hold
+    the kill run to.  The parameters are saved once, raw, with
+    ``CheckpointManager`` into a temporary directory under ``build/``
+    (removed afterwards), and the standby comes from
+    ``make_standby_source``.  Replica 1 is killed at ``KILL_STEP``: a
+    ``standby_activated`` event after the failure, nothing dropped,
+    streams token-identical to the fault-free run, the restored
+    parameters bit-equal to the live ones leaf by leaf, launches held to
+    the path.  The restore blocks the engine's loop for seconds, so the
+    heartbeat timeout is wide (the injector kills, not the monitor)."""
     from repro_torch.core import CheckpointManager
     from repro_torch.serve import make_standby_source
 
+    cfg = dataclasses.replace(cfg, num_layers=STANDBY_LAYERS)
+    params = dict(params, layers=params["layers"][:STANDBY_LAYERS])
+    slots = _serve(cfg, params, prompts, GEN, "cuda", paged=False,
+                   slots=MAX_ACTIVE)
+    if slots["dropped"] or slots["failures"] or None in slots["streams"]:
+        raise AssertionError(f"serve-standby: the fault-free run dropped "
+                             f"{slots['dropped']}, failures "
+                             f"{slots['failures']}")
     tmp = tempfile.mkdtemp(prefix="standby_", dir=_ckpt_root())
     manager = CheckpointManager(tmp, fsync="none")
     restored = {}
@@ -3281,6 +3395,408 @@ COMPRESS_ROUNDS = 8
 _HASH_MOD = 2 ** 31 - 1
 
 
+TINY_FAMILY_ENGINES = ("gemma-7b", "recurrentgemma-2b",
+                       "phi3.5-moe-42b-a6.6b", "qwen1.5-110b")
+
+
+def _vl_inputs(cfg, B, text, grid, tail, steps, seed):
+    """qwen2-vl's inputs on the CPU, float32: embeddings (B, S, D) of
+    ``text`` text positions, a grid x grid patch image at one temporal
+    step and ``tail`` text positions, their (3, B, S) M-RoPE ids (the
+    image's rows and columns from the text's end, the text after it from
+    the largest id + 1), and ``steps`` decode embeddings with their ids."""
+    g = torch.Generator().manual_seed(seed)
+    t = torch.arange(text)
+    hh, ww = torch.meshgrid(torch.arange(grid), torch.arange(grid),
+                            indexing="ij")
+    img = torch.stack([torch.full((grid * grid,), text), text + hh.reshape(-1),
+                       text + ww.reshape(-1)])
+    after = text + grid + torch.arange(tail + steps)
+    ids = torch.cat([torch.stack([t, t, t]), img,
+                     torch.stack([after, after, after])], dim=1)
+    ids = ids[:, None].expand(3, B, ids.shape[1]).to(torch.int32)
+    S = text + grid * grid + tail
+    emb = torch.randn(B, S + steps, cfg.d_model, generator=g)
+    return emb, ids, S
+
+
+def _vl_decode(cfg, params, emb, ids, S, device):
+    """Prefill the first S positions into a lockstep cache, then decode
+    the rest one a step (the prefill and decode steps' model calls):
+    the last-position logits of each call, float32, on the CPU."""
+    from repro_torch.models import forward, init_cache
+
+    B, T = emb.shape[:2]
+    emb, ids = emb.to(device), ids.to(device)
+    cache = init_cache(cfg, B, T, device)
+    out = []
+    with torch.no_grad():
+        logits, cache = forward(cfg, params, {"embeddings": emb[:, :S],
+                                              "positions": ids[:, :, :S]},
+                                mode="prefill", cache=cache)
+        out.append(logits[:, -1].float())
+        for i in range(S, T):
+            logits, cache = forward(
+                cfg, params, {"embeddings": emb[:, i:i + 1],
+                              "positions": ids[:, :, i:i + 1]},
+                mode="decode", cache=cache)
+            out.append(logits[:, 0].float())
+    return [x.cpu() for x in out]
+
+
+def _largest_gap(name, got, want, tol):
+    """Raises unless |got - want| <= tol * max |want|; returns the max abs
+    error over its bound."""
+    got, want = got.float(), want.float()
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} vs "
+                             f"{tuple(want.shape)} or non-finite output")
+    bound = tol * want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if err > bound:
+        raise AssertionError(f"{name}: max abs error {err:.3g} beyond {tol} "
+                             f"of the largest magnitude "
+                             f"{want.abs().max().item():.3g}")
+    return err / bound
+
+
+def phase_tiny_families(seed: int):
+    """``tiny-families``: each of the six new families' TINY configs in
+    float32 on the card (kernels) against the port on the CPU (plain
+    versions), one set of weights on both: gemma-7b, recurrentgemma-2b
+    (RG-LRU and rolling LOCAL rows in the slot pool), phi3.5-moe and
+    qwen1.5-110b through ``ServeEngine``, the greedy streams token for
+    token; qwen2-vl-2b's prefill (text, an image's (t, h, w) ids, text)
+    and decode steps, and hubert-xlarge's encoder forward, within 1e-4 of
+    the largest magnitude."""
+    from repro_torch.models import forward, get_config, init_params
+
+    out = {"phase": "tiny-families"}
+    for arch in TINY_FAMILY_ENGINES:
+        cfg = dataclasses.replace(get_config(arch, tiny=True),
+                                  dtype=torch.float32)
+        cpu = init_params(cfg, seed=seed, device="cpu")
+        gpu = _tree_to(cpu, "cuda")
+        prompts = _prompts(cfg.vocab_size, seed, (16, 24, 32))
+        kw = dict(replicas=1, max_len=48, max_active=4)
+        want = _serve(cfg, cpu, prompts, 8, "cpu", **kw)
+        got = _serve(cfg, gpu, prompts, 8, "cuda", **kw)
+        if got["streams"] != want["streams"] or None in got["streams"]:
+            raise AssertionError(f"tiny-families {arch}: float32 streams "
+                                 f"differ between the card and the CPU:\n"
+                                 f"{got['streams']}\n{want['streams']}")
+        out[arch] = {"tokens": sum(len(x) for x in got["streams"]),
+                     "streams_equal_cpu": True}
+    cfg = dataclasses.replace(get_config("qwen2-vl-2b", tiny=True),
+                              dtype=torch.float32)
+    cpu = init_params(cfg, seed=seed, device="cpu")
+    gpu = _tree_to(cpu, "cuda")
+    emb, ids, S = _vl_inputs(cfg, 2, 8, 4, 4, 6, seed)
+    want = _vl_decode(cfg, cpu, emb, ids, S, "cpu")
+    got = _vl_decode(cfg, gpu, emb, ids, S, "cuda")
+    out["qwen2-vl-2b"] = {"calls": len(got), "max_err_over_bound": max(
+        _largest_gap(f"tiny-families qwen2-vl-2b call {i}", a, b, FP32_TOL)
+        for i, (a, b) in enumerate(zip(got, want)))}
+    cfg = dataclasses.replace(get_config("hubert-xlarge", tiny=True),
+                              dtype=torch.float32)
+    cpu = init_params(cfg, seed=seed, device="cpu")
+    gpu = _tree_to(cpu, "cuda")
+    x = torch.randn(2, 50, cfg.d_model,
+                    generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        want = forward(cfg, cpu, {"embeddings": x}, mode="prefill")[0]
+        got = forward(cfg, gpu, {"embeddings": x.cuda()},
+                      mode="prefill")[0].cpu()
+    out["hubert-xlarge"] = {"max_err_over_bound": _largest_gap(
+        "tiny-families hubert-xlarge", got, want, FP32_TOL)}
+    emit(out)
+
+
+def _family_engine(arch, seed, counters, total):
+    """One decoding family at full width through ``ServeEngine`` (see
+    ``phase_serve_families``); returns what the phase's summary needs."""
+    from repro_torch.models import REC, get_config, init_params
+    from repro_torch.tree import leaves
+
+    cfg = get_config(arch)
+    rec = REC in cfg.layer_kinds()
+    full_depth = arch in ("gemma-7b", "recurrentgemma-2b")
+    if not full_depth:
+        cfg = dataclasses.replace(cfg, num_layers=FAMILY_CUT_LAYERS)
+    L = cfg.num_layers
+    attn = sum(k != REC for k in cfg.layer_kinds())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in leaves(params)) / 1e9
+    prompts = _prompts(cfg.vocab_size, seed, PROMPT_LENS)
+    gen = GEN if full_depth else FAMILY_GEN
+    kw = {}
+    if rec:
+        # the slot pool: 2 replicas x 4 slots; one more request, past the
+        # LOCAL layers' window of 2048
+        g = torch.Generator().manual_seed(seed + 1)
+        prompts = prompts + [torch.randint(0, cfg.vocab_size,
+                                           (FAMILY_LONG_PROMPT,),
+                                           generator=g).tolist()]
+        kw = dict(max_len=FAMILY_LONG_PROMPT + gen, slots=4)
+    ceiling = 0.98 * math.log(cfg.padded_vocab)
+    runs = {}
+    for kill in ((False, True) if rec else (False,)):
+        label = "replica_kill" if kill else "fault_free"
+        for fn in counters.values():
+            fn.launches = 0
+        res = _serve(cfg, params, prompts, gen, "cuda", kill=kill, **kw)
+        launches = _serve_launches(f"serve-families {arch} {label}",
+                                   counters, res, L, attn)
+        for k, v in launches.items():
+            total[k] += v
+        emit({"phase": "serve-families", "arch": arch, "run": label,
+              "layers": L, "d_model": cfg.d_model,
+              "head_dim": cfg.resolved_head_dim,
+              "q_heads": cfg.effective_num_heads,
+              "kv_heads": cfg.num_kv_heads, "paged": res["paged"],
+              "weights_gb": weights_gb, "weights_init_s": init_s,
+              "requests": len(prompts),
+              "prompt_lens": [len(p) for p in prompts], "gen": gen,
+              **_serve_summary(res),
+              "replica_failures": len(res["failures"]),
+              "failure_reasons": [f["reason"] for f in res["failures"]],
+              "sentinel_ceiling": ceiling, "launches": launches,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        if res["dropped"] or None in res["streams"]:
+            raise AssertionError(f"serve-families {arch} {label}: dropped "
+                                 f"{res['dropped']}")
+        if kill != bool(res["failures"]) or len(res["failures"]) > 1:
+            raise AssertionError(f"serve-families {arch} {label}: replica "
+                                 f"failures {res['failures']} (a decode "
+                                 f"sentinel trip, its ceiling {ceiling})")
+        runs[label] = res
+    if rec:
+        a, b = runs["fault_free"]["streams"], runs["replica_kill"]["streams"]
+        diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        if diff:
+            raise AssertionError(f"serve-families {arch}: streams after "
+                                 f"the kill differ for requests {diff}")
+    phase_steps(cfg, params, seed, calls=5, rows=4 if rec else MAX_ACTIVE,
+                phase="steps-families")
+    del params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash": launches["flash_attention"],
+            "paged": launches["paged_attention"]}
+
+
+def phase_serve_families(seed: int):
+    """``serve-families``: the six new families at full width, random
+    weights from ``seed``, one model at a time (each freed before the
+    next), launch counters zeroed just before each run and held to its
+    path after it.
+      * gemma-7b (28 layers, 16 heads of 256): 2 paged replicas, the
+        serve phase's 8 requests, 32 new, fault-free;
+      * recurrentgemma-2b (26 layers: 18 RG-LRU, 8 LOCAL with 16 padded
+        q heads of 256 over one kv head): the slot pool, 2 replicas x 4
+        slots, the same 8 requests and one of FAMILY_LONG_PROMPT tokens,
+        32 new; fault-free, then replica 1 killed at KILL_STEP: nothing
+        dropped, the streams token-identical;
+      * phi3.5-moe and qwen1.5-110b at FAMILY_CUT_LAYERS layers: 2 paged
+        replicas, the 8 requests, FAMILY_GEN new, fault-free;
+      * qwen2-vl-2b (28 layers): a batch of 2, prefill of VL_TEXT text
+        embeddings, a VL_GRID x VL_GRID patch image with its (t, h, w)
+        ids and VL_TAIL text embeddings, then VL_DECODE decode steps in
+        bf16 (launches held, each step's logits within
+        VL_BF16_DECODE_TOL of the largest magnitude of a full forward's
+        last position: bf16 rounds 2-2.7 % of it away over 28 layers,
+        with the plain attention too), then the same in float32 within
+        1e-4;
+      * hubert-xlarge (48 layers, 16 heads of 80): HUBERT_BATCH x
+        HUBERT_FRAMES frames through the encoder, within 2e-2 of the
+        largest magnitude of the same forward on the card through the
+        plain attention in bf16, and within 1e-4 in float32.
+    Every serving run drops nothing with the decode sentinel on at its
+    defaults (a trip fails the run; each run prints its entropy beside
+    the ceiling); the flash kernel must have launched at head_dim 256 and
+    80 and the paged kernel at G hd 4096 (the only shapes of those
+    models' runs).  Then ``steps-families``: a decode step and a prefill
+    of each decoding family, eager against device time."""
+    import repro_torch.models.transformer as tf
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import forward, get_config, init_params
+
+    counters = {k: fn for k, fn in _counters().items()
+                if k in ("rmsnorm", "flash_attention", "paged_attention",
+                         "selective_scan")}
+    total = dict.fromkeys(counters, 0)
+    shapes = {}
+    for arch in TINY_FAMILY_ENGINES:
+        shapes[arch] = _family_engine(arch, seed, counters, total)
+
+    # qwen2-vl-2b: prefill and decode steps over embeddings with M-RoPE
+    cfg = get_config("qwen2-vl-2b")
+    L = cfg.num_layers
+    params = init_params(cfg, seed=seed, device="cuda")
+    emb, ids, S = _vl_inputs(cfg, 2, VL_TEXT, VL_GRID, VL_TAIL, VL_DECODE,
+                             seed)
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    got = _vl_decode(cfg, params, emb, ids, S, "cuda")
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    want_l = {"rmsnorm": (2 * L + 1) * (1 + VL_DECODE), "flash_attention": L,
+              "paged_attention": L * VL_DECODE, "selective_scan": 0}
+    if launches != want_l:
+        raise AssertionError(f"serve-families qwen2-vl-2b: launches "
+                             f"{launches}, the path implies {want_l}")
+    for k, v in launches.items():
+        total[k] += v
+    if not all(torch.isfinite(x).all() for x in got):
+        raise AssertionError("serve-families qwen2-vl-2b: non-finite logits")
+    bf16_worst = max(
+        _largest_gap(f"serve-families qwen2-vl-2b bf16 decode step {i + 1}",
+                     g, w, VL_BF16_DECODE_TOL)
+        for i, (g, w) in enumerate(_full_gap(cfg, params, emb, ids, S, got)))
+    decode_ms = _vl_step_ms(cfg, params, emb, ids, S)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the decode against the full forward at full width in float32, held
+    # tightly (in bf16 a 28-layer stack drifts 1.6-2.7 % of the largest
+    # logit whatever the attention, the inputs or the products' shape:
+    # PERF.md §7, scripts/decode_gap.py)
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = init_params(f32, seed=seed, device="cuda")
+    got = _vl_decode(f32, params, emb, ids, S, "cuda")
+    gaps = _full_gap(f32, params, emb, ids, S, got)
+    worst = max(_largest_gap(f"serve-families qwen2-vl-2b float32 decode "
+                             f"step {i + 1}", g, w, FP32_TOL)
+                for i, (g, w) in enumerate(gaps))
+    emit({"phase": "serve-families", "arch": cfg.name, "layers": L,
+          "d_model": cfg.d_model, "q_heads": cfg.effective_num_heads,
+          "kv_heads": cfg.num_kv_heads, "batch": 2, "prefill_len": S,
+          "image_grid": VL_GRID, "decode_steps": VL_DECODE,
+          "wall_s": wall, "launches": launches,
+          "bf16_decode_gap_of_max": bf16_worst * VL_BF16_DECODE_TOL,
+          "bf16_max_err_over_bound": bf16_worst,
+          "bf16_tol": VL_BF16_DECODE_TOL,
+          "float32_max_err_over_bound": worst, "float32_tol": FP32_TOL})
+    emit({"phase": "steps-families", "arch": cfg.name, "decode_rows": 2,
+          **decode_ms})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # hubert-xlarge: the encoder forward, against the plain attention, in
+    # bf16 (the served dtype, launches held) and in float32 (the hd-80
+    # kernel held tightly: bf16 over 48 layers reads 1.7 % of its 2 %)
+    cfg = get_config("hubert-xlarge")
+    L = cfg.num_layers
+    x = torch.randn(HUBERT_BATCH, HUBERT_FRAMES, cfg.d_model,
+                    generator=torch.Generator().manual_seed(seed)).cuda()
+
+    def kernel_and_plain(cfg):
+        params = init_params(cfg, seed=seed, device="cuda")
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = forward(cfg, params, {"embeddings": x}, mode="prefill")[0]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in counters.items()}
+            kernel_attention = tf.flash_attention
+            tf.flash_attention = flash_attention_ref
+            try:
+                want = forward(cfg, params, {"embeddings": x},
+                               mode="prefill")[0]
+            finally:
+                tf.flash_attention = kernel_attention
+        del params
+        return got, want, wall, launches
+
+    f32_got, f32_want = kernel_and_plain(
+        dataclasses.replace(cfg, dtype=torch.float32))[:2]
+    f32_gap = _largest_gap("serve-families hubert-xlarge float32", f32_got,
+                           f32_want, FP32_TOL)
+    del f32_got, f32_want
+    gc.collect()
+    torch.cuda.empty_cache()
+    for fn in counters.values():
+        fn.launches = 0
+    got, want, wall, launches = kernel_and_plain(cfg)
+    want_l = {"rmsnorm": 2 * L + 1, "flash_attention": L,
+              "paged_attention": 0, "selective_scan": 0}
+    if launches != want_l:
+        raise AssertionError(f"serve-families hubert-xlarge: launches "
+                             f"{launches}, the path implies {want_l}")
+    for k, v in launches.items():
+        total[k] += v
+    gap = _largest_gap("serve-families hubert-xlarge", got, want, BF16_TOL)
+    emit({"phase": "serve-families", "arch": cfg.name, "layers": L,
+          "d_model": cfg.d_model, "head_dim": cfg.resolved_head_dim,
+          "batch": HUBERT_BATCH, "frames": HUBERT_FRAMES, "wall_s": wall,
+          "max_err_over_bound": gap, "tol": BF16_TOL,
+          "float32_max_err_over_bound": f32_gap, "float32_tol": FP32_TOL,
+          "launches": launches})
+    shapes["hubert-xlarge"] = {"flash": launches["flash_attention"]}
+    del got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    seen = {"flash_hd256": shapes["gemma-7b"]["flash"],
+            "flash_hd80": shapes["hubert-xlarge"]["flash"],
+            "paged_group_4096": shapes["recurrentgemma-2b"]["paged"]}
+    emit({"phase": "serve-families", "launched_at_new_shapes": seen})
+    if min(seen.values()) <= 0:
+        raise AssertionError(f"serve-families: a new shape never launched: "
+                             f"{seen}")
+    return total
+
+
+def _full_gap(cfg, params, emb, ids, S, got):
+    """(decode logits, the full forward's last position) for each decode
+    step of ``_vl_decode``, float32 on the CPU."""
+    from repro_torch.models import forward
+
+    out = []
+    with torch.no_grad():
+        for i in range(1, len(got)):
+            n = S + i
+            full = forward(cfg, params, {"embeddings": emb[:, :n].cuda(),
+                                         "positions": ids[:, :, :n].cuda()},
+                           mode="prefill")[0][:, -1].float().cpu()
+            out.append((got[i], full))
+    return out
+
+
+def _vl_step_ms(cfg, params, emb, ids, S):
+    """qwen2-vl's decode step over its lockstep cache: eager ms (host
+    clock to a synchronize) and device ms (the step in a CUDA graph)."""
+    from repro_torch.models import forward, init_cache
+
+    B, T = emb.shape[:2]
+    cache = init_cache(cfg, B, T, "cuda")
+    batch = {"embeddings": emb[:, S:S + 1].cuda(),
+             "positions": ids[:, :, S:S + 1].cuda()}
+
+    def step():
+        cache["index"].fill_(S)
+        return forward(cfg, params, batch, mode="decode", cache=cache)
+
+    with torch.no_grad():
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step()
+            torch.cuda.synchronize()
+        eager = (time.perf_counter() - t0) / 5 * 1e3
+        device = time_ms(step, iters=2, reps=3)
+    return {"decode_eager_ms": eager, "decode_device_ms": device,
+            "decode_host_share": 1.0 - device / eager}
+
+
 def phase_tiny_moe(seed: int):
     """``tiny-moe``: tiny mixtral in float32 on the card (kernels) and on
     the CPU (plain versions), one set of weights: the engine's greedy
@@ -3989,6 +4505,10 @@ CHAOS_SERVE = {
 # batch 8 (ELASTIC_SEQ, ELASTIC_BATCH), 20 steps, raw saves every 2, the
 # scrubber over every leaf, the telemetry plane on rank 0
 CHAOS_LAYERS = 1
+# chaos-serve: granite-3-8b at full width and 8 of 40 layers (its engine
+# steps are host-bound, 364-421 ms at 40 layers: the cut pays for the
+# other families' phases within the script's time limit)
+CHAOS_SERVE_LAYERS = 8
 CHAOS_STEPS = 20
 CHAOS_EVERY = 2
 CHAOS_HOSTS = 4
@@ -4121,9 +4641,9 @@ def _drive_serve(cfg, params, sc, eng_kw, standbys, drv_kw):
 def phase_chaos_serve(seed: int):
     """``chaos-serve``: ``ServeScenarioDriver`` replays ``compound`` and
     ``flash_crowd_paged`` (CHAOS_SERVE) against granite-3-8b at full
-    width and depth, one set of weights on the card shared by every
-    replica and standby.  Launch counters zeroed just before each run and
-    held to the path after it; every admitted request served (zero drop),
+    width and CHAOS_SERVE_LAYERS of its 40 layers, one set of weights on
+    the card shared by every replica and standby.  Launch counters zeroed
+    just before each run and held to the path after it; every admitted request served (zero drop),
     conservation and monotonic drain at every engine step, page
     conservation on the paged pool; compound's injected kills and storm
     (``sentinel:``) failures landed and ``rejoin`` skipped, every stream
@@ -4139,7 +4659,8 @@ def phase_chaos_serve(seed: int):
                                    verify)
     from repro_torch.models import get_config, init_params
 
-    cfg = get_config("granite-3-8b")
+    cfg = dataclasses.replace(get_config("granite-3-8b"),
+                              num_layers=CHAOS_SERVE_LAYERS)
     L = cfg.num_layers
     params = init_params(cfg, seed=seed, device="cuda")
     counters = {k: fn for k, fn in _counters().items()
@@ -4561,6 +5082,10 @@ def main(argv=None) -> int:
     chaos_serve = phase_chaos_serve(args.seed)
     chaos_train = phase_chaos_train(args.seed)
     emit({"phase": "slice9-time", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    phase_tiny_families(args.seed)
+    serve_families = phase_serve_families(args.seed)
+    emit({"phase": "slice10-time", "seconds": time.perf_counter() - t0})
 
     summary = []
     for kname, case_list in cases.items():
@@ -4580,7 +5105,8 @@ def main(argv=None) -> int:
                    "elastic_moe": elastic_moe.get(kname, 0),
                    "compress": compress.get(kname, 0),
                    "chaos_serve": chaos_serve.get(kname, 0),
-                   "chaos_train": chaos_train.get(kname, 0)}
+                   "chaos_train": chaos_train.get(kname, 0),
+                   "serve_families": serve_families.get(kname, 0)}
         summary.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/{source}", "replaces": replaces,

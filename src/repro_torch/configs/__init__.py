@@ -1,8 +1,27 @@
 """Architecture configs.  Importing this package registers every
-architecture the port runs so far (the other families wait for their
-slices)."""
-from repro_torch.configs import (falcon_mamba_7b, gemma2_27b,  # noqa: F401
-                                 granite_3_8b, mixtral_8x7b)
+architecture the reference registers, under the same names."""
+from repro_torch.configs import (  # noqa: F401
+    falcon_mamba_7b,
+    gemma2_27b,
+    gemma_7b,
+    granite_3_8b,
+    hubert_xlarge,
+    mixtral_8x7b,
+    phi35_moe,
+    qwen15_110b,
+    qwen2_vl_2b,
+    recurrentgemma_2b,
+)
 
-ALL_ARCHS = ("falcon-mamba-7b", "gemma2-27b", "granite-3-8b",
-             "mixtral-8x7b")
+ALL_ARCHS = (
+    "qwen2-vl-2b",
+    "granite-3-8b",
+    "qwen1.5-110b",
+    "gemma-7b",
+    "gemma2-27b",
+    "mixtral-8x7b",
+    "phi3.5-moe-42b-a6.6b",
+    "falcon-mamba-7b",
+    "recurrentgemma-2b",
+    "hubert-xlarge",
+)

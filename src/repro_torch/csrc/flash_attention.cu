@@ -18,7 +18,14 @@
 //
 // bfloat16 (the serving and train paths) runs on Hopper's asynchronous
 // units: TMA loads into a two-stage shared ring, wgmma products,
-// warp-specialised blocks (see flash_fwd_bf16_wgmma below).  P is rounded
+// warp-specialised blocks (see flash_fwd_bf16_wgmma below).  head_dim
+// 16-128 take 128-row kv tiles; 256 (gemma-7b, recurrentgemma-2b) takes
+// 64-row kv tiles on one consumer warpgroup, its O = P V split in two
+// products of 128 columns (the accumulator is 128 registers a thread);
+// 80 (hubert-xlarge) is read as a 128-wide tile whose last 48 columns
+// TMA fills with zeros (no 80-element row fits a swizzle row), which
+// changes no score and no output column, and only its 80 columns are
+// stored.  P is rounded
 // to bf16 for the second product, as the plain version rounds it.  The
 // scale multiplies the fp32 scores (the TPU kernel scales q in fp32
 // before its dot; the two differ by fp32 rounding).  float32 runs on the
@@ -169,12 +176,13 @@ __global__ void __launch_bounds__(NT)
 // TMA loads of the K and V tiles in flight, FWD_STAGES deep, each stage
 // with a K-full, a V-full and an empty barrier.  Each consumer warpgroup
 // owns 64 q rows:
-// S = Q K^T (m64n128k16, Q and K from shared memory), the online softmax
+// S = Q K^T (m64nBKk16, Q and K from shared memory), the online softmax
 // in registers, O += P V (P as the register A operand, V through the
-// transposed-B descriptor).  K and V tiles are FWD_BK = 128 rows whatever
-// S, B or BQ, visited in ascending order, so a row's result does not
-// depend on the sequence length or the tile it sits in (serving's
-// token-identical retries).  Masks: only a tile that crosses the
+// transposed-B descriptor).  K and V tiles are BK rows (fwd_bk: a
+// function of HD alone) whatever S, B or BQ, visited in ascending order,
+// so a row's result does not depend on the sequence length or the tile
+// it sits in (serving's token-identical retries).  HD is the tile's
+// width, RD <= HD the head's (RD < HD: the zero-filled columns above).  Masks: only a tile that crosses the
 // diagonal, the window's lower edge or the end of Sk tests its elements;
 // a tile fully masked for a warpgroup is skipped (it would leave the
 // row's state bit-for-bit as it is).
@@ -185,13 +193,18 @@ __global__ void __launch_bounds__(NT)
 // fill the tail.  A persistent grid walking the same list would also
 // overlap one tile's epilogue with the next tile's loads; reversing the
 // launch order gets the balance without a scheduler.
-constexpr int FWD_BK = 128;
 constexpr int FWD_STAGES = 2;
+
+// kv rows a tile: 128, or 64 at head_dim 256 (64-row tiles of 32 KB keep
+// the Q tile and two K and V stages in 161 KB of shared memory, and the
+// 64 x 64 scores in 32 registers beside the 128 of the accumulator)
+__host__ __device__ constexpr int fwd_bk(int hd) { return hd > 128 ? 64 : 128; }
 
 template <int HD, int NWG>
 constexpr size_t smem_fwd() {
   return 1024 + Tile<HD>::bytes(64 * NWG) +
-         2 * FWD_STAGES * Tile<HD>::bytes(FWD_BK) + 8 * (1 + 3 * FWD_STAGES);
+         2 * FWD_STAGES * Tile<HD>::bytes(fwd_bk(HD)) +
+         8 * (1 + 3 * FWD_STAGES);
 }
 
 // Registers: ptxas (CUDA 12.9) holds a block with two consumer
@@ -205,7 +218,23 @@ __host__ __device__ constexpr int fwd_threads(int nwg) {
   return 128 * nwg + 32;
 }
 
-template <int HD, int NWG>
+// O (m64nHD) += P V: one product, or one of 128 columns per half of the
+// accumulator at HD 256 (a wgmma's N is at most 256, and n128 keeps the
+// instruction's operand list at the size the others have)
+template <int HD, int BK>
+__device__ __forceinline__ void pv_step(float (&acc)[HD / 2],
+                                        const unsigned (&a)[4], uint64_t vd) {
+  if constexpr (HD <= 128) {
+    wgmma_rs<HD>(acc, a, vd);
+  } else {
+#pragma unroll
+    for (int half = 0; half < HD / 128; ++half)
+      wgmma_rs<128>(*reinterpret_cast<float(*)[64]>(&acc[64 * half]), a,
+                    vd + ((half * 2 * BK * Tile<HD>::RB) >> 4));
+  }
+}
+
+template <int HD, int NWG, int RD>
 __global__ void __launch_bounds__(fwd_threads(NWG), 1)
     flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
@@ -215,7 +244,7 @@ __global__ void __launch_bounds__(fwd_threads(NWG), 1)
                          int H, int K, float scale, int causal, int window,
                          float softcap) {
   using T = Tile<HD>;
-  constexpr int BQ = 64 * NWG, BK = FWD_BK, ST = FWD_STAGES;
+  constexpr int BQ = 64 * NWG, BK = fwd_bk(HD), ST = FWD_STAGES;
   constexpr uint32_t QB = T::bytes(BQ), KB = T::bytes(BK);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
@@ -254,8 +283,7 @@ __global__ void __launch_bounds__(fwd_threads(NWG), 1)
       mbar_expect_tx(q_full, QB);
 #pragma unroll
       for (int a = 0; a < T::NA; ++a)
-        tma_load_3d(sQ + a * BQ * T::RB, &tq, h * HD + a * T::SW, q_lo, b,
-                    q_full);
+        tma_load_4d(sQ + a * BQ * T::RB, &tq, a * T::SW, h, q_lo, b, q_full);
       int i = 0;
       for (int j = lo; j < hi; ++j, ++i) {
         const int s = i % ST;
@@ -263,12 +291,12 @@ __global__ void __launch_bounds__(fwd_threads(NWG), 1)
         mbar_expect_tx(k_full(s), KB);
 #pragma unroll
         for (int a = 0; a < T::NA; ++a)
-          tma_load_3d(sK + s * KB + a * BK * T::RB, &tk, kh * HD + a * T::SW,
+          tma_load_4d(sK + s * KB + a * BK * T::RB, &tk, a * T::SW, kh,
                       j * BK, b, k_full(s));
         mbar_expect_tx(v_full(s), KB);
 #pragma unroll
         for (int a = 0; a < T::NA; ++a)
-          tma_load_3d(sV + s * KB + a * BK * T::RB, &tv, kh * HD + a * T::SW,
+          tma_load_4d(sV + s * KB + a * BK * T::RB, &tv, a * T::SW, kh,
                       j * BK, b, v_full(s));
       }
       // the consumers' last releases: a consumer that never arrives makes
@@ -368,7 +396,7 @@ __global__ void __launch_bounds__(fwd_threads(NWG), 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-          wgmma_rs<HD>(acc, pa[kk], T::mnstep(vd, kk));
+          pv_step<HD, BK>(acc, pa[kk], T::mnstep(vd, kk));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(acc);
@@ -396,24 +424,24 @@ __global__ void __launch_bounds__(fwd_threads(NWG), 1)
     uint8_t* slice = smem + 64 * cw * T::RB;
     stage_acc<HD>(slice, BQ, acc, 1.f);
     named_bar_sync(1 + cw, 128);
-    const long long ld = static_cast<long long>(H) * HD;
-    store_slice<HD>(o + static_cast<long long>(b) * S * ld + h * HD, ld, slice,
-                    BQ, wq_lo, S, threadIdx.x & 127);
+    const long long ld = static_cast<long long>(H) * RD;
+    store_slice<HD, RD>(o + static_cast<long long>(b) * S * ld + h * RD, ld,
+                        slice, BQ, wq_lo, S, threadIdx.x & 127);
   }
 }
 
-template <int HD, int NWG>
+template <int HD, int NWG, int RD>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* o, float* lse, int B, int S, int Sk, int H,
                          int K, float scale, int causal, int window,
                          float softcap, cudaStream_t stream) {
-  constexpr int BQ = 64 * NWG;
+  constexpr int BQ = 64 * NWG, BK = fwd_bk(HD);
   CUtensorMap tq, tk, tv;
-  cudaError_t err = head_map<HD>(&tq, q, B, S, H, BQ);
-  if (err == cudaSuccess) err = head_map<HD>(&tk, k, B, Sk, K, FWD_BK);
-  if (err == cudaSuccess) err = head_map<HD>(&tv, v, B, Sk, K, FWD_BK);
+  cudaError_t err = head_map4<HD>(&tq, q, B, S, H, RD, BQ);
+  if (err == cudaSuccess) err = head_map4<HD>(&tk, k, B, Sk, K, RD, BK);
+  if (err == cudaSuccess) err = head_map4<HD>(&tv, v, B, Sk, K, RD, BK);
   if (err != cudaSuccess) return err;
-  auto kernel = flash_fwd_bf16_wgmma<HD, NWG>;
+  auto kernel = flash_fwd_bf16_wgmma<HD, NWG, RD>;
   constexpr size_t bytes = smem_fwd<HD, NWG>();
   static size_t allowed = 48 * 1024;     // per instantiation
   err = allow_smem(kernel, bytes, allowed);
@@ -426,17 +454,21 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 }
 
 // two consumer warpgroups (BQ = 128) when that grid fills the card, else
-// one (BQ = 64): a B = 1 prefill of 288 rows gives 96 blocks at 128
-template <int HD>
+// one (BQ = 64): a B = 1 prefill of 288 rows gives 96 blocks at 128.  At
+// HD 256 always one: two would hold 256 accumulator registers a thread.
+// RD: the head's width (80 on a 128-wide tile), else HD.
+template <int HD, int RD = HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         float* lse, int B, int S, int Sk, int H, int K,
                         float scale, int causal, int window, float softcap,
                         cudaStream_t stream) {
-  if (static_cast<long long>((S + 127) / 128) * H * B >= sm_count())
-    return launch_wgmma<HD, 2>(q, k, v, o, lse, B, S, Sk, H, K, scale,
-                               causal, window, softcap, stream);
-  return launch_wgmma<HD, 1>(q, k, v, o, lse, B, S, Sk, H, K, scale, causal,
-                             window, softcap, stream);
+  if constexpr (HD <= 128) {
+    if (static_cast<long long>((S + 127) / 128) * H * B >= sm_count())
+      return launch_wgmma<HD, 2, RD>(q, k, v, o, lse, B, S, Sk, H, K, scale,
+                                     causal, window, softcap, stream);
+  }
+  return launch_wgmma<HD, 1, RD>(q, k, v, o, lse, B, S, Sk, H, K, scale,
+                                 causal, window, softcap, stream);
 }
 
 template <typename T, int HD>
@@ -457,14 +489,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <int HD>
+// HD: the head's width; the bf16 tile's (TD) is 128 for a head of 80
+template <int HD, int TD = HD>
 cudaError_t launch_dtype(int dtype, const void* q, const void* k,
                          const void* v, void* o, float* lse, int B, int S,
                          int Sk, int H, int K, float scale, int causal,
                          int window, float softcap, cudaStream_t s) {
   if (dtype == DT_BF16)
-    return launch_bf16<HD>(q, k, v, o, lse, B, S, Sk, H, K, scale, causal,
-                           window, softcap, s);
+    return launch_bf16<TD, HD>(q, k, v, o, lse, B, S, Sk, H, K, scale,
+                               causal, window, softcap, s);
   if (dtype == DT_F32)
     return launch<float, HD>(q, k, v, o, lse, B, S, Sk, H, K, scale, causal,
                              window, softcap, s);
@@ -475,7 +508,8 @@ cudaError_t launch_dtype(int dtype, const void* q, const void* k,
 
 // q, o: (B, S, H, hd); k, v: (B, Sk, K, hd); contiguous, one dtype.
 // lse: (B, H, S) float32, the log-sum-exp of each row's (scaled, capped)
-// scores for the backward, or null (serving).  hd in {16, 32, 64, 128}.
+// scores for the backward, or null (serving).  hd in {16, 32, 64, 80, 128,
+// 256}.
 // Returns the cudaError_t of the launch.
 extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
                                          const void* v, void* o, void* lse,
@@ -490,7 +524,9 @@ extern "C" int repro_flash_attention_fwd(const void* q, const void* k,
     case 16: return launch_dtype<16>(dtype, q, k, v, o, l, B, S, Sk, H, K, scale, causal, window, softcap, s);
     case 32: return launch_dtype<32>(dtype, q, k, v, o, l, B, S, Sk, H, K, scale, causal, window, softcap, s);
     case 64: return launch_dtype<64>(dtype, q, k, v, o, l, B, S, Sk, H, K, scale, causal, window, softcap, s);
+    case 80: return launch_dtype<80, 128>(dtype, q, k, v, o, l, B, S, Sk, H, K, scale, causal, window, softcap, s);
     case 128: return launch_dtype<128>(dtype, q, k, v, o, l, B, S, Sk, H, K, scale, causal, window, softcap, s);
+    case 256: return launch_dtype<256>(dtype, q, k, v, o, l, B, S, Sk, H, K, scale, causal, window, softcap, s);
     default: return cudaErrorInvalidValue;
   }
 }

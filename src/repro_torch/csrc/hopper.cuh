@@ -165,6 +165,19 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// box (c0, c1, c2, c3) of a 4-D tensor map into shared memory at `dst`,
+// completing `bytes` (the full box) on `bar`
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // box (c0, c1) of a 2-D tensor map into shared memory at `dst`, completing
 // `bytes` (the full box) on `bar`
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
@@ -329,14 +342,17 @@ __device__ __forceinline__ float ex2(float x) {
 // Copies a warpgroup's staged 64-row slice (rows r0 .. r0 + 63 of the
 // output, slice at shared `slice` in a tile of R rows) to global rows of
 // stride `ld` elements, 16 bytes a thread a step; rows at or past `rows`
-// are not written.  `tid` is the thread's index in its warpgroup.
-template <int HD>
+// are not written, nor columns at or past NC (a head of NC < HD
+// elements, padded to HD in shared memory).  `tid` is the thread's index
+// in its warpgroup.
+template <int HD, int NC = HD>
 __device__ __forceinline__ void store_slice(__nv_bfloat16* __restrict__ out,
                                             long long ld, const uint8_t* slice,
                                             int R, int r0, int rows,
                                             int tid) {
   using T = Tile<HD>;
-  constexpr int CPR = HD / 8;                    // 16-byte chunks a row
+  static_assert(NC % 8 == 0 && NC <= HD, "store_slice: NC");
+  constexpr int CPR = NC / 8;                    // 16-byte chunks a row
 #pragma unroll
   for (int i = tid; i < 64 * CPR; i += 128) {
     const int r = i / CPR, c = (i % CPR) * 8;
@@ -414,6 +430,35 @@ static inline cudaError_t head_map(CUtensorMap* map, const void* base, int B,
                        static_cast<cuuint32_t>(box_rows), 1u};
   cuuint32_t elem[3] = {1u, 1u, 1u};
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                  const_cast<void*>(base), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, T::SWIZZLE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a bf16 (B, rows, heads, hd) tensor read in place as
+// 4-D (hd, heads, rows, B), boxes of (SW, 1, box_rows, 1) into a tile of
+// HD >= hd columns: TMA zero-fills a box past `rows` (a ragged tile stops
+// at its sequence's end) and the columns from hd to the box's end, so a
+// head of hd = 80 lands as a 128-wide tile whose last 48 columns are 0.
+template <int HD>
+static inline cudaError_t head_map4(CUtensorMap* map, const void* base, int B,
+                                    int rows, int heads, int hd,
+                                    int box_rows) {
+  using T = Tile<HD>;
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t e = 2;
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                        static_cast<cuuint64_t>(heads),
+                        static_cast<cuuint64_t>(rows),
+                        static_cast<cuuint64_t>(B)};
+  cuuint64_t strides[3] = {hd * e, hd * e * heads, hd * e * heads * rows};
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(T::SW), 1u,
+                       static_cast<cuuint32_t>(box_rows), 1u};
+  cuuint32_t elem[4] = {1u, 1u, 1u, 1u};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                   const_cast<void*>(base), dims, strides, box, elem,
                   CU_TENSOR_MAP_INTERLEAVE_NONE, T::SWIZZLE,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

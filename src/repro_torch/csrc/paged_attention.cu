@@ -20,20 +20,28 @@
 //     C positions counted from position 0 (split s is [s C, (s + 1) C);
 //     C = split_positions(hd, dtype) in kernels/paged_attention/ref.py,
 //     passed in by the wrapper).  One block of 128 threads per (row, kv
-//     head, split) holds that head's G query rows, so each K/V row is
-//     read from device memory once for all G rows.  Every thread issues
+//     head, split, group tile) holds GT of that head's G query rows (GT =
+//     min(G, 1024 / hd): the whole group up to G hd = 1024, so each K/V
+//     row is read from device memory once for all G rows; a wider group,
+//     recurrentgemma-2b's 16 padded q heads of 256 on one kv head, is cut
+//     into G / GT tiles of blocks that read the split's K/V rows again,
+//     mostly from L2, and keep a block's shared memory what it is at G hd
+//     = 1024).  Every thread issues
 //     cp.async copies of its 16-byte chunks of the split's live K rows,
 //     then of its V rows, before any arithmetic (four of each a thread
 //     at hd 128 in bf16, C = 32); the page ids are loaded with the row's
 //     length, and the scores run while V is in flight.  It writes the
 //     split's fp32 triple: m (the max score), l (the sum of exp(score -
 //     m)) and acc (the p-weighted sum of V rows), for each of the G rows,
-//     into float32 partials the wrapper allocates.  Both kernels are
+//     into float32 partials the wrapper allocates.  A row's arithmetic is
+//     the same whatever tile it sits in: GT changes no bit.  Both kernels are
 //     templated on hd (64, 128, 256; any other hd at run time): a block's
 //     time is a chain of latencies, and index arithmetic at run time
 //     lengthened it by half.
-//   * paged_combine_kernel: one block per (row, kv head) folds the row's
-//     live splits in ascending split order — m is their max M, l and acc
+//   * paged_combine_kernel: one block per (row, kv head, 512 outputs of
+//     the group: G hd / 512 of them, 8 at G hd 4096, where one block a
+//     head took 9x the split pass) folds the row's live splits in
+//     ascending split order — m is their max M, l and acc
 //     the sums of l_s exp(m_s - M) and acc_s exp(m_s - M) taken from the
 //     lowest split up — and divides by l once.  It issues the loads of
 //     up to 16 splits at once, the first 16 together with the row's
@@ -129,9 +137,9 @@ __global__ void __launch_bounds__(NT)
                        const int* __restrict__ page_tables,
                        const int* __restrict__ lengths,
                        float* __restrict__ pacc, float* __restrict__ pm,
-                       float* __restrict__ pl, int K, int G, int hd_arg,
-                       int ps, int MPR, int C_arg, float scale, int window,
-                       float softcap) {
+                       float* __restrict__ pl, int K, int G, int GT,
+                       int hd_arg, int ps, int MPR, int C_arg, float scale,
+                       int window, float softcap) {
   constexpr int V = 16 / sizeof(T);       // elements a 16-byte chunk
   constexpr int CC = HD ? split_c(HD, sizeof(T)) : 0;
   const int hd = HD ? HD : hd_arg, C = HD ? CC : C_arg;
@@ -141,12 +149,15 @@ __global__ void __launch_bounds__(NT)
   extern __shared__ uint4 smem[];
   uint4* Ks = smem;                                        // C x rs
   uint4* Vs = Ks + C * rs;                                 // C x rs
-  float* Qs = reinterpret_cast<float*>(Vs + C * rs);      // G x hd, scaled
-  float* Ss = Qs + G * hd;                                 // G x C: s, then p
-  float* m_s = Ss + G * C;                                 // G
-  float* l_s = m_s + G;                                    // G
+  float* Qs = reinterpret_cast<float*>(Vs + C * rs);      // GT x hd, scaled
+  float* Ss = Qs + GT * hd;                                // GT x C: s, then p
+  float* m_s = Ss + GT * C;                                // GT
+  float* l_s = m_s + GT;                                   // GT
 
-  const int r = blockIdx.x, kh = blockIdx.y, s = blockIdx.z;
+  // this block's query rows: g0 .. g0 + Gb - 1 of the kv head's G
+  const int NG = (G + GT - 1) / GT;
+  const int r = blockIdx.x, kh = blockIdx.y / NG, s = blockIdx.z;
+  const int g0 = (blockIdx.y % NG) * GT, Gb = min(GT, G - g0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int s0 = s * C;
   const int reach = MPR * ps;
@@ -188,8 +199,10 @@ __global__ void __launch_bounds__(NT)
     cp_async_commit();
   }
   const long long q_off =
-      (static_cast<long long>(r) * K + kh) * static_cast<long long>(G) * hd;
-  for (int i = tid; i < G * hd; i += NT) Qs[i] = to_f32(q[q_off + i]) * scale;
+      ((static_cast<long long>(r) * K + kh) * G + g0) *
+      static_cast<long long>(hd);
+  for (int i = tid; i < Gb * hd; i += NT)
+    Qs[i] = to_f32(q[q_off + i]) * scale;
   cp_async_wait<1>();         // this thread's K copies have landed
   __syncthreads();            // and everyone's, and Qs
 
@@ -201,7 +214,7 @@ __global__ void __launch_bounds__(NT)
     const int t = i % C, gg = i / C;
     const bool live = t >= t_lo && t <= t_hi;
     const uint4* kr = Ks + t * rs;
-    for (int g = gg; g < G; g += ngrp) {
+    for (int g = gg; g < Gb; g += ngrp) {
       float sc = -INFINITY;   // marks a dead position
       if (live) {
         const float4* q4 = reinterpret_cast<const float4*>(Qs + g * hd);
@@ -228,7 +241,7 @@ __global__ void __launch_bounds__(NT)
   __syncthreads();
 
   // the split's softmax state, one warp a query row
-  for (int g = warp; g < G; g += NWARPS) {
+  for (int g = warp; g < Gb; g += NWARPS) {
     float* sr = Ss + g * C;
     float mx = -INFINITY;
     for (int t = lane; t < C; t += 32) mx = fmaxf(mx, sr[t]);
@@ -254,8 +267,8 @@ __global__ void __launch_bounds__(NT)
 
   // acc = p V over the live positions, four consecutive outputs a thread
   const long long base =
-      ((static_cast<long long>(r) * K + kh) * gridDim.z + s) * G;
-  for (int e0 = tid * 4; e0 < G * hd; e0 += NT * 4) {
+      ((static_cast<long long>(r) * K + kh) * gridDim.z + s) * G + g0;
+  for (int e0 = tid * 4; e0 < Gb * hd; e0 += NT * 4) {
     const int g = e0 / hd, d = e0 % hd;
     const float* pr = Ss + g * C;
     float a[4] = {0.f, 0.f, 0.f, 0.f};
@@ -269,7 +282,7 @@ __global__ void __launch_bounds__(NT)
     }
     store4(pacc + base * hd + e0, a);
   }
-  if (tid < G) {
+  if (tid < Gb) {
     pm[base + tid] = m_s[tid];
     pl[base + tid] = l_s[tid];
   }
@@ -296,7 +309,8 @@ __global__ void __launch_bounds__(NT)
   const int cur = lengths[r];
   const long long base = (static_cast<long long>(r) * K + kh) * NS;
   const long long o_off = (static_cast<long long>(r) * K + kh) * G * hd;
-  for (int e0 = threadIdx.x * 4; e0 < G * hd; e0 += NT * 4) {
+  for (int e0 = (blockIdx.z * NT + threadIdx.x) * 4; e0 < G * hd;
+       e0 += gridDim.z * NT * 4) {
     const int g = e0 / hd, d = e0 % hd;
     float mv[B], lv[B], av[B][4];
     auto load_batch = [&](int s1, int s_end) {
@@ -352,7 +366,9 @@ cudaError_t launch_hd(const void* q, const void* kp, const void* vp,
   float* pm = pacc + slots * hd;
   float* pl = pm + slots;
   auto split = paged_split_kernel<T, HD>;
-  const size_t bytes = split_smem_bytes(G, hd, C, sizeof(T));
+  const int GT = max(1, min(G, 1024 / hd));   // query rows a block
+  const int NG = (G + GT - 1) / GT;
+  const size_t bytes = split_smem_bytes(GT, hd, C, sizeof(T));
   static size_t allowed = 48 * 1024;     // per instantiation
   cudaError_t err = allow_smem(split, bytes, allowed);
   if (err != cudaSuccess) return err;
@@ -360,12 +376,13 @@ cudaError_t launch_hd(const void* q, const void* kp, const void* vp,
   // wrote this step's K/V) has finished: launched early behind a previous
   // call's combine it measured slower.  The combine is launched early and
   // waits for the split pass in griddep_wait.
-  err = launch_kernel(false, split, dim3(R, K, NS), dim3(NT), bytes, s,
+  err = launch_kernel(false, split, dim3(R, K * NG, NS), dim3(NT), bytes, s,
                    static_cast<const T*>(q), static_cast<const T*>(kp),
                    static_cast<const T*>(vp), pt, len, pacc, pm, pl, K, G,
-                   hd, ps, MPR, C, scale, window, softcap);
+                   GT, hd, ps, MPR, C, scale, window, softcap);
   if (err != cudaSuccess) return err;
-  return launch_kernel(true, paged_combine_kernel<T, HD>, dim3(R, K),
+  const int NE = (G * hd + 4 * NT - 1) / (4 * NT);   // output chunks
+  return launch_kernel(true, paged_combine_kernel<T, HD>, dim3(R, K, NE),
                        dim3(NT), 0, s, static_cast<const float*>(pacc),
                        static_cast<const float*>(pm),
                        static_cast<const float*>(pl), len,
@@ -398,10 +415,10 @@ cudaError_t launch(const void* q, const void* kp, const void* vp,
 // q, o: (R, K*G, hd); k_pages, v_pages: (P, ps, K, hd); page_tables:
 // (R, MPR) int32; lengths: (R,) int32; partials: R * K * NS * G * (hd + 2)
 // float32 with NS = ceil(MPR * ps / C); contiguous, q/pages of one dtype,
-// 16-byte aligned.  Requires C = split_c(hd, element size), G * hd <= 1024,
-// hd % 8 == 0, C * hd * (element size) <= 8 * 128 * 16 bytes (eight
-// chunks of K a thread) and K, NS <= 65535.  Returns the cudaError_t of
-// the launches.
+// 16-byte aligned.  Requires C = split_c(hd, element size), hd % 8 == 0,
+// C * hd * (element size) <= 8 * 128 * 16 bytes (eight chunks of K a
+// thread) and K * ceil(G / GT), NS <= 65535 (GT = min(G, 1024 / hd)).
+// Returns the cudaError_t of the launches.
 extern "C" int repro_paged_attention_fwd(
     const void* q, const void* k_pages, const void* v_pages,
     const void* page_tables, const void* lengths, void* o, void* partials,
@@ -412,8 +429,10 @@ extern "C" int repro_paged_attention_fwd(
   if (dtype != DT_BF16 && dtype != DT_F32) return cudaErrorInvalidValue;
   const int esize = dtype == DT_BF16 ? 2 : 4;
   const long long NS = (static_cast<long long>(MPR) * ps + C - 1) / C;
-  if (C != split_c(hd, esize) || G * hd > 1024 || hd % 8 ||
-      C * row_chunks(hd, esize) > 8 * NT || K > 65535 || NS > 65535 ||
+  const int GT = max(1, min(G, 1024 / hd));
+  if (C != split_c(hd, esize) || hd % 8 || G < 1 ||
+      C * row_chunks(hd, esize) > 8 * NT ||
+      static_cast<long long>(K) * ((G + GT - 1) / GT) > 65535 || NS > 65535 ||
       NS < 1)
     return cudaErrorInvalidValue;
   const int* pt = static_cast<const int*>(page_tables);

@@ -2,7 +2,9 @@
 (``csrc/flash_attention.cu``) replaces the TPU kernel
 ``repro/kernels/flash_attention/kernel.py:flash_attention_bhsd``; the
 backward (``csrc/flash_attention_bwd.cu``) is new (the TPU kernel had
-none)."""
+none).  The forward takes head_dim 16, 32, 64, 80, 128 and 256; the
+backward 16-128 (head_dim 80 and 256 train in the next slice, ROADMAP
+item 12, second half: the new families' training)."""
 from __future__ import annotations
 
 import ctypes
@@ -13,7 +15,18 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def check_backward_head_dim(hd: int) -> None:
+    """The backward kernel's head dims; any other raises (never a plain
+    version in its place)."""
+    if hd not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"the flash backward takes head_dim in {BWD_HEAD_DIMS}, got "
+            f"{hd}: head_dim 80 and 256 come with the new families' "
+            "training (ROADMAP item 12, second half)")
 
 
 @functools.lru_cache(maxsize=None)
@@ -96,6 +109,7 @@ def flash_attention_bshd_bwd(q: torch.Tensor, k: torch.Tensor,
     gradient ``do``; ``o`` and ``lse`` are the forward's outputs.
     Deterministic: no float atomics, fixed summation order."""
     B, S, Sk, H, K, hd = _check(q, k, v, "flash_attention_bshd_bwd")
+    check_backward_head_dim(hd)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} must "

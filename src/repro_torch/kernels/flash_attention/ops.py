@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention.kernel import (
-    flash_attention_bshd, flash_attention_bshd_bwd)
+    check_backward_head_dim, flash_attention_bshd, flash_attention_bshd_bwd)
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 
@@ -41,6 +41,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    softcap=softcap, scale=scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        check_backward_head_dim(q.shape[-1])
         return FlashAttentionFunction.apply(
             q.contiguous(), k.contiguous(), v.contiguous(), causal, window,
             softcap, scale)

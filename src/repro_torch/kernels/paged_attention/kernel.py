@@ -12,8 +12,6 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention.ref import split_positions
 
-MAX_GROUP_WIDTH = 1024        # G * hd per block (csrc)
-
 
 @functools.lru_cache(maxsize=None)
 def _entry():
@@ -31,8 +29,10 @@ def paged_attention_rhd(q: torch.Tensor, k_pages: torch.Tensor,
                         softcap: float = 0.0, scale=None) -> torch.Tensor:
     """q: (R, H, hd); k_pages/v_pages: (P, ps, K, hd) (the serve layout,
     read in place); page_tables: (R, MPR) int32; lengths: (R,) int32, the
-    query's position.  Contiguous CUDA tensors -> o: (R, H, hd).  One
-    call is one counted launch (the split pass and its combine)."""
+    query's position.  Contiguous CUDA tensors -> o: (R, H, hd).  Any
+    group width G = H / K: a block holds up to 1024 / hd of a kv head's
+    query rows, and a wider group is tiled over blocks.  One call is one
+    counted launch (the split pass and its combine)."""
     dev = q.device
     tensors = (k_pages, v_pages, page_tables, lengths)
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -55,9 +55,8 @@ def paged_attention_rhd(q: torch.Tensor, k_pages: torch.Tensor,
         raise TypeError(f"dtypes differ: {q.dtype}, {k_pages.dtype}, "
                         f"{v_pages.dtype}")
     G = H // K
-    if G * hd > MAX_GROUP_WIDTH or hd % 8:
-        raise ValueError(f"needs G*hd <= {MAX_GROUP_WIDTH} and hd % 8 == 0, "
-                         f"got G={G}, hd={hd}")
+    if hd % 8:
+        raise ValueError(f"needs hd % 8 == 0, got hd={hd}")
     if not all(t.is_contiguous() for t in (q,) + tensors):
         raise ValueError("paged_attention_rhd needs contiguous inputs")
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:

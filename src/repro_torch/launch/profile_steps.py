@@ -33,7 +33,7 @@ import torch
 from repro_torch.configs import ALL_ARCHS
 from repro_torch.models import (get_config, init_cache, init_paged_cache,
                                 init_params)
-from repro_torch.models.base import SSM
+from repro_torch.models.base import REC, SSM
 from repro_torch.train import (make_paged_decode_step, make_prefill_step,
                                make_serve_decode_step)
 
@@ -59,11 +59,12 @@ def serve_steps(cfg, params, *, device, seed: int = 0, max_active: int = 8,
     ``slot_decode`` as many slot-pool rows at the same query positions
     (reset before each call, which advances them), ``prefill`` runs a
     ``prompt_len``-token prompt padded to ``max_len`` against a fresh
-    cache row.  A Mamba stack's ``decode`` advances ``max_active``
-    slot-pool rows and its ``prefill`` runs unpadded."""
+    cache row.  A stack that does not page (Mamba, RG-LRU) advances
+    ``max_active`` slot-pool rows in its ``decode``, and its ``prefill``
+    runs unpadded."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    if SSM in cfg.layer_kinds():
+    if {SSM, REC} & set(cfg.layer_kinds()):
         rows = init_cache(cfg, max_active, max_len, device)
         tokens = torch.randint(0, cfg.vocab_size, (max_active, 1),
                                generator=gen, device=device)
@@ -177,6 +178,10 @@ def main(argv=None) -> int:
         print("profile_steps: needs a CUDA device", file=sys.stderr)
         return 1
     cfg = get_config(args.arch)
+    if not cfg.has_decode or cfg.embedding_inputs:
+        print(f"profile_steps: {args.arch} has no decode step over token "
+              "prompts", file=sys.stderr)
+        return 1
     params = init_params(cfg, seed=args.seed, device="cuda")
     steps = serve_steps(cfg, params, device="cuda", seed=args.seed,
                         max_active=args.max_active)

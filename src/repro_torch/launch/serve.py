@@ -107,6 +107,13 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, tiny=args.tiny)
+    if not cfg.has_decode:
+        print(f"{args.arch} is encoder-only; no decode loop")
+        return 1
+    if cfg.embedding_inputs:
+        print(f"{args.arch} takes embedding inputs; the engine serves "
+              "token prompts")
+        return 1
     params = init_params(cfg, seed=args.seed, device=args.device)
     injector = None
     if args.kill_replica_at >= 0:

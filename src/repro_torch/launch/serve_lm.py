@@ -70,6 +70,10 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, tiny=args.tiny)
+    if not cfg.has_decode or cfg.embedding_inputs:
+        print(f"{args.arch} has no decode loop over token prompts "
+              "(encoder-only or embedding inputs)")
+        return 1
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     params = init_params(cfg, seed=args.seed, device=device)

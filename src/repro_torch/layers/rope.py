@@ -1,10 +1,12 @@
-"""Rotary position embeddings (standard RoPE; M-RoPE waits for the
-qwen2-vl slice).
+"""Rotary position embeddings: standard RoPE and Qwen2-VL's multi-axis
+M-RoPE.
 
 Convention: "rotate half" over contiguous halves of head_dim (llama/gemma
 style).  All trig in fp32, computed the reference's way.
 """
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -37,6 +39,26 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """x (B,S,H,hd), positions (B,S) int."""
     cos, sin = _rope_angles(positions, x.shape[-1], theta)
     return _rotate(x, cos, sin)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: Sequence[int],
+                theta: float = 10000.0) -> torch.Tensor:
+    """Qwen2-VL multi-axis RoPE.  x (B,S,H,hd); positions (3, B, S) int,
+    the temporal / height / width ids; ``sections`` split head_dim // 2
+    over the three axes (their sum is head_dim // 2): frequency i takes
+    its angle from the axis whose section holds it."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum "
+                         f"to head_dim // 2 = {half}")
+    cos3, sin3 = _rope_angles(positions, x.shape[-1], theta)  # (3,B,S,half)
+    cos, sin, start = [], [], 0
+    for i, sec in enumerate(sections):
+        cos.append(cos3[i, ..., start:start + sec])
+        sin.append(sin3[i, ..., start:start + sec])
+        start += sec
+    return _rotate(x, torch.cat(cos, dim=-1), torch.cat(sin, dim=-1))
 
 
 def make_positions(batch: int, seq: int, offset: int = 0,

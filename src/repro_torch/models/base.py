@@ -7,7 +7,9 @@ version.  The train state always stacks homogeneous blocks, as the
 reference does with ``scan_layers=True``, so that flag is gone too.
 ``seq_shard`` is kept for the reference's configs but changes nothing:
 on a mesh the port keeps the residual stream whole on every rank of a
-``"model"`` group.  The RG-LRU fields wait for their slice.
+``"model"`` group.  ``pad_heads_to`` pads the q heads of each KV group
+as the reference does, the padded heads masked to zero, so that weights
+and checkpoints keep the reference's shapes.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ class ModelConfig:
     # --- attention features ---
     qkv_bias: bool = False
     rope_theta: float = 10000.0
+    mrope_sections: Tuple[int, ...] = ()   # qwen2-vl M-RoPE (t, h, w) sections of head_dim/2
     window: int = 0                        # sliding-window size (0 = no SWA anywhere)
     pattern: Tuple[str, ...] = (FULL,)     # repeating per-layer kinds
     attn_softcap: float = 0.0              # attention-logit soft capping
@@ -57,12 +60,16 @@ class ModelConfig:
     conv_width: int = 4
     expand: int = 2
     dt_rank: int = 0                       # 0 => ceil(d_model / 16)
+    # --- hybrid (RG-LRU) ---
+    lru_width: int = 0
     # --- embeddings / head ---
+    embedding_inputs: bool = False         # vlm/audio: input is precomputed embeddings
     tie_embeddings: bool = True
     embed_scale: bool = False              # gemma-style sqrt(d_model) embed scaling
     sandwich_norm: bool = False            # gemma2 post-attn/post-mlp norms
     norm_eps: float = 1e-6
     # --- execution ---
+    pad_heads_to: int = 0                  # pad q-heads per KV group (masked pad)
     seq_shard: bool = False                # the reference's Megatron SP flag
     param_dtype: Any = torch.float32
     dtype: Any = torch.bfloat16
@@ -81,8 +88,17 @@ class ModelConfig:
 
     @property
     def effective_num_heads(self) -> int:
-        """The reference pads q-heads for even TP sharding
-        (``pad_heads_to``); the port's configs never pad."""
+        """q-head count after padding (``pad_heads_to``, the reference's
+        even TP sharding): real heads sit in the first ``num_heads /
+        num_kv_heads`` slots of each KV group, padded slots are masked to
+        zero (``transformer._head_mask``), so the math equals the unpadded
+        model's."""
+        if self.pad_heads_to and self.pad_heads_to > self.num_heads:
+            if self.pad_heads_to % max(self.num_kv_heads, 1):
+                raise ValueError(f"{self.name}: pad_heads_to "
+                                 f"{self.pad_heads_to} is not a multiple of "
+                                 f"{self.num_kv_heads} KV heads")
+            return self.pad_heads_to
         return self.num_heads
 
     @property
@@ -112,12 +128,12 @@ class ModelConfig:
         return tuple((self.pattern * reps)[: self.num_layers])
 
     def num_params(self) -> int:
-        """Analytic parameter count of the layer kinds the port builds
-        (the reference's formula for attention, MoE and SSM layers)."""
+        """Analytic parameter count, the reference's formula (unpadded
+        heads, no embed table for embedding inputs)."""
         d, f, v = self.d_model, self.d_ff, self.vocab_size
         hd = self.resolved_head_dim
         h, k = self.num_heads, self.num_kv_heads
-        n = v * d
+        n = 0 if self.embedding_inputs else v * d
         if not self.tie_embeddings:
             n += v * d
         for kind in self.layer_kinds():
@@ -144,6 +160,16 @@ class ModelConfig:
                 n += di * ns + di                                # A_log, D
                 n += di * d                                      # out_proj
                 n += d                                           # norm
+            elif kind == REC:
+                w = self.lru_width or d
+                n += d * 2 * w                                   # x_proj, gate_proj
+                n += self.conv_width * w + w                     # conv
+                n += 3 * w                                       # lam, b_i, b_r
+                n += 2 * w * w                                   # w_i, w_r
+                n += w * d                                       # out_proj
+                n += 2 * d                                       # norms
+                gated = self.mlp_act in ("silu", "gelu")
+                n += (2 * d * f if gated else d * f) + f * d
         n += d                                                   # final norm
         return n
 

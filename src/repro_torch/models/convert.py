@@ -4,15 +4,19 @@
 arrays (``jax.device_get``), or the port's own train parameters
 (``init_train_params``, the same stacked layout, tensors), and returns
 the port's serving parameters, cast as ``load_weight`` casts them (an
-SSM layer's ``A_log`` and ``D`` stay float32): a model trained in
-either package serves in the port.  ``state_from_jax`` takes the
+SSM layer's ``A_log`` and ``D`` and an RG-LRU layer's ``lam`` stay
+float32): a model trained in either package serves in the port.  Every
+leaf keeps its shape: padded q heads (``pad_heads_to``) stay padded, and
+an embedding-input model has no ``embed``.  ``state_from_jax`` takes the
 reference's whole train state (``params``, ``opt.{m,v,count}``, ``rng``,
 ``step``) and returns the port's, which keeps the reference's stacked
 layout leaf for leaf.  The
 reference stacks homogeneous blocks for ``scan``: ``{"embed": {"tok"},
 "blocks": {"l<p>": {...}}, "final_norm"}`` with a leading G axis on every
-block leaf, layer ``g * len(pattern) + p``.  The unstacked layout
-(``"layers": {"layer_<i>": ...}``) is read too.
+block leaf, layer ``g * len(pattern) + p`` (recurrentgemma-2b's 26
+layers: 2 blocks of its 13-layer pattern).  The unstacked layout
+(``"layers": {"layer_<i>": ...}``, the reference's ``scan_layers=False``,
+e.g. tiny recurrentgemma's 5 layers over a pattern of 3) is read too.
 """
 from __future__ import annotations
 
@@ -45,10 +49,8 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
                     device=None) -> Dict[str, Any]:
     device = resolve_device(device)
     out: Dict[str, Any] = {
-        "embed": _tree(cfg, tree["embed"], None, device),
-        "final_norm": _tree(cfg, tree["final_norm"], None, device)}
-    if "lm_head" in tree:
-        out["lm_head"] = _tree(cfg, tree["lm_head"], None, device)
+        k: _tree(cfg, tree[k], None, device)
+        for k in ("embed", "final_norm", "lm_head") if k in tree}
     if "blocks" in tree:
         P_ = len(cfg.pattern)
         out["layers"] = [

@@ -1,0 +1,137 @@
+"""RG-LRU recurrent block (RecurrentGemma / Griffin family), PyTorch port
+of the reference's ``models/rglru.py``.
+
+Temporal block: ``y = out( gelu(gate(x)) * RG-LRU(conv1d(x_proj(x))) )``.
+RG-LRU (per channel):
+  r_t = sigmoid(W_r u_t + b_r);  i_t = sigmoid(W_i u_t + b_i)
+  a_t = sigmoid(Lambda) ** (c * r_t)          (c = 8)
+  h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (i_t * u_t)
+
+The dtype points are the reference's: the projections and the gate run in
+the compute dtype; the depthwise conv sums in float32 and rounds back
+(``models/mamba.py:_causal_conv``, the reference's ``_causal_conv``); the
+gates, ``log_a``, ``a``, ``b`` and the recurrence are float32; ``lam``
+stays float32 (``_KEEP_FP32``).  A prompt runs the recurrence through
+``linear_scan`` (plain PyTorch; RG-LRU has no TPU kernel, so the port owes
+none); one token against a cache is a single elementwise step, as in the
+reference.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.layers.mlp import mlp_apply, mlp_init
+from repro_torch.layers.norms import rms_norm
+from repro_torch.models.base import ModelConfig
+from repro_torch.models.mamba import _causal_conv
+
+Params = Dict[str, torch.Tensor]
+
+_C = 8.0
+SCAN_CHUNK = 128       # the reference's models/mamba.py:SCAN_CHUNK
+
+
+def rec_init(cfg: ModelConfig, normal: Callable, ones: Callable,
+             zeros: Callable, const: Callable) -> Params:
+    """The reference's shapes and scales.  ``normal(shape, std)``,
+    ``ones(n)``, ``zeros(n)`` and ``const(name, tensor)`` place a weight
+    as the caller loads weights."""
+    d = cfg.d_model
+    w = cfg.lru_width or d
+    rec = {
+        "x_proj": normal((d, w), d ** -0.5),
+        "gate_proj": normal((d, w), d ** -0.5),
+        "conv_w": normal((cfg.conv_width, w), 0.1),
+        "conv_b": zeros(w),
+        "w_i": normal((w, w), w ** -0.5),
+        "b_i": zeros(w),
+        "w_r": normal((w, w), w ** -0.5),
+        "b_r": zeros(w),
+        # a = sigmoid(lam) from ~0.9 to ~0.999 at init
+        "lam": const("lam", torch.linspace(2.2, 6.9, w,
+                                           dtype=torch.float32)),
+        "out_proj": normal((w, d), w ** -0.5),
+    }
+    return {"ln1": ones(d), "rec": rec, "ln2": ones(d),
+            "mlp": mlp_init(normal, d, cfg.d_ff, cfg.mlp_act)}
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor,
+                h0: torch.Tensor):
+    """h_t = a_t h_{t-1} + b_t over axis 1, float32.  a, b: (B, S, w);
+    h0: (B, w).  Returns (h_all (B, S, w), h_last (B, w)).
+
+    The reference's ``_scan_chunked``: chunks of ``SCAN_CHUNK`` steps (one
+    chunk of S when S is not a multiple), each an inclusive scan of the
+    pairs (a, b) under (a1, b1) . (a2, b2) = (a1 a2, b1 a2 + b2) with the
+    carried state folded into its first step.  Here each chunk's scan
+    doubles its stride (log2 of the chunk's length passes over the chunk)
+    where XLA's ``associative_scan`` takes another tree of the same
+    combine: the two agree to float32 rounding."""
+    S = a.shape[1]
+    Q = min(SCAN_CHUNK, S)
+    if S % Q:
+        Q = S
+    out = torch.empty_like(b)
+    h = h0
+    for c0 in range(0, S, Q):
+        ac = a[:, c0:c0 + Q].clone()
+        bc = b[:, c0:c0 + Q].clone()
+        bc[:, 0] += ac[:, 0] * h
+        k = 1
+        while k < Q:
+            bc[:, k:] = bc[:, k:] + ac[:, k:] * bc[:, :-k]
+            ac[:, k:] = ac[:, k:] * ac[:, :-k]
+            k *= 2
+        out[:, c0:c0 + Q] = bc
+        h = bc[:, -1]
+    return out, h
+
+
+def rec_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
+              cache: Optional[Dict[str, torch.Tensor]] = None
+              ) -> torch.Tensor:
+    """One RG-LRU layer and its MLP block with their residuals.  x: (B, S,
+    D).  ``cache`` {"conv": (B, W-1, w), "h": (B, w) float32} is read as
+    the state before x and overwritten in place with the state after
+    it."""
+    B, S, _ = x.shape
+    rec = p["rec"]
+    h_in = rms_norm(x, p["ln1"], cfg.norm_eps)
+    u = h_in @ rec["x_proj"]                                  # (B, S, w)
+    u, new_conv = _causal_conv(u, rec["conv_w"], rec["conv_b"],
+                               cache["conv"] if cache is not None else None)
+    uf = u.float()
+    r = torch.sigmoid(uf @ rec["w_r"].float() + rec["b_r"].float())
+    i = torch.sigmoid(uf @ rec["w_i"].float() + rec["b_i"].float())
+    log_a = _C * r * F.logsigmoid(rec["lam"].float())
+    a = torch.exp(log_a)
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * uf)
+
+    if S == 1 and cache is not None:                          # decode step
+        h_last = a[:, 0] * cache["h"] + b[:, 0]
+        h_seq = h_last[:, None]
+    else:
+        h0 = (cache["h"] if cache is not None
+              else torch.zeros(B, u.shape[-1], dtype=torch.float32,
+                               device=x.device))
+        h_seq, h_last = linear_scan(a, b, h0)
+    gate = F.gelu(h_in @ rec["gate_proj"], approximate="tanh")
+    x = x + (h_seq.to(x.dtype) * gate) @ rec["out_proj"]
+    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    x = x + mlp_apply(p["mlp"], h2, cfg.mlp_act)
+    if cache is not None:
+        cache["conv"].copy_(new_conv)
+        cache["h"].copy_(h_last)
+    return x
+
+
+def rec_cache_init(cfg: ModelConfig, batch: int,
+                   device) -> Dict[str, torch.Tensor]:
+    w = cfg.lru_width or cfg.d_model
+    return {"conv": torch.zeros(batch, cfg.conv_width - 1, w,
+                                dtype=cfg.dtype, device=device),
+            "h": torch.zeros(batch, w, dtype=torch.float32, device=device)}

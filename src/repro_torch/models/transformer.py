@@ -1,8 +1,10 @@
-"""The decoder stack, PyTorch port of the reference's
-``models/transformer.py`` FULL/LOCAL attention path (GQA, sliding window,
+"""The model stack, PyTorch port of the reference's
+``models/transformer.py``: FULL/LOCAL/BIDIR attention layers (GQA/MQA,
+q heads padded per KV group and masked, RoPE or M-RoPE, sliding window,
 attention and final logit soft-caps, tied or untied embeddings, padded
-vocab, top-k MoE feed-forward blocks with degraded experts) and its
-Mamba-1 SSM layers (``models/mamba.py``).  A Python loop over layers
+vocab, token or embedding inputs, top-k MoE feed-forward blocks with
+degraded experts), Mamba-1 SSM layers (``models/mamba.py``) and RG-LRU
+layers (``models/rglru.py``).  A Python loop over layers
 replaces the reference's ``scan``; the sharding constraints have no
 counterpart on one card.  On a mesh, ``train/mesh_step.py`` runs the
 train mode over each rank's shards through ``par`` (Megatron column and
@@ -23,7 +25,9 @@ Modes of ``forward``:
                      layer's projections stay plain matmuls).
   ``prefill``      — logits for every position; with ``cache`` (a fresh
                      row from ``init_cache``) the row's k/v/pos, or an SSM
-                     layer's conv and scan state, are filled in place.
+                     or RG-LRU layer's conv and recurrent state, are
+                     filled in place.  An encoder (BIDIR) runs this mode
+                     without a cache.
   ``decode``       — one token per cache row against contiguous rows
                      (the slot pool, ``serve/cache_pool.py``, or a
                      lockstep batch cache), the state advanced in place:
@@ -33,13 +37,18 @@ Modes of ``forward``:
                      tables; this step's k/v land in the pool in place.
                      Attention stacks only.
 
-Parameters are plain nested dicts of tensors: ``{"embed": {"tok"},
-"layers": [...], "final_norm"[, "lm_head"]}`` with an attention layer
+Parameters are plain nested dicts of tensors: ``{["embed": {"tok"},]
+"layers": [...], "final_norm"[, "lm_head"]}`` (no ``embed`` for embedding
+inputs) with an attention layer
 ``{"ln1", "attn": {"wq","wk","wv","wo"[,"bq","bk","bv"]}, "ln2", "mlp":
 {...}}`` (an MoE stack: ``"moe": {"router","w_in","w_gate","w_out"}``
-in place of ``"mlp"``) and an SSM layer ``{"ln", "ssm": {...}}``, cast to the compute
-dtype once at load except the recurrence leaves ``A_log`` and ``D``,
-which stay float32 (the reference's ``_KEEP_FP32``).
+in place of ``"mlp"``), an SSM layer ``{"ln", "ssm": {...}}`` and an
+RG-LRU layer ``{"ln1", "rec": {...}, "ln2", "mlp"}``, cast to the compute
+dtype once at load except the recurrence leaves ``A_log``, ``D`` and
+``lam``, which stay float32 (the reference's ``_KEEP_FP32``).  With
+``pad_heads_to``, ``wq``/``bq``/``wo`` keep the padded head count and the
+padded heads' outputs are masked to zero (``_head_mask``), as in the
+reference, so weights cross between the packages as they are.
 """
 from __future__ import annotations
 
@@ -57,9 +66,11 @@ from repro_torch.kernels.paged_attention.ops import (paged_decode_attention,
 from repro_torch.layers.mlp import _act, dot, mlp_apply, mlp_init
 from repro_torch.layers.moe import moe_apply, moe_init
 from repro_torch.layers.norms import rms_norm
-from repro_torch.layers.rope import apply_rope, make_positions
-from repro_torch.models.base import BIDIR, FULL, LOCAL, SSM, ModelConfig
+from repro_torch.layers.rope import apply_mrope, apply_rope, make_positions
+from repro_torch.models.base import (BIDIR, FULL, LOCAL, REC, SSM,
+                                     ModelConfig)
 from repro_torch.models.mamba import ssm_apply, ssm_cache_init, ssm_init
+from repro_torch.models.rglru import rec_apply, rec_cache_init, rec_init
 from repro_torch.tree import flatten_named, unflatten
 
 Params = Dict[str, Any]
@@ -70,14 +81,25 @@ _KEEP_FP32 = ("A_log", "D", "lam")
 
 
 def _check_kinds(cfg: ModelConfig) -> None:
-    """The port serves and trains attention and Mamba-1 stacks."""
     bad = sorted({k for k in cfg.layer_kinds()
-                  if k not in (FULL, LOCAL, BIDIR, SSM)})
+                  if k not in (FULL, LOCAL, BIDIR, SSM, REC)})
     if bad:
+        raise ValueError(f"{cfg.name}: unknown layer kinds {bad}")
+
+
+def _check_train(cfg: ModelConfig) -> None:
+    """The train state covers the token-input attention and Mamba stacks
+    without padded heads; the other families serve only."""
+    why = [w for w, bad in (
+        ("RG-LRU layers", REC in cfg.layer_kinds()),
+        ("embedding inputs", cfg.embedding_inputs),
+        ("padded q heads", cfg.effective_num_heads != cfg.num_heads))
+        if bad]
+    if why:
         raise NotImplementedError(
-            f"{cfg.name} has {bad} layers; the port runs attention and Mamba "
-            "stacks (REC waits for the model-families slice, ROADMAP item "
-            "12, second half)")
+            f"{cfg.name} has {', '.join(why)}: the port trains them in the "
+            "next slice (ROADMAP item 12, second half: the new families' "
+            "training)")
 
 
 # --------------------------------------------------------------------------
@@ -126,14 +148,18 @@ def init_params(cfg: ModelConfig, *, seed: int, device=None) -> Params:
                            name)
 
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    h, kv = cfg.num_heads, cfg.num_kv_heads
-    params: Params = {"embed": {"tok": normal((cfg.padded_vocab, d),
-                                              d ** -0.5)}}
+    h, kv = cfg.effective_num_heads, cfg.num_kv_heads
+    params: Params = {}
+    if not cfg.embedding_inputs:
+        params["embed"] = {"tok": normal((cfg.padded_vocab, d), d ** -0.5)}
     layers: List[Params] = []
     for kind in cfg.layer_kinds():
         if kind == SSM:
             layers.append({"ln": ones(d), "ssm": ssm_init(cfg, normal,
                                                           const)})
+            continue
+        if kind == REC:
+            layers.append(rec_init(cfg, normal, ones, zeros, const))
             continue
         attn = {"wq": normal((d, h, hd), d ** -0.5),
                 "wk": normal((d, kv, hd), d ** -0.5),
@@ -165,6 +191,7 @@ def init_train_params(cfg: ModelConfig, *, seed: int, device=None) -> Params:
     + p``).  Same shapes and scales as the reference's ``init_params``.
     ``device="meta"`` gives the shapes and dtypes alone."""
     _check_kinds(cfg)
+    _check_train(cfg)
     device = resolve_device(device)
     P_ = len(cfg.pattern)
     if cfg.num_layers % P_:
@@ -236,15 +263,20 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     (batch, sc, K, hd) and ``pos`` (batch, sc) = -1 (empty), LOCAL layers
     with a rolling window of ``min(cache_len, window)`` slots; per SSM
     layer the conv state (batch, W-1, Di) in the compute dtype and the
-    scan state ``h`` (batch, Di, N) float32, zero.  ``index`` (batch,)
-    int32 is each row's next position (the reference's ``cache["index"]``,
-    one a row as under its vmap over slots); ``cache_len`` is kept beside
-    it (a rolling layer's rows are shorter)."""
+    scan state ``h`` (batch, Di, N) float32, zero; per RG-LRU layer the
+    conv state (batch, W-1, w) and ``h`` (batch, w) float32.  ``index``
+    (batch,) int32 is each row's next position (the reference's
+    ``cache["index"]``, one a row as under its vmap over slots);
+    ``cache_len`` is kept beside it (a rolling layer's rows are
+    shorter)."""
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     layers = []
     for kind in cfg.layer_kinds():
         if kind == SSM:
             layers.append(ssm_cache_init(cfg, batch, device))
+            continue
+        if kind == REC:
+            layers.append(rec_cache_init(cfg, batch, device))
             continue
         sc = (min(cache_len, cfg.window) if kind == LOCAL and cfg.window
               else cache_len)
@@ -336,6 +368,28 @@ def _project(h: torch.Tensor, w: torch.Tensor,
     return y
 
 
+def _rope_q_k(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+              positions: torch.Tensor):
+    """positions: (B, S), or (3, B, S) under M-RoPE."""
+    if cfg.mrope_sections:
+        return (apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta),
+                apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta))
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
+def _head_mask(cfg: ModelConfig, device,
+               dtype) -> Optional[torch.Tensor]:
+    """(He,) mask zeroing the padded q heads (``effective_num_heads``):
+    the first ``num_heads / num_kv_heads`` heads of each KV group are
+    real.  None without padding."""
+    he, k = cfg.effective_num_heads, max(cfg.num_kv_heads, 1)
+    if he == cfg.num_heads:
+        return None
+    gp, g = he // k, cfg.num_heads // k
+    return (torch.arange(he, device=device) % gp < g).to(dtype)
+
+
 def _attn_apply(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig,
                 positions: torch.Tensor, *, entry=None, n_valid: int = 0,
                 pages=None, layer: int = 0, paged=None,
@@ -358,8 +412,7 @@ def _attn_apply(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig,
     k = _project(h, a["wk"], a.get("bk"), impl)
     v = _project(h, a["wv"], a.get("bv"), impl)
     if kind != BIDIR or cfg.rope_theta > 0:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        q, k = _rope_q_k(cfg, q, k, positions)
 
     if paged is not None:                                  # paged decode
         page_tables, lengths, (pidx, off) = paged
@@ -390,6 +443,9 @@ def _attn_apply(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig,
         if entry is not None:                            # prefill fills cache
             _fill_cache(entry, k, v, n_valid)
 
+    hmask = _head_mask(cfg, o.device, o.dtype)
+    if hmask is not None:
+        o = o * hmask[:, None]
     H, hd, d = a["wo"].shape
     o = dot(o.reshape(B, S, H * hd), a["wo"].reshape(H * hd, d), impl)
     if par is not None:
@@ -423,10 +479,40 @@ def _attn_apply(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig,
 # full model
 # --------------------------------------------------------------------------
 
+def _embed_in(cfg: ModelConfig, params: Params,
+              batch: Dict[str, Any]) -> torch.Tensor:
+    """The input activations: token embeddings, or the batch's
+    ``embeddings`` (B, S, D) for an embedding-input stack, in the compute
+    dtype; times sqrt(d_model) with ``embed_scale``."""
+    if cfg.embedding_inputs:
+        # a view (one position of a longer batch) is copied: the kernels
+        # read contiguous rows
+        x = batch["embeddings"].to(cfg.dtype).contiguous()
+    else:
+        x = params["embed"]["tok"][batch["tokens"].long()]
+    if cfg.embed_scale:
+        x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
+                           device=x.device)
+    return x
+
+
+def _positions_for(cfg: ModelConfig, batch: Dict[str, Any], B: int, S: int,
+                   device, offset=0) -> torch.Tensor:
+    """(B, S) positions from ``offset`` (an int or (B, 1)); under M-RoPE
+    the batch's (3, B, S) ``positions`` when it carries them, else the
+    same positions on all three axes (text), as in the reference."""
+    if cfg.mrope_sections and "positions" in batch:
+        return batch["positions"]
+    pos = make_positions(B, S, device=device) + offset
+    if cfg.mrope_sections:
+        return pos[None].expand(3, B, S)
+    return pos
+
+
 def _logits_out(cfg: ModelConfig, params: Params,
                 x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings and not cfg.embedding_inputs:
         logits = F.linear(x, params["embed"]["tok"])
     else:
         logits = x @ params["lm_head"]
@@ -508,60 +594,67 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
             mode: str = "prefill", cache=None, impl: Optional[str] = None):
     """Returns (logits, cache); the cache is updated in place.
 
-    batch: ``tokens`` (B, S).  ``train`` takes the train state's
-    parameters (``init_train_params``) and returns (logits, aux), the
-    MoE load-balancing loss summed over layers (zero for a dense
-    stack).
+    batch: ``tokens`` (B, S), or ``embeddings`` (B, S, D) for an
+    embedding-input stack; under M-RoPE optionally ``positions`` (3, B, S)
+    (text positions on all three axes without it).  ``train`` takes the
+    train state's parameters (``init_train_params``) and returns (logits,
+    aux), the MoE load-balancing loss summed over layers (zero for a
+    dense stack).
     ``prefill`` may carry ``length``: only the first ``length`` positions
     are real (the rest is padding past them, which causal attention keeps
     out of every real position) and only those enter the cache; an SSM
-    stack refuses padding, which would run through its state.
+    or RG-LRU stack refuses padding, which would run through its state.
     ``decode`` takes (B, 1) tokens and B cache rows; row r's token sits
     at position ``cache["index"][r]``, which prefill sets to the prompt's
-    real length and each decode advances by one.  ``paged_decode``
+    real length and each decode advances by one (the cache slot; under
+    M-RoPE the rotary position is the batch's ``positions``, which may
+    differ).  ``paged_decode``
     carries ``lengths`` (R,) int32, each row's query position, and
     ``page_tables`` (R, MPR) int32.  ``impl="abft"`` (train mode)
     checksums the projections."""
     kinds = cfg.layer_kinds()
     _check_kinds(cfg)
     if mode == "train":
+        _check_train(cfg)
         return _forward_train(cfg, params, batch, impl)
     if impl is not None:
         raise ValueError(f"impl={impl!r} applies to train mode only")
-    tokens = batch["tokens"]
-    B, S = tokens.shape
+    x = _embed_in(cfg, params, batch)
+    B, S = x.shape[:2]
+    dev = x.device
     n_valid = int(batch.get("length", S))
-    x = params["embed"]["tok"][tokens.long()]
-    if cfg.embed_scale:
-        x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
-                           device=x.device)
+    recurrent = sorted({k for k in kinds if k in (SSM, REC)})
     paged = None
     rows = None
     positions = None
     if mode == "paged_decode":
-        if SSM in kinds:
-            raise ValueError(f"{cfg.name} has SSM layers: their state has "
-                             "no sequence axis to page")
+        if recurrent:
+            raise ValueError(f"{cfg.name} has {recurrent} layers: their "
+                             "state has no sequence axis to page")
+        if cfg.mrope_sections:
+            raise ValueError("paged decode does not support M-RoPE")
         if S != 1 or cache is None:
             raise ValueError("paged_decode takes (R, 1) tokens and the pool")
         lengths = batch["lengths"]
         page_tables = batch["page_tables"]
         positions = lengths.long()[:, None]                   # (R, 1)
         ps = cache["k"].shape[2]
-        rows = torch.arange(B, device=tokens.device)
+        rows = torch.arange(B, device=dev)
         pidx = page_tables.long()[rows, positions[:, 0] // ps]
         paged = (page_tables, lengths, (pidx, positions[:, 0] % ps))
     elif mode == "decode":
         if S != 1 or cache is None:
             raise ValueError("decode takes (B, 1) tokens and B cache rows")
         rows = _RowDecode(cache["index"], cache["cache_len"])
-        positions = rows.cur.long()[:, None]                   # (B, 1)
+        positions = _positions_for(cfg, batch, B, 1, dev,
+                                   rows.cur.long()[:, None])
     elif mode == "prefill":
-        if n_valid != S and SSM in kinds:
-            raise ValueError(f"{cfg.name}: an SSM stack prefills at the "
-                             "prompt's own length (padding would run "
-                             "through the scan and conv state)")
-        positions = make_positions(B, S, device=tokens.device)
+        if n_valid != S and recurrent:
+            raise ValueError(f"{cfg.name}: a stack with {recurrent} layers "
+                             "prefills at the prompt's own length (padding "
+                             "would run through the recurrent and conv "
+                             "state)")
+        positions = _positions_for(cfg, batch, B, S, dev)
     else:
         raise ValueError(f"mode {mode!r}: the port runs train, prefill, "
                          "decode and paged_decode")
@@ -571,6 +664,9 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
                  else None)
         if kind == SSM:
             x = ssm_apply(params["layers"][i], x, cfg, entry)
+            continue
+        if kind == REC:
+            x = rec_apply(params["layers"][i], x, cfg, entry)
             continue
         x, _ = _attn_apply(params["layers"][i], x, kind, cfg, positions,
                            entry=entry, n_valid=n_valid,

@@ -8,7 +8,10 @@ step over it, so that each row carries its own ``index``/``pos``; here
 each row carries them in the batch cache itself (``index`` (num_slots,),
 an attention layer's ``pos`` (num_slots, sc)), and the decode step
 (``models.transformer.forward``, mode ``decode``) writes and attends each
-row at its own position.  A Mamba layer's state has no position.
+row at its own position.  A Mamba or RG-LRU layer's state has no
+position: its row holds the conv state and the recurrent state ``h``
+(float32), beside the attention layers' rows (a LOCAL layer's rolling
+window).
 
 Slot lifecycle (the reference's order): ``acquire`` hands the lowest free
 slot to a request at prefill admission; the prefill runs against a FRESH
@@ -25,7 +28,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
-from repro_torch.models.base import SSM
+from repro_torch.models.base import REC, SSM
 from repro_torch.models.transformer import init_cache
 
 
@@ -34,13 +37,14 @@ class PoolExhausted(RuntimeError):
 
 
 class CachePool:
-    """``cache_len``: the positions of an attention row (an SSM layer's
-    row has no sequence axis and ignores it)."""
+    """``cache_len``: the positions of an attention row (an SSM or RG-LRU
+    layer's row has no sequence axis and ignores it)."""
 
     def __init__(self, cfg, num_slots: int, device, cache_len: int = 0):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
-        if cache_len < 1 and any(k != SSM for k in cfg.layer_kinds()):
+        if cache_len < 1 and any(k not in (SSM, REC)
+                                 for k in cfg.layer_kinds()):
             raise ValueError(f"{cfg.name} has attention layers: its slot "
                              f"rows need cache_len >= 1, got {cache_len}")
         self.cfg = cfg
@@ -92,8 +96,8 @@ class CachePool:
     # ------------------------------------------------------------------
     def write_row(self, slot: int, row_cache: Any) -> None:
         """Copy a filled B=1 cache (prefill output) into ``slot``, in
-        place: every tensor of the row (k, v, pos, an SSM layer's state,
-        the position counter) is overwritten, so slot recycling never
+        place: every tensor of the row (k, v, pos, an SSM or RG-LRU
+        layer's state, the position counter) is overwritten, so slot recycling never
         leaks a previous request's state."""
         for dst, src in zip(self.cache["layers"], row_cache["layers"]):
             for name, t in dst.items():

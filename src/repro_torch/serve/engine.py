@@ -40,8 +40,10 @@ its load.  With ``risk_source`` set the engine also emits per-replica
 step timings (``telemetry/replica_step``) so the drift detector can
 attribute slowdowns to hosts.
 
-``paged=None`` pages wherever the stack can (attention-only); a Mamba
-stack takes the slot pool.  ``paged=False`` forces the slot pool on an
+``paged=None`` pages wherever the stack can (attention-only, plain
+RoPE); a Mamba or RG-LRU stack takes the slot pool.  The engine serves
+token prompts: an encoder-only or embedding-input config is refused, as
+in the reference.  ``paged=False`` forces the slot pool on an
 attention stack too (the CLI's ``--legacy-pool``): at equal decode
 shapes its greedy streams equal the paged pool's bit for bit.
 """
@@ -65,9 +67,10 @@ from repro_torch.serve.router import NoHealthyReplicasError, ReplicaRouter
 from repro_torch.serve.scheduler import DECODE, Scheduler
 
 def _supports_paging(cfg) -> bool:
-    """Paged KV needs an attention-only decode stack (SSM state has no
-    sequence axis to page)."""
-    return all(k in (FULL, LOCAL) for k in cfg.layer_kinds())
+    """Paged KV needs an attention-only decode stack (SSM/REC state has
+    no sequence axis to page) and plain RoPE positions."""
+    return (all(k in (FULL, LOCAL) for k in cfg.layer_kinds())
+            and not cfg.mrope_sections)
 
 
 def pctl(xs, q: float) -> float:
@@ -103,13 +106,16 @@ class ServeEngine:
         if not cfg.has_decode:
             raise ValueError(f"{cfg.name} is encoder-only; cannot serve "
                              "autoregressive decode")
+        if cfg.embedding_inputs:
+            raise ValueError(f"{cfg.name} takes embedding inputs; the "
+                             "engine serves token prompts")
         # the paged pool wherever the stack supports it; the slot pool
         # otherwise (the SSM fallback) or when asked for
         if paged is None:
             paged = _supports_paging(cfg)
         elif paged and not _supports_paging(cfg):
             raise ValueError(f"{cfg.name} cannot page its KV cache "
-                             "(non-attention decode state)")
+                             "(non-attention decode state or M-RoPE)")
         self.cfg = cfg
         self.paged = paged
         self.obs = obs if obs is not None else Observability()

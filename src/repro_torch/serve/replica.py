@@ -10,15 +10,15 @@ run at one fixed length (the page-aligned ``cache_len``, see
 into the ``PagedKVCache``.  Decode is ONE batched step over all
 ``max_active`` rows through their page tables.
 
-Slot pool (``paged=False``; Mamba stacks always): prefill is B=1
+Slot pool (``paged=False``; Mamba, RG-LRU and M-RoPE stacks always): prefill is B=1
 against a fresh row, copied into a ``CachePool`` slot.  An attention
 stack's rows hold ``cache_len`` positions (``max_len`` rounded up to a
 whole number of ``DEFAULT_PAGE_SIZE`` pages) and its prefill runs at
 that one length, the paged path's prefill shape, so that at equal decode
 shapes the slot pool's streams equal the paged pool's bit for bit (the
-reference's contract).  A stack with SSM layers prefills at the prompt's
-own length (padding would run through the scan state; a retry
-re-prefills the same prompt at the same shape).  Decode is ONE batched
+reference's contract).  A stack with SSM or RG-LRU layers prefills at
+the prompt's own length (padding would run through the recurrent state;
+a retry re-prefills the same prompt at the same shape).  Decode is ONE batched
 step over all ``num_slots`` rows, each at its own position.
 
 An MoE stack prefills at the prompt's own length on either pool, as the
@@ -42,7 +42,7 @@ import torch
 
 from repro_torch.core.heartbeat import HeartbeatEmitter
 from repro_torch.models import init_cache
-from repro_torch.models.base import SSM
+from repro_torch.models.base import REC, SSM
 from repro_torch.sdc import DecodeSentinel
 from repro_torch.serve.cache_pool import CachePool
 from repro_torch.serve.page_table import DEFAULT_PAGE_SIZE, PagedKVCache
@@ -72,7 +72,7 @@ class ServeFns:
         own_length = bool(cfg.num_experts)   # see the module docstring
         if not paged:
             self.decode = make_serve_decode_step(cfg)
-            if SSM in cfg.layer_kinds():
+            if {SSM, REC} & set(cfg.layer_kinds()):
                 self.cache_len = max_len
                 self.prefill = make_prefill_step(cfg)
             else:

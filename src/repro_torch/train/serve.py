@@ -2,7 +2,10 @@
 decode step over the block-paged pool or over the slot pool's contiguous
 rows, all with greedy sampling.
 
-``argmax`` ties go to the first index, as in the reference."""
+``argmax`` ties go to the first index, as in the reference.  A batch
+carries ``tokens``, or ``embeddings`` (B, S, D) for an embedding-input
+stack (qwen2-vl's patch and text embeddings, with its (3, B, S) M-RoPE
+``positions``), as ``models.transformer.forward`` takes them."""
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional
@@ -33,12 +36,17 @@ def make_prefill_step(cfg: ModelConfig,
     prompts of different lengths could compute their shared prefix's k/v
     with different summation orders.  One prefill shape keeps a prefix's
     k/v bit-identical whichever prompt computed it, which the prefix
-    cache and token-identical failover retries rely on."""
+    cache and token-identical failover retries rely on.  Token prompts
+    only: an embedding-input batch runs at its own length."""
     def prefill_step(params, batch, cache):
-        tokens = batch["tokens"]
-        L = tokens.shape[1]
+        L = (batch["embeddings"] if cfg.embedding_inputs
+             else batch["tokens"]).shape[1]
         if pad_to is not None and pad_to > L:
-            batch = {"tokens": F.pad(tokens, (0, pad_to - L)), "length": L}
+            if cfg.embedding_inputs:
+                raise ValueError(f"{cfg.name}: embedding inputs prefill at "
+                                 "their own length")
+            batch = {"tokens": F.pad(batch["tokens"], (0, pad_to - L)),
+                     "length": L}
         logits, cache = forward(cfg, params, batch, mode="prefill",
                                 cache=cache)
         logits = _mask_pad_vocab(cfg, logits[:, L - 1].float())

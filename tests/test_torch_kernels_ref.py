@@ -139,6 +139,26 @@ def test_flash_plain_ragged_matches_jax_ref(S, causal, window, softcap,
                              softcap=softcap), DTYPES[dtype][2])
 
 
+@pytest.mark.parametrize("S,H,K,hd", [(128, 4, 2, 256), (128, 4, 4, 80),
+                                      (100, 2, 1, 256), (72, 2, 2, 80)])
+@pytest.mark.parametrize("causal,window,softcap", FLASH_MODES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_wide_heads_match_jax(S, H, K, hd, causal, window,
+                                          softcap, dtype):
+    """head_dim 256 (gemma-7b, recurrentgemma-2b) and 80 (hubert-xlarge,
+    non-causal), which the TPU kernel takes as any other: against the
+    Pallas kernel in interpret mode where S is a whole block (ragged S
+    against the jnp reference only, as above)."""
+    (qj, qt), (kj, kt), (vj, vt) = _flash_inputs(1, S, H, K, hd, dtype, 5)
+    tol = DTYPES[dtype][2]
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    ot = flash_attention(qt, kt, vt, **kw)
+    if S % 128 == 0:
+        _close(ot, jax_flash(qj, kj, vj, block_q=128, block_k=128,
+                             interpret=True, **kw), tol)
+    _close(ot, attention_ref(qj, kj, vj, **kw), tol)
+
+
 def paged_case(R, H, K, hd, ps, mpr, dtype, num_pages, seed=3):
     """The grid of tests/test_kernels.py:_paged_case from numpy: each row
     maps ``mpr`` distinct live pages; lengths land in every page,
@@ -172,6 +192,26 @@ def test_paged_plain_matches_jax(R, H, K, hd, ps, mpr, window, softcap,
         oj = jax_paged(qj, kj, vj, pj, lj, window=window, softcap=softcap,
                        impl=impl, **kw)
         _close(ot, oj, tol)
+
+
+@pytest.mark.parametrize("R,H,K,hd,ps,mpr", [
+    (3, 16, 1, 256, 16, 2), (3, 10, 1, 256, 8, 3), (2, 32, 2, 128, 16, 2)])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (24, 0.0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_plain_wide_groups_match_jax(R, H, K, hd, ps, mpr, window,
+                                           softcap, dtype):
+    """Query groups wider than one block of the card's kernel: G hd 4096
+    (recurrentgemma-2b's 16 padded q heads of 256 over one kv head), 2560
+    (its 10 real heads) and 2048."""
+    case = paged_case(R, H, K, hd, ps, mpr, dtype, R * mpr + 3)
+    (qj, qt), (kj, kt), (vj, vt), (pj, ptt), (lj, lt) = case
+    ot = paged_decode_attention(qt, kt, vt, ptt, lt, window=window,
+                                softcap=softcap)
+    for impl in ("pallas", "ref"):
+        kw = {"interpret": True} if impl == "pallas" else {}
+        oj = jax_paged(qj, kj, vj, pj, lj, window=window, softcap=softcap,
+                       impl=impl, **kw)
+        _close(ot, oj, DTYPES[dtype][2])
 
 
 def _close_grad(t: torch.Tensor, j, tol: float) -> None:

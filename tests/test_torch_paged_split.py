@@ -86,7 +86,8 @@ def _edge_lengths(C, mpr):
 
 # window 40 crosses the boundary at C from C + 1 and 2 C; window 24 keeps
 # only the last split of long rows (whole splits excluded)
-@pytest.mark.parametrize("G,hd", [(1, 64), (4, 128), (8, 64), (8, 128)])
+@pytest.mark.parametrize("G,hd", [(1, 64), (4, 128), (8, 64), (8, 128),
+                                  (16, 256)])
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (0, 30.0),
                                             (40, 0.0), (24, 30.0)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
