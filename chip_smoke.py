@@ -120,18 +120,20 @@ ends the run with a non-zero exit code and no result line:
                  for token; then on the card, prefill(p) followed by k
                  decode steps gives the logits and state of prefill(p +
                  generated) within 1e-4 of the largest magnitude;
-13. ``serve-ssm`` — falcon-mamba-7b at full width and depth (64 layers,
+13. ``serve-ssm`` — falcon-mamba-7b at full width, 32 of 64 layers (
                  bf16, random weights from ``--seed``; the granite weights
                  are freed first) on 2 replicas of 4 slots sharing one set
                  of weights, the serve phase's 8 prompts and 32 new
                  tokens, fault-free and with replica 1 killed at engine
                  step 5: nothing dropped, streams identical, the sentinel
                  quiet fault-free (its entropy printed), launches held to
-                 the path (a scan a layer a prefill, 65 RMSNorms a model
-                 call, no attention, every scan on the TMA route); then ``steps-ssm``, one decode step over the 4
+                 the path (a scan a layer a prefill, L + 1 RMSNorms a
+                 model call, no attention, every scan on the TMA route);
+                 then ``steps-ssm``, one decode step over the 4
                  slots and one 200-token prefill, eager against device
-                 time, and the prefill's 64 scan launches profiled beside
-                 its device time;
+                 time, and the prefill's scan launches profiled beside
+                 its device time (the readings before the scan's
+                 redesign were taken at 64 layers);
 14. ``tiny-fwi`` — the FWI case study at tests/test_torch_fwi.py's size
                  in float32 on the card and on the CPU from the same
                  observed data: the misfit trajectories within 1e-4
@@ -145,11 +147,11 @@ ends the run with a non-zero exit code and no result line:
                  iteration and a fail-stop at iteration 2 (4 shard files
                  restored and remapped, the misfit falling, no kernel
                  launched); the paper's eq.-2 overhead of sync, async and
-                 async int8 saves every iteration, the median of 3 runs
+                 async int8 saves every iteration, the median of 2 runs
                  each; every protected run's model, and the recovered
                  run's whole state, bit-equal to the unprotected run's;
 16. ``train-tiny-ssm`` — ``train-tiny`` for tiny falcon-mamba;
-17. ``train-ssm`` — falcon-mamba-7b at full width (4 layers) trained as
+17. ``train-ssm`` — falcon-mamba-7b at full width (2 layers) trained as
                  the train phase trains granite: two identical steps
                  bit-equal, the step's eager and device ms, tokens/s and
                  the scan forward and backward device ms; a protected run
@@ -253,7 +255,30 @@ ends the run with a non-zero exit code and no result line:
                  launches held to each path, the flash kernel launched at
                  head_dim 256 and 80 and the paged kernel at G hd 4096;
                  then ``steps-families``, each decoding family's decode
-                 step eager against device time.
+                 step eager against device time;
+28. ``train-tiny-families`` — the six TINY configs in float32, two steps
+                 of 2 microbatches on the card and on the CPU from one
+                 state (qwen2-vl over an image's M-RoPE ids): the losses
+                 within 1e-4; then tiny recurrentgemma (RG-LRU, the
+                 reference's unstacked layout) as ``train-tiny`` runs
+                 granite: a fail-stop run with raw saves bit-equal to an
+                 uninterrupted card run;
+29. ``train-families`` — at full width, random weights from ``--seed``,
+                 one model at a time, through ``init_state`` and
+                 ``make_train_step``: gemma-7b (4 of 28 layers, 16 heads
+                 of 256, S 2048, batch 4 in 2 microbatches),
+                 recurrentgemma-2b (one block of 13 layers: 9 RG-LRU, 4
+                 LOCAL with 16 padded q heads of 256 over one kv head, S
+                 4096 past the window of 2048, batch 2 in 2), hubert-xlarge
+                 (48 layers, 16 heads of 80, 4 x 1000 frames in 2) and
+                 qwen2-vl-2b (28 layers, padded heads, M-RoPE over a 24 x
+                 24 image's ids, S 2048, batch 4 in 2): two identical steps
+                 bit-equal (loss, grad norm, every state leaf's digest)
+                 with the launch counters held to the path, the step's
+                 eager and device ms, tokens/s and peak memory, one
+                 microbatch's bf16 gradients through the kernels as close
+                 to the float32 model's as through the plain attention
+                 (each leaf, 1.25x), the padded heads' gradient rows 0.
 
 The kernel phase also holds selective_scan to its plain version within
 1e-5 + 1e-5 |want| (tests/test_kernels.py) at the serve shape (B 1,
@@ -268,7 +293,11 @@ magnitude, two launches bit-equal, its time beside its bound (bytes and
 exponentials) and its registers, spills and shared memory;
 Flash attention is also held at head_dim 256 (gemma-7b's prefill,
 recurrentgemma-2b's long windowed prompt over one kv head) and 80
-(hubert-xlarge's non-causal encoder), and paged decode at gemma-7b's G 1
+(hubert-xlarge's non-causal encoder), its backward at the same families'
+train microbatches (gemma-7b B 2 x 2048, recurrentgemma-2b B 1 x 4096
+with its window, hubert-xlarge 4 x 1000, each in bf16 and in float32,
+with SDPA's backward beside each and the build's registers and spills),
+and paged decode at gemma-7b's G 1
 x 256 and recurrentgemma-2b's G 16 x 256 = 4096; and block_hash
 bit-equal to its plain version
 (the embed leaf, every element size, a ragged leaf, one grouped launch
@@ -286,7 +315,7 @@ also without programmatic dependent launch.
 Then the kernels summary (one JSON object, launches by path: serve,
 train, sdc, abft, serve_ssm, fwi, train_ssm, train_obs, serve_predrain,
 serve_slots, serve_standby, serve_moe, elastic, elastic_moe, compress,
-chaos_serve, chaos_train, serve_families),
+chaos_serve, chaos_train, serve_families, train_families),
 the ``nvidia-smi`` line,
 and the last line
 ``{"ok": true, "device": {...}}``.
@@ -339,10 +368,15 @@ TRAIN_STEPS = 6
 TRAIN_EVERY = 2
 TRAIN_FAIL = 5
 TRAIN_ROWS = TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ   # tokens a microbatch
-# train-ssm: falcon-mamba-7b at full width, depth cut to 4 layers as the
-# train phase's (64 layers of float32 weights and AdamW moments come to
-# ~117 GB), the train phase's batch, steps, saves and fail-stop
-SSM_TRAIN_LAYERS = 4
+# train-ssm: falcon-mamba-7b at full width, depth cut to 2 layers (64
+# layers of float32 weights and AdamW moments come to ~117 GB; 4 until PR
+# 27, cut for this script's time limit when the families' training came:
+# its raw saves and restores took 57 s of a middling host's run, PERF.md
+# §4), the train phase's batch, steps, saves and fail-stop
+SSM_TRAIN_LAYERS = 2
+# serve-ssm: falcon-mamba-7b at full width and 32 of its 64 layers (64
+# until PR 27, cut for this script's time limit: PERF.md §4)
+SSM_SERVE_LAYERS = 32
 # the fwi phase: the extent of the Marmousi model (9.2 km x 3.0 km;
 # Versteeg 1994, The Leading Edge 13(9)) at the reference's physics (dx
 # 10 m, dt 1 ms, 12 Hz Ricker): nz 300, nx 920, nt 2000 (a 2 s record;
@@ -350,13 +384,15 @@ SSM_TRAIN_LAYERS = 4
 # cores: cut to 16 for this script's time limit) in 2 groups of 8 (an
 # iteration's autograd record keeps nz * nx * 4 B a step a shot, 2.2 GB
 # a shot), 3 iterations a run, a fail-stop at iteration 2 in local scope
-# over 4 shot shards, 3 timed runs a configuration for eq. 2
+# over 4 shot shards, 2 timed runs a configuration for eq. 2 (3 until PR
+# 27: cut for this script's time limit, PERF.md §4; a host-bound
+# iteration takes 2.3-3.2 s)
 FWI_SIZE = dict(nz=300, nx=920, nt=2000, n_shots=16)
 FWI_GROUP = 8
 FWI_ITERS = 3
 FWI_FAIL = 2
 FWI_WIDTH = 4
-FWI_RUNS = 3
+FWI_RUNS = 2
 # tiny-fwi: tests/test_torch_fwi.py's size and its trajectory tolerance
 TINY_FWI = dict(nz=50, nx=50, nt=300, n_shots=2, iterations=6)
 PAGE_SIZE = 16
@@ -397,6 +433,8 @@ STEP_GROUPS = ("paged_attention", "rmsnorm")
 STEP_GROUPS_BEFORE = {
     "steps": {"paged_attention": 1.5175, "rmsnorm": 0.2187},
     "steps-ssm": {"paged_attention": 0.0, "rmsnorm": 0.1811}}
+# the depth those readings were taken at (serve-ssm's 64 layers then)
+STEPS_BEFORE_LAYERS = {"steps": 40, "steps-ssm": 64}
 # steps-ssm: the 200-token falcon-mamba-7b prefill's device ms in its 64
 # selective_scan launches on the tree before the scan's redesign (commit
 # 009490d), read by its launch/profile_steps.py in the same chip run as
@@ -951,25 +989,68 @@ def _rmsnorm_bwd_cases(gen, bw):
     return out
 
 
+def _flash_bwd_usage():
+    """Registers, spills and stack frame of every backward instantiation
+    (``flash_bwd_dkdv_wgmma<tile width, head width>``, the float32
+    ``flash_bwd_dkdv<float, head width>``, ...) from the build's
+    ``-Xptxas -v`` log."""
+    import re
+
+    from repro_torch.kernels import build
+
+    out = {}
+    for name, use in build.ptxas_usage("flash_attention_bwd").items():
+        m = re.search(r"\d(flash_bwd_[a-z_]+?)I([fL].*?)EEv", name)
+        if m:
+            args = re.findall(r"Li(\d+)", m.group(2))
+            typ = ["float"] if m.group(2).startswith("f") else []
+            out[f"{m.group(1)}<{', '.join(typ + args)}>"] = use
+    return out
+
+
+# the backward's cases: (B, S, H, K, hd, causal, window, softcap, dtype).
+# A train microbatch of granite-3-8b (32/8 heads of 128) in bf16 and
+# float32, with a window and a softcap; then the new families' train
+# shapes: gemma-7b's microbatch (16/16 heads of 256), recurrentgemma-2b's
+# (16 padded q heads over one kv head of 256, window 2048, S 4096) and
+# hubert-xlarge's (16/16 heads of 80, non-causal), each in bf16 and in
+# float32 at a smaller B
+FLASH_BWD_CASES = [
+    (2, TRAIN_SEQ, 32, 8, 128, True, 0, 0.0, torch.bfloat16),
+    (2, TRAIN_SEQ, 32, 8, 128, True, 0, 0.0, torch.float32),
+    (2, TRAIN_SEQ, 32, 8, 128, True, 512, 30.0, torch.bfloat16),
+    (2, TRAIN_SEQ, 16, 16, 256, True, 0, 0.0, torch.bfloat16),
+    (1, TRAIN_SEQ, 16, 16, 256, True, 0, 0.0, torch.float32),
+    (1, 2 * TRAIN_SEQ, 16, 1, 256, True, 2048, 0.0, torch.bfloat16),
+    (1, 2 * TRAIN_SEQ, 16, 1, 256, True, 2048, 0.0, torch.float32),
+    (HUBERT_BATCH, HUBERT_FRAMES, 16, 16, 80, False, 0, 0.0,
+     torch.bfloat16),
+    (HUBERT_BATCH // 2, HUBERT_FRAMES, 16, 16, 80, False, 0, 0.0,
+     torch.float32),
+]
+
+
 def _flash_bwd_cases(gen, bw, flops, fp32_flops):
-    """The backward at the train shape (a microbatch: B = 2, S = 2048,
-    32/8 heads of 128) in bfloat16 and float32, and a softcap + window
-    case; against autograd of the plain version on the same inputs."""
+    """The backward at FLASH_BWD_CASES' shapes against autograd of the
+    plain version on the same inputs, two launches bit-equal, with SDPA's
+    backward on the same inputs beside it where one call computes the
+    same function (no softcap; a window as a boolean (S, S) mask)."""
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bshd, flash_attention_bshd_bwd)
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.launch.profile_steps import profile_step
+    from repro_torch.layers.attention import _mask
 
-    B, S, H, K, hd = TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, 32, 8, 128
     out = []
-    for dtype, window, softcap in ((torch.bfloat16, 0, 0.0),
-                                   (torch.float32, 0, 0.0),
-                                   (torch.bfloat16, 512, 30.0)):
+    for B, S, H, K, hd, causal, window, softcap, dtype in FLASH_BWD_CASES:
         q, do = (torch.randn(B, S, H, hd, generator=gen, device="cuda"
                              ).to(dtype) for _ in range(2))
         k, v = (torch.randn(B, S, K, hd, generator=gen, device="cuda"
                             ).to(dtype) for _ in range(2))
-        kw = dict(causal=True, window=window, softcap=softcap)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        label = (f"flash_bwd B={B} S={S} H={H} K={K} hd={hd} "
+                 f"{str(dtype).split('.')[-1]} causal={causal} "
+                 f"window={window} softcap={softcap}")
         o, lse = flash_attention_bshd(q, k, v, lse=True, **kw)
         got = flash_attention_bshd_bwd(q, k, v, o, do, lse, **kw)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -979,25 +1060,30 @@ def _flash_bwd_cases(gen, bw, flops, fp32_flops):
 
         want = _grads(plain, leaves, do)
         tol = GRAD_TOL[dtype]
-        err = max(check_grad(f"flash_bwd {n} {dtype} window={window} "
-                             f"softcap={softcap}", a, b, tol)
+        err = max(check_grad(f"{label} {n}", a, b, tol)
                   for n, a, b in zip(("dq", "dk", "dv"), got, want))
+        del want
         again = flash_attention_bshd_bwd(q, k, v, o, do, lse, **kw)
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError("flash_bwd is not deterministic")
+            raise AssertionError(f"{label}: two launches differ")
+        del again
         library_ms = None
-        if not window and not softcap:
+        if not softcap:
             lib = [t.transpose(1, 2).clone().requires_grad_()
                    for t in (q, k, v)]
+            pos = torch.arange(S, device="cuda")
+            sdpa_kw = (dict(attn_mask=_mask(pos, pos, causal=causal,
+                                            window=window))
+                       if window else dict(is_causal=causal))
 
             def sdpa(qq, kk, vv):
                 return torch.nn.functional.scaled_dot_product_attention(
-                    qq, kk, vv, is_causal=True, enable_gqa=True)
+                    qq, kk, vv, enable_gqa=True, **sdpa_kw)
 
             library_ms = _bwd_ms(sdpa, lib, do.transpose(1, 2).contiguous(),
                                  iters=3, reps=3)
             del lib
-        pairs = _attended_pairs(S, True, window)
+        pairs = _attended_pairs(S, causal, window)
         peak = flops if dtype == torch.bfloat16 else fp32_flops
         ops = 10 * hd * pairs * H * B
         op_s = ops / peak
@@ -1014,19 +1100,25 @@ def _flash_bwd_cases(gen, bw, flops, fp32_flops):
             calls=3)["top_kernels_ms"]
         out.append({
             "shape": f"q (B={B}, {S}, {H}, {hd}) kv ({S}, {K}, {hd}) "
-                     f"{str(dtype).split('.')[-1]} causal window={window} "
-                     f"softcap={softcap}",
-            "main": dtype == torch.bfloat16 and not window,
-            "max_abs_err": err, "tol": tol, "kernel_ms": kernel_ms,
+                     f"{str(dtype).split('.')[-1]} "
+                     f"{'causal' if causal else 'bidirectional'} "
+                     f"window={window} softcap={softcap}",
+            "main": (dtype == torch.bfloat16 and hd == 128
+                     and not window),
+            "head_dim": hd, "max_abs_err": err, "tol": tol,
+            "repeat_bit_equal": True, "kernel_ms": kernel_ms,
             "kernels_ms": {_kernel_name(n): ms for n, ms in split.items()},
             "plain_ms": _bwd_ms(plain, leaves, do, iters=3, reps=3),
             "library_ms": library_ms,
+            "gflop": ops / 1e9,
             "bound_ms": max(op_s, byte_s) * 1e3,
             "bound_by": "operations" if op_s >= byte_s else "bytes",
             "tflops": ops / kernel_ms / 1e9,
             "share_of_bound": max(op_s, byte_s) * 1e3 / kernel_ms})
-        del q, k, v, do, o, lse, got, again, leaves, want
+        del q, k, v, do, o, lse, got, leaves
         torch.cuda.empty_cache()
+    emit({"phase": "kernel", "name": "flash_attention_bwd",
+          "ptxas": _flash_bwd_usage()})
     return out
 
 
@@ -2070,6 +2162,7 @@ def phase_steps(cfg, params, seed: int, calls: int = 10,
     out["decode_kernels_device_ms"] = {k: groups.get(k, 0.0)
                                        for k in STEP_GROUPS}
     out["decode_kernels_device_ms_before"] = STEP_GROUPS_BEFORE.get(phase)
+    out["before_at_layers"] = STEPS_BEFORE_LAYERS.get(phase)
     emit(out)
 
 
@@ -2152,7 +2245,8 @@ def phase_serve_ssm(seed: int):
     from repro_torch.models import get_config, init_params
     from repro_torch.serve import pctl
 
-    cfg = get_config("falcon-mamba-7b")
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"),
+                              num_layers=SSM_SERVE_LAYERS)
     resident = torch.cuda.memory_allocated() / 1e9
     if resident > 2.0:
         raise AssertionError(f"serve-ssm: {resident:.2f} GB still allocated "
@@ -2361,17 +2455,19 @@ def phase_train_tiny(seed: int, arch: str = "granite-3-8b",
 
 
 def _train_launches(L: int, microbatches: int, calls: int,
-                    ssm: bool = False):
+                    ssm: bool = False, rec: int = 0):
     """Launches the train path implies: per microbatch each of L layers
     runs its 2 RMSNorms and 1 attention forward (an SSM layer: 1 RMSNorm
-    and 1 scan) twice (the forward and the recomputation of the
+    and 1 scan; an RG-LRU layer, ``rec`` of the L: 2 RMSNorms and no
+    attention) twice (the forward and the recomputation of the
     backward), the final norm once; each backward once."""
     mb = calls * microbatches
     norms = 1 if ssm else 2
+    attn = 0 if ssm else L - rec
     return {"rmsnorm": mb * (2 * norms * L + 1),
             "rmsnorm_bwd": mb * (norms * L + 1),
-            "flash_attention": 0 if ssm else mb * 2 * L,
-            "flash_attention_bwd": 0 if ssm else mb * L,
+            "flash_attention": mb * 2 * attn,
+            "flash_attention_bwd": mb * attn,
             "selective_scan": mb * 2 * L if ssm else 0,
             "selective_scan_bwd": mb * L if ssm else 0}
 
@@ -3406,18 +3502,26 @@ def _vl_inputs(cfg, B, text, grid, tail, steps, seed):
     image's rows and columns from the text's end, the text after it from
     the largest id + 1), and ``steps`` decode embeddings with their ids."""
     g = torch.Generator().manual_seed(seed)
+    ids = _vl_ids(B, text, grid, tail + steps)
+    S = text + grid * grid + tail
+    emb = torch.randn(B, S + steps, cfg.d_model, generator=g)
+    return emb, ids, S
+
+
+def _vl_ids(B, text, grid, tail):
+    """(3, B, text + grid^2 + tail) int32 M-RoPE ids: ``text`` text
+    positions, a grid x grid patch image at one temporal step (rows and
+    columns from the text's end), then ``tail`` text positions from the
+    largest id + 1."""
     t = torch.arange(text)
     hh, ww = torch.meshgrid(torch.arange(grid), torch.arange(grid),
                             indexing="ij")
     img = torch.stack([torch.full((grid * grid,), text), text + hh.reshape(-1),
                        text + ww.reshape(-1)])
-    after = text + grid + torch.arange(tail + steps)
+    after = text + grid + torch.arange(tail)
     ids = torch.cat([torch.stack([t, t, t]), img,
                      torch.stack([after, after, after])], dim=1)
-    ids = ids[:, None].expand(3, B, ids.shape[1]).to(torch.int32)
-    S = text + grid * grid + tail
-    emb = torch.randn(B, S + steps, cfg.d_model, generator=g)
-    return emb, ids, S
+    return ids[:, None].expand(3, B, ids.shape[1]).to(torch.int32)
 
 
 def _vl_decode(cfg, params, emb, ids, S, device):
@@ -3751,6 +3855,269 @@ def phase_serve_families(seed: int):
     if min(seen.values()) <= 0:
         raise AssertionError(f"serve-families: a new shape never launched: "
                              f"{seen}")
+    return total
+
+
+TRAIN_FAMILIES = ("gemma-7b", "recurrentgemma-2b", "qwen2-vl-2b",
+                  "hubert-xlarge", "phi3.5-moe-42b-a6.6b", "qwen1.5-110b")
+
+
+def _family_batch(cfg, data, step, grid):
+    """The pipeline's batch of ``step``; under M-RoPE its text ids give way
+    to a grid x grid image's (t, h, w) ids after 64 text positions (32 at
+    a short length), text after it."""
+    batch = data.peek_batch(step)
+    if cfg.mrope_sections:
+        B, S = batch["targets"].shape
+        text = min(64, (S - grid * grid) // 2)
+        batch["positions"] = _vl_ids(B, text, grid, S - text - grid * grid)
+    return batch
+
+
+def phase_train_tiny_families(seed: int):
+    """``train-tiny-families``: the six new families' TINY configs in
+    float32, two steps of 2 microbatches from one state on the card
+    (kernels) and on the CPU (plain versions): the losses within 1e-4
+    relative; then tiny recurrentgemma (RG-LRU, its unstacked layout) as
+    ``train-tiny`` runs granite: a fail-stop run with raw saves
+    bit-equal to an uninterrupted card run."""
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import get_config
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.train.step import metrics_to_host
+
+    out = {"phase": "train-tiny-families"}
+    for arch in TRAIN_FAMILIES:
+        cfg = dataclasses.replace(get_config(arch, tiny=True),
+                                  dtype=torch.float32)
+        cpu_state = init_state(cfg, seed=seed, device="cpu")
+        step_fn = make_train_step(cfg, total_steps=4, warmup_steps=1,
+                                  microbatches=2)
+        losses = {}
+        for device in ("cpu", "cuda"):
+            state = _tree_to(cpu_state, device)
+            data = make_pipeline(cfg, 32, 4, seed=seed)
+            losses[device] = []
+            for i in range(2):
+                state, m = step_fn(state, _family_batch(cfg, data, i, 3))
+                losses[device].append(metrics_to_host(m)["loss"])
+        for a, b in zip(losses["cuda"], losses["cpu"]):
+            if not abs(a - b) <= 1e-4 * max(1.0, abs(b)):
+                raise AssertionError(f"train-tiny-families {arch}: card "
+                                     f"losses {losses['cuda']} vs CPU "
+                                     f"{losses['cpu']}")
+        out[arch] = {"card_losses": losses["cuda"],
+                     "cpu_losses": losses["cpu"]}
+    emit(out)
+    phase_train_tiny(seed, "recurrentgemma-2b", "train-tiny-families")
+
+
+# train-families: (arch, layers (None: all), sequence, batch,
+# microbatches).  gemma-7b cut to 4 of 28 layers as the train phase cuts
+# granite (28 layers of state and gradients, ~22 B a parameter, need
+# ~188 GB); recurrentgemma-2b at one block of its 13-layer pattern (26
+# layers: 2.96 B parameters, and the functional step holds the old state,
+# the new one and the gradients, ~28 B a parameter, 83 GB) at S 4096,
+# past its window of 2048; hubert-xlarge and qwen2-vl-2b at full depth
+TRAIN_FAMILY_RUNS = (
+    ("gemma-7b", TRAIN_LAYERS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO),
+    ("recurrentgemma-2b", 13, 2 * TRAIN_SEQ, 2, 2),
+    ("hubert-xlarge", None, HUBERT_FRAMES, HUBERT_BATCH, 2),
+    ("qwen2-vl-2b", None, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO),
+)
+# one microbatch's bf16 gradients through the kernels, each leaf's
+# relative L2 from the float32 model's, against the same through the plain
+# attention: both paths sit 1.4-4.7 % from float32 and 1.4-4.1 % from one
+# another at these depths (PERF.md §6, PR 27 call 4), the kernels' error
+# over the plain's 0.99-1.01 (median), 1.19 at most; the bound is the
+# repo's bf16 rule (tests/test_torch_train.py)
+FAMILY_GRAD_RATIO = 1.25
+
+
+def _digest(tree):
+    """Each leaf's bits reduced to two int64 sums (of its 32-bit words,
+    and of each word times its position), in chunks: a step's state
+    compared with another's without keeping both on the card."""
+    from repro_torch.tree import leaves
+
+    out = []
+    chunk = 1 << 26
+    for t in leaves(tree):
+        w = t.detach().reshape(-1)
+        w = (w.view(torch.int32) if w.element_size() == 4
+             else w.to(torch.int32))
+        a = b = 0
+        for lo in range(0, w.numel(), chunk):
+            c = w[lo:lo + chunk].to(torch.int64)
+            idx = torch.arange(lo + 1, lo + 1 + c.numel(), device=c.device,
+                               dtype=torch.int64)
+            a += int(c.sum())
+            b += int((c * idx).sum())
+        out.append((a, b))
+    return out
+
+
+def _family_grads(cfg, params, batch):
+    """The float32 gradients of the train loss on ``batch``."""
+    from repro_torch.train import loss_fn
+    from repro_torch.tree import leaves, unflatten
+
+    live = [p.detach().requires_grad_(True) for p in leaves(params)]
+    loss, _ = loss_fn(cfg, unflatten(params, live), batch)
+    return torch.autograd.grad(loss, live)
+
+
+def phase_train_families(seed: int):
+    """``train-families``: TRAIN_FAMILY_RUNS at full width, random weights
+    from ``seed``, one model at a time (each freed before the next),
+    bf16 compute over float32 master weights, through ``init_state`` and
+    ``make_train_step``: two identical steps from one state bit-equal
+    (loss, grad norm and every state leaf's digest), the launch counters
+    zeroed just before them and held to the path after them (an RG-LRU
+    layer: 2 RMSNorms and no attention); the step's eager and device ms,
+    tokens/s and peak memory; one microbatch's bf16 gradients through
+    the kernels as close to the float32 model's (relative L2, each leaf)
+    as the same gradients through the plain attention, within
+    FAMILY_GRAD_RATIO, and the padded q heads' rows of wq, bq and wo
+    exactly 0.  qwen2-vl-2b's positions carry
+    a 24 x 24 image's (t, h, w) ids."""
+    import repro_torch.models.transformer as tf
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.launch.profile_steps import profile_step
+    from repro_torch.models import REC, get_config
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.train.step import metrics_to_host, split_microbatches
+    from repro_torch.tree import flatten_named, leaves
+
+    counters = _counters()
+    total = dict.fromkeys(counters, 0)
+    for arch, layers, S, B, micro in TRAIN_FAMILY_RUNS:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        L = cfg.num_layers
+        rec = sum(k == REC for k in cfg.layer_kinds())
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = init_state(cfg, seed=seed, device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in leaves(state["params"]))
+        step_fn = make_train_step(cfg, microbatches=micro, total_steps=4)
+        batch = _family_batch(cfg, make_pipeline(cfg, S, B, seed=seed), 0,
+                              VL_GRID)
+
+        # the main path: two identical steps, counters zeroed before them
+        for fn in counters.values():
+            fn.launches = 0
+        s1, m1 = step_fn(state, batch)
+        h1 = metrics_to_host(m1)
+        d1 = _digest(s1)
+        del s1, m1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s2, m2 = step_fn(state, batch)
+        h2 = metrics_to_host(m2)
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        d2 = _digest(s2)
+        del s2, m2
+        launches = {k: fn.launches for k, fn in counters.items()}
+        want = {k: 0 for k in counters}
+        want.update(_train_launches(L, micro, 2, rec=rec))
+        if launches != want:
+            raise AssertionError(f"train-families {arch}: launches "
+                                 f"{launches}, the path implies {want}")
+        for k, v in launches.items():
+            total[k] += v
+        if not (d1 == d2 and h1["loss"] == h2["loss"]
+                and h1["grad_norm"] == h2["grad_norm"]
+                and math.isfinite(h1["loss"])):
+            raise AssertionError(f"train-families {arch}: two identical "
+                                 f"steps differ: {h1} vs {h2}, states "
+                                 f"equal: {d1 == d2}")
+        step_peak = torch.cuda.max_memory_allocated() / 1e9
+        # the two steps above warmed it up
+        prof = profile_step(lambda: step_fn(state, batch), calls=1,
+                            host=False, warm=True)
+        groups = prof["device_ms_by_group"]
+
+        # one microbatch's bf16 gradients through the kernels and through
+        # the plain attention, each against the float32 model's
+        mb = split_microbatches({k: v.cuda() for k, v in batch.items()},
+                                micro)[0]
+        names = [n for n, _ in flatten_named(state["params"])]
+        got = _family_grads(cfg, state["params"], mb)
+        kernel_attention = tf.flash_attention
+        tf.flash_attention = flash_attention_ref
+        try:
+            plain = _family_grads(cfg, state["params"], mb)
+        finally:
+            tf.flash_attention = kernel_attention
+        truth = _family_grads(dataclasses.replace(cfg, dtype=torch.float32),
+                              state["params"], mb)
+
+        def rel(a, b):
+            return ((a.float() - b.float()).norm()
+                    / b.float().norm().clamp_min(1e-30)).item()
+
+        grads = {"kernels_vs_plain": 0.0, "kernels_vs_float32": 0.0,
+                 "plain_vs_float32": 0.0, "ratio": 0.0}
+        for n, a, b, t in zip(names, got, plain, truth):
+            ek, ep = rel(a, t), rel(b, t)
+            if not (torch.isfinite(a).all()
+                    and ek <= FAMILY_GRAD_RATIO * ep + 1e-3):
+                raise AssertionError(
+                    f"train-families {arch}: gradient {n} {ek:.3g} from "
+                    f"float32 through the kernels, {ep:.3g} through the "
+                    f"plain attention (relative L2; limit "
+                    f"{FAMILY_GRAD_RATIO}x + 1e-3)")
+            for k, v in (("kernels_vs_plain", rel(a, b)),
+                         ("kernels_vs_float32", ek),
+                         ("plain_vs_float32", ep),
+                         ("ratio", ek / max(ep, 1e-30))):
+                grads[k] = max(grads[k], v)
+        del plain, truth
+        he, kv = cfg.effective_num_heads, cfg.num_kv_heads
+        pad = [h for h in range(he)
+               if h % (he // kv) >= cfg.num_heads // kv]
+        padded = 0
+        for n, g in zip(names, got):
+            axis = {"wq": -2, "bq": -2, "wo": -3}.get(n.rsplit(".", 1)[-1])
+            if axis is not None and pad:
+                if g.index_select(axis % g.dim(), torch.tensor(
+                        pad, device=g.device)).any():
+                    raise AssertionError(f"train-families {arch}: padded "
+                                         f"heads of {n} have gradients")
+                padded += 1
+        del got
+        tokens = B * S
+        emit({"phase": "train-families", "arch": cfg.name, "layers": L,
+              "rec_layers": rec, "d_model": cfg.d_model,
+              "head_dim": cfg.resolved_head_dim,
+              "q_heads": cfg.effective_num_heads, "kv_heads": kv,
+              "params": n_params, "init_s": init_s, "seq": S, "batch": B,
+              "microbatches": micro,
+              "loss": [h1["loss"], h2["loss"]],
+              "grad_norm": [h1["grad_norm"], h2["grad_norm"]],
+              "states_bit_equal": True, "eager_ms": eager_ms,
+              "profiled_wall_ms": prof["wall_ms"],
+              "device_ms": prof["device_ms"],
+              "host_share": 1.0 - prof["device_ms"] / eager_ms,
+              "tokens_per_s": tokens / (eager_ms / 1e3),
+              "kernels_per_step": prof["kernels_per_call"],
+              "device_ms_by_group": groups,
+              "flash_fwd_ms": groups.get("flash_attention", 0.0),
+              "flash_bwd_ms": groups.get("flash_attention_bwd", 0.0),
+              "top_kernels_ms": prof["top_kernels_ms"],
+              "grads_worst_rel_l2": grads,
+              "grad_ratio_limit": FAMILY_GRAD_RATIO,
+              "padded_heads": pad, "padded_leaves_zero": padded,
+              "launches": launches, "step_peak_mem_gb": step_peak,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        del state, batch, mb
+        gc.collect()
+        torch.cuda.empty_cache()
     return total
 
 
@@ -5086,6 +5453,10 @@ def main(argv=None) -> int:
     phase_tiny_families(args.seed)
     serve_families = phase_serve_families(args.seed)
     emit({"phase": "slice10-time", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    phase_train_tiny_families(args.seed)
+    train_families = phase_train_families(args.seed)
+    emit({"phase": "slice11-time", "seconds": time.perf_counter() - t0})
 
     summary = []
     for kname, case_list in cases.items():
@@ -5106,7 +5477,8 @@ def main(argv=None) -> int:
                    "compress": compress.get(kname, 0),
                    "chaos_serve": chaos_serve.get(kname, 0),
                    "chaos_train": chaos_train.get(kname, 0),
-                   "serve_families": serve_families.get(kname, 0)}
+                   "serve_families": serve_families.get(kname, 0),
+                   "train_families": train_families.get(kname, 0)}
         summary.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/{source}", "replaces": replaces,

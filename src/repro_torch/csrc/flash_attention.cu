@@ -218,22 +218,6 @@ __host__ __device__ constexpr int fwd_threads(int nwg) {
   return 128 * nwg + 32;
 }
 
-// O (m64nHD) += P V: one product, or one of 128 columns per half of the
-// accumulator at HD 256 (a wgmma's N is at most 256, and n128 keeps the
-// instruction's operand list at the size the others have)
-template <int HD, int BK>
-__device__ __forceinline__ void pv_step(float (&acc)[HD / 2],
-                                        const unsigned (&a)[4], uint64_t vd) {
-  if constexpr (HD <= 128) {
-    wgmma_rs<HD>(acc, a, vd);
-  } else {
-#pragma unroll
-    for (int half = 0; half < HD / 128; ++half)
-      wgmma_rs<128>(*reinterpret_cast<float(*)[64]>(&acc[64 * half]), a,
-                    vd + ((half * 2 * BK * Tile<HD>::RB) >> 4));
-  }
-}
-
 template <int HD, int NWG, int RD>
 __global__ void __launch_bounds__(fwd_threads(NWG), 1)
     flash_fwd_bf16_wgmma(const __grid_constant__ CUtensorMap tq,
@@ -396,7 +380,7 @@ __global__ void __launch_bounds__(fwd_threads(NWG), 1)
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-          pv_step<HD, BK>(acc, pa[kk], T::mnstep(vd, kk));
+          wgmma_rs_wide<HD, BK>(acc, pa[kk], T::mnstep(vd, kk));
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(acc);

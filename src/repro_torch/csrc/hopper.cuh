@@ -413,30 +413,6 @@ static inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The tensor map of a bf16 (B, rows, heads, HD) tensor read in place as
-// 3-D (heads * HD, rows, B), boxes of (SW, box_rows, 1).  TMA zero-fills
-// a box past `rows`, so a ragged tile stops at its sequence's end.
-template <int HD>
-static inline cudaError_t head_map(CUtensorMap* map, const void* base, int B,
-                                   int rows, int heads, int box_rows) {
-  using T = Tile<HD>;
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t row = static_cast<cuuint64_t>(heads) * HD;
-  cuuint64_t dims[3] = {row, static_cast<cuuint64_t>(rows),
-                        static_cast<cuuint64_t>(B)};
-  cuuint64_t strides[2] = {row * 2, row * 2 * static_cast<cuuint64_t>(rows)};
-  cuuint32_t box[3] = {static_cast<cuuint32_t>(T::SW),
-                       static_cast<cuuint32_t>(box_rows), 1u};
-  cuuint32_t elem[3] = {1u, 1u, 1u};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                  const_cast<void*>(base), dims, strides, box, elem,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, T::SWIZZLE,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // The tensor map of a bf16 (B, rows, heads, hd) tensor read in place as
 // 4-D (hd, heads, rows, B), boxes of (SW, 1, box_rows, 1) into a tile of
 // HD >= hd columns: TMA zero-fills a box past `rows` (a ragged tile stops
@@ -705,4 +681,22 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
   else wgmma_rs_n128(d, a, db);
+}
+
+// d (m64nHD fp32) += A (64 x 16, registers) * B (16 x HD, shared, MN-major;
+// a tile of R rows): one product, or at HD 256 one of 128 columns per half
+// of the accumulator (a wgmma's N is at most 256, and n128 keeps the
+// instruction's operand list at the size the others have)
+template <int HD, int R>
+__device__ __forceinline__ void wgmma_rs_wide(float (&d)[HD / 2],
+                                              const unsigned (&a)[4],
+                                              uint64_t db) {
+  if constexpr (HD <= 128) {
+    wgmma_rs<HD>(d, a, db);
+  } else {
+#pragma unroll
+    for (int half = 0; half < HD / 128; ++half)
+      wgmma_rs<128>(*reinterpret_cast<float(*)[64]>(&d[64 * half]), a,
+                    db + ((half * 2 * R * Tile<HD>::RB) >> 4));
+  }
 }

@@ -154,19 +154,34 @@ class SyntheticLMData:
         batch = self._generate(step)
         if self.shard_mode == "slice":
             lo, hi = self.row_lo, self.row_hi
-            batch = {k: v[lo:hi] for k, v in batch.items()}
+            batch = {k: (v[:, lo:hi] if k == "positions" else v[lo:hi])
+                     for k, v in batch.items()}
         return batch
 
     def _generate(self, step: int) -> Dict:
-        """CPU int32 tensors ``tokens`` and ``targets`` (B, S); the train
-        step moves them to the state's device."""
+        """CPU tensors, the reference's keys: int32 ``tokens`` and
+        ``targets`` (B, S), or for an embedding-input stack
+        ``embeddings`` (B, S, D), normal x 0.02 in the compute dtype, and
+        ``targets``; under M-RoPE int32 text ``positions`` (3, B, S).  The
+        train step moves them to the state's device."""
         cfg = self.cfg
         B, S = self._full_rows(), self.seq_len
-        toks = torch.randint(0, cfg.vocab_size, (B, S + 1),
-                             generator=self._generator(step),
-                             dtype=torch.int32)
-        return {"tokens": toks[:, :-1].contiguous(),
-                "targets": toks[:, 1:].contiguous()}
+        gen = self._generator(step)
+        if cfg.embedding_inputs:
+            emb = torch.randn(B, S, cfg.d_model, generator=gen)
+            batch = {"embeddings": emb.to(cfg.dtype) * 0.02,
+                     "targets": torch.randint(0, cfg.vocab_size, (B, S),
+                                              generator=gen,
+                                              dtype=torch.int32)}
+        else:
+            toks = torch.randint(0, cfg.vocab_size, (B, S + 1),
+                                 generator=gen, dtype=torch.int32)
+            batch = {"tokens": toks[:, :-1].contiguous(),
+                     "targets": toks[:, 1:].contiguous()}
+        if cfg.mrope_sections:
+            pos = torch.arange(S, dtype=torch.int32)
+            batch["positions"] = pos.expand(3, B, S).contiguous()
+        return batch
 
     def next_batch(self) -> Dict:
         b = self.peek_batch()

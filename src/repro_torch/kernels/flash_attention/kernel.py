@@ -2,9 +2,7 @@
 (``csrc/flash_attention.cu``) replaces the TPU kernel
 ``repro/kernels/flash_attention/kernel.py:flash_attention_bhsd``; the
 backward (``csrc/flash_attention_bwd.cu``) is new (the TPU kernel had
-none).  The forward takes head_dim 16, 32, 64, 80, 128 and 256; the
-backward 16-128 (head_dim 80 and 256 train in the next slice, ROADMAP
-item 12, second half: the new families' training)."""
+none).  Both take head_dim 16, 32, 64, 80, 128 and 256."""
 from __future__ import annotations
 
 import ctypes
@@ -16,17 +14,15 @@ import torch
 from repro_torch.kernels import build
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
+BWD_HEAD_DIMS = HEAD_DIMS
 
 
 def check_backward_head_dim(hd: int) -> None:
     """The backward kernel's head dims; any other raises (never a plain
     version in its place)."""
     if hd not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"the flash backward takes head_dim in {BWD_HEAD_DIMS}, got "
-            f"{hd}: head_dim 80 and 256 come with the new families' "
-            "training (ROADMAP item 12, second half)")
+        raise ValueError(f"the flash backward takes head_dim in "
+                         f"{BWD_HEAD_DIMS}, got {hd}")
 
 
 @functools.lru_cache(maxsize=None)

@@ -130,12 +130,14 @@ WINDOWS = 3
 
 
 def profile_step(fn: Callable[[], object], calls: int = 3,
-                 host: bool = True) -> Dict:
-    """``fn`` once to warm up, then ``calls`` times under the profiler;
-    ``host=False`` records the card's activity alone (for a call of ~10^5
-    launches, as an FWI iteration is).  A window with no device event is
-    taken again, up to ``WINDOWS`` in all."""
-    fn()
+                 host: bool = True, warm: bool = False) -> Dict:
+    """``fn`` once to warm up (unless the caller has just run it:
+    ``warm``), then ``calls`` times under the profiler; ``host=False``
+    records the card's activity alone (for a call of ~10^5 launches, as
+    an FWI iteration is).  A window with no device event is taken again,
+    up to ``WINDOWS`` in all."""
+    if not warm:
+        fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CUDA]
     if host:

@@ -11,13 +11,19 @@ delta saves of the blocks that changed), termination-signal detection,
 optional UDP heartbeats, straggler watchdog, and automatic
 restore-on-restart.  ``--inject-failure N`` simulates a fail-stop at step
 N and recovers.  The model runs on the card unless ``--device cpu``.
-Attention stacks and Mamba-1 stacks train (``--arch falcon-mamba-7b``:
-the selective scan and its backward kernel on the card):
+Every registered family trains on one rank: attention stacks, Mamba-1
+stacks (``--arch falcon-mamba-7b``: the selective scan and its backward
+kernel on the card), RG-LRU hybrids, embedding-input stacks (qwen2-vl's
+M-RoPE positions, hubert's frame targets) and padded q heads:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch falcon-mamba-7b \
         --tiny --device cpu --steps 12 --seq-len 32 --global-batch 4 \
         --microbatches 2 --policy every_n --every-n 4 --async-save \
         --inject-failure 6 --ckpt-dir /tmp/ckpt_ssm
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch recurrentgemma-2b --tiny --device cpu --steps 12 \
+        --seq-len 32 --global-batch 4 --microbatches 2 --policy every_n \
+        --every-n 4 --inject-failure 6 --ckpt-dir /tmp/ckpt_rec
 
 SDC guard: ``--scrub``/``--sentinel`` turn on the tier-2/3 detectors,
 ``--abft`` routes the projection matmuls through the checksummed kernel
@@ -159,12 +165,9 @@ def main(argv=None) -> int:
         if args.abft:
             raise ValueError("--abft runs on one rank (the checksummed "
                              "projections have no mesh layout)")
-        from repro_torch.models.base import FULL, LOCAL
+        from repro_torch.train.mesh_step import check_mesh_model
 
-        if any(k not in (FULL, LOCAL) for k in build(args).layer_kinds()):
-            raise NotImplementedError(
-                f"{args.arch}: a rank mesh trains causal attention stacks "
-                "(dense or MoE); this stack trains on one rank")
+        check_mesh_model(build(args))
         device = str(resolve_device(args.device))
         spawn(_rank_entry, ranks, args=(argv,), device=device,
               run_dir=os.path.join(args.ckpt_dir, ".ranks"),

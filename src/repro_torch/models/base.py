@@ -3,8 +3,12 @@
 The same frozen dataclass as the reference's, with torch dtypes and the
 fields the dense attention, MoE and Mamba-1 paths read.  ``use_pallas``
 is gone: the tensor's device decides between a kernel and its plain
-version.  The train state always stacks homogeneous blocks, as the
-reference does with ``scan_layers=True``, so that flag is gone too.
+version.  The train state stacks homogeneous blocks, as the reference
+does with ``scan_layers=True``, wherever the layers fill whole blocks of
+the pattern, and keeps one entry a layer otherwise (tiny
+recurrentgemma's 5 layers over a pattern of 3, the reference's one
+``scan_layers=False`` config; ``transformer.train_stacked``), so that
+flag is gone too.
 ``seq_shard`` is kept for the reference's configs but changes nothing:
 on a mesh the port keeps the residual stream whole on every rank of a
 ``"model"`` group.  ``pad_heads_to`` pads the q heads of each KV group

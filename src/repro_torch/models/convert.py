@@ -9,8 +9,8 @@ float32): a model trained in either package serves in the port.  Every
 leaf keeps its shape: padded q heads (``pad_heads_to``) stay padded, and
 an embedding-input model has no ``embed``.  ``state_from_jax`` takes the
 reference's whole train state (``params``, ``opt.{m,v,count}``, ``rng``,
-``step``) and returns the port's, which keeps the reference's stacked
-layout leaf for leaf.  The
+``step``) and returns the port's, which keeps the reference's layout
+leaf for leaf, stacked or not.  The
 reference stacks homogeneous blocks for ``scan``: ``{"embed": {"tok"},
 "blocks": {"l<p>": {...}}, "final_norm"}`` with a leading G axis on every
 block leaf, layer ``g * len(pattern) + p`` (recurrentgemma-2b's 26
@@ -67,8 +67,5 @@ def state_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
     """The reference's train state (numpy leaves) as the port's: the same
     tree, every leaf a tensor of the same dtype and bits on ``device``."""
     device = resolve_device(device)
-    if "blocks" not in tree["params"]:
-        raise ValueError(f"{cfg.name}: the port's train state stacks its "
-                         "blocks (the reference's scan_layers=True)")
     return tree_map(lambda a: torch.from_numpy(np.array(a)).to(device),
                     tree)

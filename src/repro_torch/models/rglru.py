@@ -14,7 +14,8 @@ gates, ``log_a``, ``a``, ``b`` and the recurrence are float32; ``lam``
 stays float32 (``_KEEP_FP32``).  A prompt runs the recurrence through
 ``linear_scan`` (plain PyTorch; RG-LRU has no TPU kernel, so the port owes
 none); one token against a cache is a single elementwise step, as in the
-reference.
+reference.  Training differentiates the same code (autograd through the
+scan's passes), as the reference differentiates ``_scan_chunked``.
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ def rec_init(cfg: ModelConfig, normal: Callable, ones: Callable,
              zeros: Callable, const: Callable) -> Params:
     """The reference's shapes and scales.  ``normal(shape, std)``,
     ``ones(n)``, ``zeros(n)`` and ``const(name, tensor)`` place a weight
-    as the caller loads weights."""
+    as the caller loads weights (a stacked train block's initialisers add
+    its leading layer axis)."""
     d = cfg.d_model
     w = cfg.lru_width or d
     rec = {
@@ -70,25 +72,39 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor,
     carried state folded into its first step.  Here each chunk's scan
     doubles its stride (log2 of the chunk's length passes over the chunk)
     where XLA's ``associative_scan`` takes another tree of the same
-    combine: the two agree to float32 rounding."""
-    S = a.shape[1]
+    combine: the two agree to float32 rounding.  Every pass builds new
+    tensors (the unchanged head of the chunk beside the combined tail),
+    so autograd differentiates the scan (the train step's RG-LRU
+    layers).  The passes' products of a do not depend on the carried
+    state: they are taken for every chunk at once, and only the b passes
+    run chunk after chunk (the same products in the same order: the bits
+    of a chunk-by-chunk scan in three fifths of its launches)."""
+    Bd, S = a.shape[:2]
     Q = min(SCAN_CHUNK, S)
     if S % Q:
         Q = S
-    out = torch.empty_like(b)
+    a0 = ac = a.reshape((Bd, S // Q, Q) + a.shape[2:])
+    acs = []                            # the a of each pass, stride 2^j
+    k = 1
+    while k < Q:
+        acs.append(ac)
+        if 2 * k < Q:
+            ac = torch.cat([ac[:, :, :k], ac[:, :, k:] * ac[:, :, :-k]],
+                           dim=2)
+        k *= 2
+    outs = []
     h = h0
-    for c0 in range(0, S, Q):
-        ac = a[:, c0:c0 + Q].clone()
-        bc = b[:, c0:c0 + Q].clone()
-        bc[:, 0] += ac[:, 0] * h
-        k = 1
-        while k < Q:
-            bc[:, k:] = bc[:, k:] + ac[:, k:] * bc[:, :-k]
-            ac[:, k:] = ac[:, k:] * ac[:, :-k]
-            k *= 2
-        out[:, c0:c0 + Q] = bc
+    for c in range(S // Q):
+        bc = b[:, c * Q:(c + 1) * Q]
+        bc = torch.cat([bc[:, :1] + a0[:, c, :1] * h[:, None],
+                        bc[:, 1:]], dim=1)
+        for j, ak in enumerate(acs):
+            k = 1 << j
+            bc = torch.cat([bc[:, :k], bc[:, k:] + ak[:, c, k:] * bc[:, :-k]],
+                           dim=1)
+        outs.append(bc)
         h = bc[:, -1]
-    return out, h
+    return torch.cat(outs, dim=1), h
 
 
 def rec_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,

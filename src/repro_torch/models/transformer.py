@@ -16,9 +16,12 @@ Modes of ``forward``:
                      the train state's
                      parameters (``init_train_params``: float32 master
                      weights, blocks stacked as the reference stacks them
-                     for ``scan``), cast to the compute dtype inside the
-                     autograd graph on every call; each block is
-                     recomputed in the backward.  ``impl="abft"`` routes
+                     for ``scan``, or one entry a layer where the layers
+                     do not fill whole blocks), cast to the compute dtype
+                     inside the autograd graph on every call; each block
+                     of a pattern of 1 or 2 layers, else each layer, is
+                     recomputed in the backward (the reference's
+                     checkpoints).  ``impl="abft"`` routes
                      the q/k/v/o and MLP projections through the
                      checksummed matmul (SDC tier 1); the attention core
                      stays on the flash kernel (attention layers; an SSM
@@ -87,21 +90,6 @@ def _check_kinds(cfg: ModelConfig) -> None:
         raise ValueError(f"{cfg.name}: unknown layer kinds {bad}")
 
 
-def _check_train(cfg: ModelConfig) -> None:
-    """The train state covers the token-input attention and Mamba stacks
-    without padded heads; the other families serve only."""
-    why = [w for w, bad in (
-        ("RG-LRU layers", REC in cfg.layer_kinds()),
-        ("embedding inputs", cfg.embedding_inputs),
-        ("padded q heads", cfg.effective_num_heads != cfg.num_heads))
-        if bad]
-    if why:
-        raise NotImplementedError(
-            f"{cfg.name} has {', '.join(why)}: the port trains them in the "
-            "next slice (ROADMAP item 12, second half: the new families' "
-            "training)")
-
-
 # --------------------------------------------------------------------------
 # init / load
 # --------------------------------------------------------------------------
@@ -116,6 +104,34 @@ def load_weight(cfg: ModelConfig, w: torch.Tensor,
             and name not in _KEEP_FP32):
         return w.to(cfg.dtype)
     return w
+
+
+def _layer_init(cfg: ModelConfig, kind: str, normal, ones, zeros,
+                const) -> Params:
+    """One layer's weights, the reference's shapes and scales, through the
+    caller's initialisers: ``normal(shape, std)``, ``ones(*shape)``,
+    ``zeros(*shape)`` and ``const(name, tensor)`` (a stacked train block's
+    add its leading layer axis)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv = cfg.effective_num_heads, cfg.num_kv_heads
+    if kind == SSM:
+        return {"ln": ones(d), "ssm": ssm_init(cfg, normal, const)}
+    if kind == REC:
+        return rec_init(cfg, normal, ones, zeros, const)
+    attn = {"wq": normal((d, h, hd), d ** -0.5),
+            "wk": normal((d, kv, hd), d ** -0.5),
+            "wv": normal((d, kv, hd), d ** -0.5),
+            "wo": normal((h, hd, d), (h * hd) ** -0.5)}
+    if cfg.qkv_bias:
+        attn.update(bq=zeros(h, hd), bk=zeros(kv, hd), bv=zeros(kv, hd))
+    layer = {"ln1": ones(d), "attn": attn, "ln2": ones(d)}
+    if cfg.num_experts:
+        layer["moe"] = moe_init(normal, d, cfg.d_ff, cfg.num_experts)
+    else:
+        layer["mlp"] = mlp_init(normal, d, cfg.d_ff, cfg.mlp_act)
+    if cfg.sandwich_norm:
+        layer.update(ln1_post=ones(d), ln2_post=ones(d))
+    return layer
 
 
 def init_params(cfg: ModelConfig, *, seed: int, device=None) -> Params:
@@ -135,8 +151,8 @@ def init_params(cfg: ModelConfig, *, seed: int, device=None) -> Params:
                         dtype=torch.float32) * std
         return load_weight(cfg, w.to(cfg.param_dtype))
 
-    def ones(n):
-        return load_weight(cfg, torch.ones(n, device=device,
+    def ones(*shape):
+        return load_weight(cfg, torch.ones(shape, device=device,
                                            dtype=cfg.param_dtype))
 
     def zeros(*shape):
@@ -147,57 +163,40 @@ def init_params(cfg: ModelConfig, *, seed: int, device=None) -> Params:
         return load_weight(cfg, w.to(device=device, dtype=cfg.param_dtype),
                            name)
 
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    h, kv = cfg.effective_num_heads, cfg.num_kv_heads
+    d = cfg.d_model
     params: Params = {}
     if not cfg.embedding_inputs:
         params["embed"] = {"tok": normal((cfg.padded_vocab, d), d ** -0.5)}
-    layers: List[Params] = []
-    for kind in cfg.layer_kinds():
-        if kind == SSM:
-            layers.append({"ln": ones(d), "ssm": ssm_init(cfg, normal,
-                                                          const)})
-            continue
-        if kind == REC:
-            layers.append(rec_init(cfg, normal, ones, zeros, const))
-            continue
-        attn = {"wq": normal((d, h, hd), d ** -0.5),
-                "wk": normal((d, kv, hd), d ** -0.5),
-                "wv": normal((d, kv, hd), d ** -0.5),
-                "wo": normal((h, hd, d), (h * hd) ** -0.5)}
-        if cfg.qkv_bias:
-            attn.update(bq=zeros(h, hd), bk=zeros(kv, hd), bv=zeros(kv, hd))
-        layer = {"ln1": ones(d), "attn": attn, "ln2": ones(d)}
-        if cfg.num_experts:
-            layer["moe"] = moe_init(normal, d, cfg.d_ff, cfg.num_experts)
-        else:
-            layer["mlp"] = mlp_init(normal, d, cfg.d_ff, cfg.mlp_act)
-        if cfg.sandwich_norm:
-            layer.update(ln1_post=ones(d), ln2_post=ones(d))
-        layers.append(layer)
-    params["layers"] = layers
+    params["layers"] = [_layer_init(cfg, kind, normal, ones, zeros, const)
+                        for kind in cfg.layer_kinds()]
     params["final_norm"] = ones(d)
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, cfg.padded_vocab), d ** -0.5)
     return params
 
 
+def train_stacked(cfg: ModelConfig) -> bool:
+    """Whether the train state stacks its layers into blocks of the
+    pattern (the reference's ``scan_layers``): every registered config
+    whose layers fill whole blocks does; tiny recurrentgemma's 5 layers
+    over a pattern of 3 are one entry a layer, as the reference keeps
+    them."""
+    return cfg.num_layers % len(cfg.pattern) == 0
+
+
 def init_train_params(cfg: ModelConfig, *, seed: int, device=None) -> Params:
     """The train state's parameters: ``cfg.param_dtype`` (float32) master
     weights from a ``torch.Generator`` seeded with ``seed``, in the
-    reference's stacked layout ``{"embed": {"tok"}, "blocks": {"l<p>":
-    {...}}, "final_norm"[, "lm_head"]}`` where every block leaf has a
-    leading axis of ``num_layers / len(pattern)`` (layer ``g * len(pattern)
-    + p``).  Same shapes and scales as the reference's ``init_params``.
+    reference's layout: ``{["embed": {"tok"},] "blocks": {"l<p>": {...}},
+    "final_norm"[, "lm_head"]}`` where every block leaf has a leading axis
+    of ``num_layers / len(pattern)`` (layer ``g * len(pattern) + p``), or
+    ``"layers": {"layer_<i>": {...}}`` in place of ``"blocks"`` where the
+    layers do not fill whole blocks (``train_stacked``).  No ``embed`` for
+    embedding inputs; padded q heads keep their padded shapes.  Same
+    shapes and scales as the reference's ``init_params``.
     ``device="meta"`` gives the shapes and dtypes alone."""
     _check_kinds(cfg)
-    _check_train(cfg)
     device = resolve_device(device)
-    P_ = len(cfg.pattern)
-    if cfg.num_layers % P_:
-        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not "
-                         f"stack into blocks of {P_}")
-    G = cfg.num_layers // P_
     # on the "meta" device (shapes and dtypes only, the port's
     # ``jax.eval_shape``) nothing is drawn
     gen = None
@@ -206,47 +205,37 @@ def init_train_params(cfg: ModelConfig, *, seed: int, device=None) -> Params:
         gen.manual_seed(int(seed))
     pd = cfg.param_dtype
 
-    def normal(shape, std):
-        return (torch.randn(tuple(shape), generator=gen, device=device,
-                            dtype=torch.float32) * std).to(pd)
+    def initialisers(lead):
+        def normal(shape, std):
+            return (torch.randn(lead + tuple(shape), generator=gen,
+                                device=device, dtype=torch.float32)
+                    * std).to(pd)
 
-    def stacked(shape, std):
-        return normal((G,) + tuple(shape), std)
+        def ones(*shape):
+            return torch.ones(lead + shape, device=device, dtype=pd)
 
-    def ones(*shape):
-        return torch.ones(shape, device=device, dtype=pd)
+        def zeros(*shape):
+            return torch.zeros(lead + shape, device=device, dtype=pd)
 
-    def const(name, w):
-        return w.to(device=device, dtype=pd).expand((G,) + tuple(w.shape)) \
-            .contiguous()
+        def const(name, w):
+            return w.to(device=device, dtype=pd).expand(
+                lead + tuple(w.shape)).contiguous()
 
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    h, kv = cfg.num_heads, cfg.num_kv_heads
-    params: Params = {"embed": {"tok": normal((cfg.padded_vocab, d),
-                                              d ** -0.5)}}
-    blocks = {}
-    for p in range(P_):
-        if cfg.pattern[p] == SSM:
-            blocks[f"l{p}"] = {"ln": ones(G, d),
-                               "ssm": ssm_init(cfg, stacked, const)}
-            continue
-        attn = {"wq": stacked((d, h, hd), d ** -0.5),
-                "wk": stacked((d, kv, hd), d ** -0.5),
-                "wv": stacked((d, kv, hd), d ** -0.5),
-                "wo": stacked((h, hd, d), (h * hd) ** -0.5)}
-        if cfg.qkv_bias:
-            attn.update(bq=torch.zeros(G, h, hd, device=device, dtype=pd),
-                        bk=torch.zeros(G, kv, hd, device=device, dtype=pd),
-                        bv=torch.zeros(G, kv, hd, device=device, dtype=pd))
-        blk = {"ln1": ones(G, d), "attn": attn, "ln2": ones(G, d)}
-        if cfg.num_experts:
-            blk["moe"] = moe_init(stacked, d, cfg.d_ff, cfg.num_experts)
-        else:
-            blk["mlp"] = mlp_init(stacked, d, cfg.d_ff, cfg.mlp_act)
-        if cfg.sandwich_norm:
-            blk.update(ln1_post=ones(G, d), ln2_post=ones(G, d))
-        blocks[f"l{p}"] = blk
-    params["blocks"] = blocks
+        return normal, ones, zeros, const
+
+    d = cfg.d_model
+    plain = initialisers(())
+    normal, ones = plain[:2]
+    params: Params = {}
+    if not cfg.embedding_inputs:
+        params["embed"] = {"tok": normal((cfg.padded_vocab, d), d ** -0.5)}
+    if train_stacked(cfg):
+        stacked = initialisers((cfg.num_layers // len(cfg.pattern),))
+        params["blocks"] = {f"l{p}": _layer_init(cfg, kind, *stacked)
+                            for p, kind in enumerate(cfg.pattern)}
+    else:
+        params["layers"] = {f"layer_{i}": _layer_init(cfg, kind, *plain)
+                            for i, kind in enumerate(cfg.layer_kinds())}
     params["final_norm"] = ones(d)
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, cfg.padded_vocab), d ** -0.5)
@@ -489,7 +478,7 @@ def _embed_in(cfg: ModelConfig, params: Params,
         # read contiguous rows
         x = batch["embeddings"].to(cfg.dtype).contiguous()
     else:
-        x = params["embed"]["tok"][batch["tokens"].long()]
+        x = F.embedding(batch["tokens"].long(), params["embed"]["tok"])
     if cfg.embed_scale:
         x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
                            device=x.device)
@@ -526,7 +515,8 @@ def _train_weights(cfg: ModelConfig,
     """The reference's ``_cast_params`` for the train layout: float32
     master weights cast to the compute dtype inside the autograd graph
     (so their gradients come back in float32), then each stacked block
-    leaf unbound into per-layer views (one stack in the backward)."""
+    leaf unbound into per-layer views (one stack in the backward), or the
+    unstacked layers in order."""
     cd = cfg.dtype
 
     def cast(w, name=""):
@@ -535,18 +525,26 @@ def _train_weights(cfg: ModelConfig,
             return w.to(cd)
         return w
 
-    P_ = len(cfg.pattern)
-    G = cfg.num_layers // P_
-    layers: List[Params] = [None] * cfg.num_layers
-    for p in range(P_):
-        blk = params["blocks"][f"l{p}"]
-        parts = [cast(w, name).unbind(0) for name, w in flatten_named(blk)]
-        for g in range(G):
-            layers[g * P_ + p] = unflatten(blk, [pt[g] for pt in parts])
-    top: Params = {"embed": {"tok": cast(params["embed"]["tok"])},
-                   "final_norm": cast(params["final_norm"])}
-    if "lm_head" in params:
-        top["lm_head"] = cast(params["lm_head"])
+    def cast_tree(t):
+        return unflatten(t, [cast(w, n) for n, w in flatten_named(t)])
+
+    if "blocks" in params:
+        P_ = len(cfg.pattern)
+        G = cfg.num_layers // P_
+        layers: List[Params] = [None] * cfg.num_layers
+        for p in range(P_):
+            blk = params["blocks"][f"l{p}"]
+            parts = [cast(w, name).unbind(0)
+                     for name, w in flatten_named(blk)]
+            for g in range(G):
+                layers[g * P_ + p] = unflatten(blk, [pt[g] for pt in parts])
+    else:
+        layers = [cast_tree(params["layers"][f"layer_{i}"])
+                  for i in range(cfg.num_layers)]
+    top: Params = {"final_norm": cast(params["final_norm"])}
+    for k in ("embed", "lm_head"):
+        if k in params:
+            top[k] = cast_tree(params[k])
     return top, layers
 
 
@@ -555,6 +553,9 @@ def _train_block(x, layers, kinds, cfg, positions, impl, par=None):
     for p, kind in zip(layers, kinds):
         if kind == SSM:
             x = ssm_apply(p, x, cfg)
+            continue
+        if kind == REC:
+            x = rec_apply(p, x, cfg)
             continue
         x, a = _attn_apply(p, x, kind, cfg, positions, impl=impl, par=par)
         if a is not None:
@@ -570,21 +571,20 @@ def _forward_train(cfg: ModelConfig, params: Params,
     unbound (a mesh step gathers its shards into them)."""
     top, layers = (weights if weights is not None
                    else _train_weights(cfg, params))
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = F.embedding(tokens.long(), top["embed"]["tok"])
-    if cfg.embed_scale:
-        x = x * torch.full((), cfg.d_model ** 0.5, dtype=x.dtype,
-                           device=x.device)
-    positions = make_positions(B, S, device=tokens.device)
+    x = _embed_in(cfg, top, batch)
+    B, S = x.shape[:2]
+    positions = _positions_for(cfg, batch, B, S, x.device)
     kinds = cfg.layer_kinds()
-    P_ = len(cfg.pattern)
-    # one recomputed unit per stacked block (the reference checkpoints its
-    # scan body): only each block's input is kept for the backward
+    # the reference's recomputed units: its scan body where the pattern
+    # is 1 or 2 layers long, else each layer (recurrentgemma's 13-layer
+    # block; the unstacked layout): only each unit's input is kept for
+    # the backward
+    unit = len(cfg.pattern) if (train_stacked(cfg)
+                                and len(cfg.pattern) <= 2) else 1
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for g in range(0, cfg.num_layers, P_):
-        x, a = checkpoint(_train_block, x, layers[g:g + P_],
-                          kinds[g:g + P_], cfg, positions, impl, par,
+    for g in range(0, cfg.num_layers, unit):
+        x, a = checkpoint(_train_block, x, layers[g:g + unit],
+                          kinds[g:g + unit], cfg, positions, impl, par,
                           use_reentrant=False)
         aux = aux + a
     return _logits_out(cfg, top, x), aux
@@ -615,7 +615,6 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, Any], *,
     kinds = cfg.layer_kinds()
     _check_kinds(cfg)
     if mode == "train":
-        _check_train(cfg)
         return _forward_train(cfg, params, batch, impl)
     if impl is not None:
         raise ValueError(f"impl={impl!r} applies to train mode only")

@@ -79,13 +79,27 @@ class MeshPar:
         return self.ep_index * per, per
 
 
-def check_mesh_config(cfg: ModelConfig, mesh: Mesh) -> None:
-    """The layouts the mesh step computes."""
+def check_mesh_model(cfg: ModelConfig) -> None:
+    """The models the mesh step trains: causal attention stacks over
+    token inputs, without padded q heads."""
     bad = sorted({k for k in cfg.layer_kinds() if k not in (FULL, LOCAL)})
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: the mesh step runs causal attention stacks "
             f"(dense or MoE); {bad} layers train on one rank")
+    why = [w for w, on in (
+        ("embedding inputs", cfg.embedding_inputs),
+        ("padded q heads", cfg.effective_num_heads != cfg.num_heads)) if on]
+    if why:
+        raise NotImplementedError(
+            f"{cfg.name} has {' and '.join(why)}: it trains on one rank "
+            "(a mesh step for them is a lead of ROADMAP's mesh work left "
+            "from item 10)")
+
+
+def check_mesh_config(cfg: ModelConfig, mesh: Mesh) -> None:
+    """The models and layouts the mesh step computes."""
+    check_mesh_model(cfg)
     shape = mesh.shape
     tp, ep = shape.get("model", 1), shape.get("expert", 1)
     if cfg.num_kv_heads % tp or cfg.num_heads % tp or cfg.d_ff % tp:

@@ -1,8 +1,9 @@
 """TrainState: the DeLIA *global state*, a plain tree of tensors so the
 checkpoint layer treats it generically.  The reference's layout leaf for
 leaf: ``step`` (int32), ``params`` (float32 master weights, stacked
-blocks), ``opt`` (AdamW ``m``, ``v``, ``count``) and ``rng`` (the
-reference's uint32 key pair)."""
+blocks or, where the layers do not fill whole blocks, one entry a layer),
+``opt`` (AdamW ``m``, ``v``, ``count``) and ``rng`` (the reference's
+uint32 key pair)."""
 from __future__ import annotations
 
 from typing import Any, Dict, Sequence

@@ -28,8 +28,9 @@ AUX_WEIGHT = 0.01
 def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
             impl: Optional[str] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Causal-LM cross entropy over the padded vocab (padded logits masked
-    to ``NEG_INF``), in float32, plus ``AUX_WEIGHT`` x the MoE
+    """Causal-LM (or frame-classification: hubert's cluster targets)
+    cross entropy over the padded vocab (padded logits masked to
+    ``NEG_INF``), in float32, plus ``AUX_WEIGHT`` x the MoE
     load-balancing loss.  ``impl="abft"``: checksummed projections (SDC
     tier 1)."""
     logits, aux = forward(cfg, params, batch, mode="train", impl=impl)
@@ -52,6 +53,20 @@ def causal_nll(cfg: ModelConfig, logits: torch.Tensor,
     return torch.mean(logz - gold)
 
 
+def split_microbatches(batch: Dict[str, torch.Tensor],
+                       microbatches: int) -> List[Dict[str, torch.Tensor]]:
+    """The reference's ``resplit``: ``microbatches`` consecutive row
+    blocks of the batch, its size read from ``targets``; ``positions``
+    (3, B, S) split along axis 1, every other key along axis 0."""
+    B = batch["targets"].shape[0]
+    if B % microbatches:
+        raise ValueError(f"batch dim {B} not divisible by {microbatches}")
+    b = B // microbatches
+    return [{k: (x[:, i * b:(i + 1) * b] if k == "positions"
+                 else x[i * b:(i + 1) * b]) for k, x in batch.items()}
+            for i in range(microbatches)]
+
+
 def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
                     warmup_steps: int = 100, total_steps: int = 10_000,
                     weight_decay: float = 0.1, clip_norm: float = 1.0,
@@ -59,10 +74,12 @@ def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
                     impl: Optional[str] = None) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
-    ``batch``: ``tokens`` and ``targets`` (B, S), tensors or numpy arrays
-    on any device (moved to the state's).  With ``microbatches`` > 1 the
-    batch is split along B, the microbatch gradients are summed in order
-    and scaled by ``1 / microbatches``.  ``impl="abft"`` runs the
+    ``batch``: ``tokens`` (or ``embeddings`` (B, S, D) for an
+    embedding-input stack) and ``targets`` (B, S), under M-RoPE
+    ``positions`` (3, B, S), tensors or numpy arrays on any device (moved
+    to the state's).  With ``microbatches`` > 1 the batch is split along
+    B (``split_microbatches``), the microbatch gradients are summed in
+    order and scaled by ``1 / microbatches``.  ``impl="abft"`` runs the
     projection matmuls, forward and backward, through the checksummed
     kernel.  The step is functional: it returns a new state and leaves
     the given one intact."""
@@ -85,14 +102,8 @@ def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
             live = [p.detach().requires_grad_(True) for p in leaves(params)]
             live_params = unflatten(params, live)
             if microbatches > 1:
-                B = batch["tokens"].shape[0]
-                if B % microbatches:
-                    raise ValueError(f"batch dim {B} not divisible by "
-                                     f"{microbatches}")
-                b = B // microbatches
                 loss = metrics = grads = None
-                for i in range(microbatches):
-                    mb = {k: x[i * b:(i + 1) * b] for k, x in batch.items()}
+                for mb in split_microbatches(batch, microbatches):
                     l_, m_, g_ = grads_of(live_params, live, mb)
                     if grads is None:
                         loss, metrics, grads = l_, m_, g_

@@ -1438,22 +1438,71 @@ def test_flash_wide_row_does_not_depend_on_sequence_length(cuda, hd):
     assert torch.equal(full[:, :333], cut)
 
 
-@pytest.mark.parametrize("hd", [256, 80])
-def test_flash_backward_refuses_wide_heads(cuda, hd):
-    """The backward kernel takes head_dim 16-128: 256 and 80 raise, on the
-    kernel and through autograd, before anything runs."""
+WIDE_BWD = [
+    # B, S, H, K, hd, causal, window, softcap, padded q heads a kv group
+    (1, 300, 16, 16, 256, True, 0, 0.0, 0),    # gemma-7b, ragged
+    (1, 520, 16, 1, 256, True, 256, 0.0, 6),   # recurrentgemma-2b: MQA,
+                                               # 10 of 16 heads real
+    (2, 130, 4, 2, 256, False, 0, 30.0, 0),    # non-causal, softcap
+    (4, 200, 4, 4, 80, False, 0, 0.0, 0),      # hubert-xlarge, ragged
+    (2, 300, 4, 2, 80, True, 64, 30.0, 0),     # window, softcap
+    (1, 65, 16, 1, 80, True, 0, 0.0, 4),       # MQA, padded heads, one
+                                               # row past a tile
+]
+
+
+@pytest.mark.parametrize("B,S,H,K,hd,causal,window,softcap,pad", WIDE_BWD)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_backward_refuses_wide_heads(cuda, B, S, H, K, hd, causal,
+                                           window, softcap, pad, dtype):
+    """The backward at head_dim 256 and 80 (refused before they trained)
+    against autograd of the plain version, through the kernel and through
+    autograd; two launches bit-equal.  Padded q heads (the last ``pad`` of
+    each kv group, masked in the model: their output gradient is 0) get a
+    dq of exactly 0."""
     rng = np.random.default_rng(32)
-    q, k, v = (_randn(rng, (1, 64, 2, hd), torch.bfloat16, cuda)
-               for _ in range(3))
+    q = _randn(rng, (B, S, H, hd), dtype, cuda)
+    k = _randn(rng, (B, S, K, hd), dtype, cuda)
+    v = _randn(rng, (B, S, K, hd), dtype, cuda)
+    do = _randn(rng, (B, S, H, hd), dtype, cuda)
+    real = torch.arange(H, device=cuda) % (H // K) < H // K - pad
+    do = do * real[:, None].to(dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = flash_attention_bshd(q, k, v, lse=True, **kw)
+    before = flash_attention_bshd_bwd.launches
+    grads = flash_attention_bshd_bwd(q, k, v, o, do, lse, **kw)
+    again = flash_attention_bshd_bwd(q, k, v, o, do, lse, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bshd_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    want = _flash_grads(flash_attention_ref, q, k, v, do, kw)
+    for got, ref in zip(grads, want):
+        _close_grad(got, ref, GRAD_TOL[dtype])
+    if pad:
+        assert not grads[0][:, :, ~real].any()
+    auto = _flash_grads(flash_attention, q, k, v, do, kw)
+    assert all(torch.equal(a, b) for a, b in zip(auto, grads))
+
+
+BWD_MARKS = {256: ("flash_bwd_prep<256>", "flash_bwd_dkdv_wgmma<256, 256>",
+                   "flash_bwd_dq_wgmma<256, 256>"),
+             80: ("flash_bwd_prep<80>", "flash_bwd_dkdv_wgmma<128, 80>",
+                  "flash_bwd_dq_wgmma<128, 80>")}
+
+
+@pytest.mark.parametrize("hd", [256, 80])
+def test_flash_wide_backward_launches_its_wgmma_kernels(cuda, hd):
+    rng = np.random.default_rng(37)
+    q, k, v, do = (_randn(rng, (1, 300, 4, hd), torch.bfloat16, cuda)
+                   for _ in range(4))
     o, lse = flash_attention_bshd(q, k, v, lse=True)
-    before = flash_attention_bshd.launches
-    with pytest.raises(NotImplementedError, match="item 12"):
-        flash_attention_bshd_bwd(q, k, v, o, o, lse)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        flash_attention(q.requires_grad_(), k, v)
-    assert flash_attention_bshd.launches == before
-    with torch.no_grad():
-        _close(flash_attention(q, k, v), o, 0.0)
+    before = flash_attention_bshd_bwd.launches
+    names = _kernel_names(lambda: flash_attention_bshd_bwd(q, k, v, o, do,
+                                                           lse))
+    assert (flash_attention_bshd_bwd.launches
+            == before + NAME_WARMUP + NAME_CALLS)
+    assert len(names) == 3, names
+    assert all(any(m in n for n in names) for m in BWD_MARKS[hd]), names
 
 
 @pytest.mark.parametrize("hd,mark", [(256, "flash_fwd_bf16_wgmma<256, 1, 256>"),

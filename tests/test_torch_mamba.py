@@ -247,17 +247,19 @@ def test_causal_conv_keeps_the_last_inputs():
 
 def test_modes_the_mamba_slice_refuses():
     """What the port still refuses of a Mamba stack (training it no
-    longer: train mode runs on the train layout; REC layers wait for the
-    model-families slice)."""
+    longer: train mode runs on the train layout, and so does a stack of
+    REC layers)."""
     _, tcfg = _configs("float32")
     params = init_params(tcfg, seed=0, device="cpu")
     toks = torch.tensor([[1, 2, 3, 4]])
     logits, _ = forward(tcfg, init_train_params(tcfg, seed=0, device="cpu"),
                         {"tokens": toks}, mode="train")
     assert logits.shape == (1, 4, tcfg.padded_vocab)
-    with pytest.raises(NotImplementedError, match="item 12, second half"):
-        init_train_params(dataclasses.replace(tcfg, pattern=("rec",)),
-                          seed=0, device="cpu")
+    rcfg = dataclasses.replace(tcfg, pattern=("rec",), d_ff=2 * tcfg.d_model)
+    rlogits, _ = forward(rcfg, init_train_params(rcfg, seed=0, device="cpu"),
+                         {"tokens": toks}, mode="train")
+    assert rlogits.shape == (1, 4, rcfg.padded_vocab)
+    assert torch.isfinite(rlogits).all()
     with pytest.raises(ValueError, match="prompt's own length"):
         forward(tcfg, params, {"tokens": toks, "length": 2}, mode="prefill",
                 cache=init_cache(tcfg, 1, 0, "cpu"))
