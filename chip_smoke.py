@@ -279,6 +279,22 @@ ends the run with a non-zero exit code and no result line:
                  microbatch's bf16 gradients through the kernels as close
                  to the float32 model's as through the plain attention
                  (each leaf, 1.25x), the padded heads' gradient rows 0.
+30. ``launch`` — the launch tooling (``launch/{mesh,shapes,dryrun,
+                 roofline}.py``): the dry run over the 20 train cells (10
+                 archs x the production meshes (16, 16) and (2, 16, 16),
+                 rank 0 traced on the meta device) and the roofline over
+                 the 10 on (16, 16), each one background process started
+                 after the build (the dry run's cells 3 at a time, each
+                 process one thread): every cell ``ok``, each one's peak per
+                 rank beside the card's memory, the roofline's terms; then
+                 two rank probes, rank 0 of (16, 16) at train_4k for
+                 granite-3-8b (kv heads stored whole) and falcon-mamba-7b
+                 (SSM channels over "model"): one real step of the rank
+                 from random shards with the recording comm standing in
+                 for its 255 peers, its measured peak held to the dry
+                 run's estimate (no more than 10 % below it), its device
+                 time printed beside the roofline's per-rank compute and
+                 memory terms, its launches held to the path.
 
 The kernel phase also holds selective_scan to its plain version within
 1e-5 + 1e-5 |want| (tests/test_kernels.py) at the serve shape (B 1,
@@ -315,7 +331,7 @@ also without programmatic dependent launch.
 Then the kernels summary (one JSON object, launches by path: serve,
 train, sdc, abft, serve_ssm, fwi, train_ssm, train_obs, serve_predrain,
 serve_slots, serve_standby, serve_moe, elastic, elastic_moe, compress,
-chaos_serve, chaos_train, serve_families, train_families),
+chaos_serve, chaos_train, serve_families, train_families, launch),
 the ``nvidia-smi`` line,
 and the last line
 ``{"ok": true, "device": {...}}``.
@@ -323,6 +339,7 @@ and the last line
 from __future__ import annotations
 
 import argparse
+import atexit
 import ctypes
 import dataclasses
 import gc
@@ -342,11 +359,6 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# Published peaks (dense, NVIDIA data sheets): bytes/s, bf16 FLOP/s.
-PEAKS = {"H100 PCIe": (2.0e12, 756e12), "H100 NVL": (3.9e12, 835e12),
-         "H100 SXM": (3.35e12, 989e12)}
-# float32 on the CUDA cores (no tensor cores), FLOP/s
-FP32_PEAKS = {"H100 PCIe": 51e12, "H100 NVL": 60e12, "H100 SXM": 67e12}
 BF16_TOL = 2e-2                  # tests/test_kernels.py's bf16 tolerance
 FP32_TOL = 1e-4                  # float32 outputs (RMSNorm rstd, flash LSE)
 SCAN_TOL = 1e-5                  # tests/test_kernels.py's selective-scan tolerance
@@ -484,10 +496,14 @@ def emit(obj) -> None:
 
 
 def peaks(name: str):
-    for key, val in PEAKS.items():
-        if key.split()[1] in name:
-            return key, val
-    return "H100 SXM", PEAKS["H100 SXM"]
+    """The card's part and its published peaks (dense, NVIDIA data sheets;
+    ``launch/roofline.py``'s table): (part, (bytes/s, bf16 FLOP/s,
+    float32 FLOP/s on the CUDA cores))."""
+    from repro_torch.launch.roofline import PARTS, part_of
+
+    key = part_of(name)
+    hw = PARTS[key]
+    return key, (hw["hbm_bw"], hw["peak_flops"], hw["fp32_flops"])
 
 
 def time_ms(fn, iters: int = 20, reps: int = 7) -> float:
@@ -566,13 +582,14 @@ def phase_card():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    peak_name, (bw, flops) = peaks(name)
+    peak_name, (bw, flops, fp32_flops) = peaks(name)
     emit({"phase": "card", "device": name, "count":
           torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "peaks": {"part": peak_name, "bytes_per_s": bw,
-                    "bf16_flop_per_s": flops}})
-    return name, smi, bw, flops
+                    "bf16_flop_per_s": flops,
+                    "fp32_flop_per_s": fp32_flops}})
+    return name, smi, bw, flops, fp32_flops
 
 
 def phase_build():
@@ -5383,6 +5400,147 @@ def phase_chaos_train(seed: int):
     return launches
 
 
+# the launch phase: the dry run over the 20 train cells (10 archs x the two
+# production meshes) and the roofline over the 10 on (16, 16), each one
+# subprocess on the meta device started after the build (the dry run's
+# cells LAUNCH_JOBS at a time); then two rank probes on the card, rank 0
+# of (16, 16) at train_4k: granite-3-8b (kv heads stored whole: 8 over tp
+# 16) and falcon-mamba-7b (SSM channels over "model"), each held to its
+# dry-run peak within LAUNCH_PEAK_TOL
+LAUNCH_PROBES = ("granite-3-8b", "falcon-mamba-7b")
+LAUNCH_PEAK_TOL = 0.10
+LAUNCH_TIMEOUT = 900
+LAUNCH_JOBS = 3              # the dry run's cells traced at once
+
+
+def launch_tools_start():
+    """The dry run and the roofline as background processes (one thread
+    each), their JSONL records into ``build/``."""
+    out = ROOT / "build" / "launch_tools"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    procs = {}
+    for tool, argv in (
+            ("dryrun", ["--shape", "train_4k", "--both-meshes",
+                        "--jobs", str(LAUNCH_JOBS)]),
+            ("roofline", ["--shape", "train_4k"])):
+        path = out / f"{tool}.jsonl"
+        log = open(out / f"{tool}.log", "w")
+        p = subprocess.Popen(
+            [sys.executable, "-m", f"repro_torch.launch.{tool}", *argv,
+             "--device", "meta", "--out", str(path)],
+            env=env, cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT)
+        log.close()
+        atexit.register(p.kill)
+        procs[tool] = (p, path, time.perf_counter())
+    return procs
+
+
+def _tool_records(procs, tool):
+    p, path, t0 = procs[tool]
+    try:
+        p.wait(timeout=LAUNCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        raise
+    if not path.exists():
+        log = (path.parent / f"{tool}.log").read_text()[-3000:]
+        raise AssertionError(f"{tool} wrote no records (exit "
+                             f"{p.returncode}):\n{log}")
+    return [json.loads(l) for l in path.read_text().splitlines()]
+
+
+def phase_launch(seed: int, procs):
+    """``launch``: the dry run's 20 train cells all ``ok``, each one's
+    peak per rank beside the card's memory; the roofline's 10 cells on
+    (16, 16), their terms; then the rank probes (``LAUNCH_PROBES``): rank
+    0's real step on the card from random bf16-compute shards (float32
+    master weights) with the recording comm standing in for its peers,
+    its measured peak held to the dry run's estimate (the estimate no more
+    than ``LAUNCH_PEAK_TOL`` below it), its device time printed beside
+    the roofline's per-rank compute and memory terms, its launches held
+    to the path."""
+    from repro_torch.launch.dryrun import rank_probe
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.shapes import input_specs
+    from repro_torch.models import get_config
+
+    card_mem = torch.cuda.get_device_properties(0).total_memory
+    dry = _tool_records(procs, "dryrun")
+    roof = _tool_records(procs, "roofline")
+    bad = [(r["arch"], r["mesh"], r.get("error", "")[:200])
+           for r in dry if r["status"] != "ok"]
+    if len(dry) != 20 or bad:
+        raise AssertionError(f"dry run: {len(dry)} cells, not ok: {bad}")
+    for r in dry:
+        peak = r["memory"]["peak_per_device_bytes"]
+        emit({"phase": "launch-dryrun", "arch": r["arch"],
+              "mesh": r["mesh"], "microbatches": r["microbatches"],
+              "peak_gib": peak / 2**30, "card_gib": card_mem / 2**30,
+              "fits_card": peak <= card_mem, "trace_s": r["lower_s"],
+              "tflop_per_rank": r["cost"]["flops_per_device"] / 1e12,
+              "wire_gb_per_rank": r["collectives"]["total"] / 1e9})
+    bad = [r["arch"] for r in roof if r["status"] != "ok"]
+    if len(roof) != 10 or bad:
+        raise AssertionError(f"roofline: {len(roof)} cells, not ok: {bad}")
+    for r in roof:
+        emit({"phase": "launch-roofline", "arch": r["arch"],
+              "mesh": r["mesh"], "compute_ms": r["compute_s"] * 1e3,
+              "memory_ms": r["memory_s"] * 1e3,
+              "collective_ms": r["collective_s"] * 1e3,
+              "dominant": r["dominant"],
+              "useful_flops_ratio": r["useful_flops_ratio"],
+              "roofline_fraction": r["roofline_fraction"]})
+    summary = (procs["dryrun"][1].parent / "dryrun.log").read_text()
+    emit({"phase": "launch-tools",
+          "dryrun_trace_s": sum(r["lower_s"] for r in dry),
+          "dryrun_summary": summary.strip().splitlines()[-1],
+          "cells_fitting_card": sum(
+              r["memory"]["peak_per_device_bytes"] <= card_mem for r in dry)})
+    launches = {}
+    for arch in LAUNCH_PROBES:
+        cfg = get_config(arch)
+        rec = next(r for r in dry
+                   if r["arch"] == arch and r["mesh"] == "16x16")
+        rf = next(r for r in roof if r["arch"] == arch)
+        mesh = make_production_mesh()
+        mesh.rank = 0
+        _, (state_g, batch), (st_sh, _) = input_specs(cfg, "train_4k", mesh)
+        got = rank_probe(cfg, mesh, state_g, batch, st_sh,
+                         microbatches=rec["microbatches"], seed=seed,
+                         device="cuda")
+        est = rec["memory"]["peak_per_device_bytes"]
+        ratio = est / got["measured_peak_bytes"]
+        want = _train_launches(cfg.num_layers, rec["microbatches"], 1,
+                               ssm=arch == "falcon-mamba-7b")
+        emit({"phase": "launch-probe", "arch": arch, "mesh": "16x16",
+              "rank": 0, "microbatches": rec["microbatches"],
+              "measured_peak_gib": got["measured_peak_bytes"] / 2**30,
+              "estimate_gib": est / 2**30, "estimate_over_measured": ratio,
+              "loss": got["loss"],
+              "device_ms": got["profile"]["device_ms"],
+              "wall_ms": got["profile"]["wall_ms"],
+              "roofline_compute_ms": rf["compute_s"] * 1e3,
+              "roofline_memory_ms": rf["memory_s"] * 1e3,
+              "launches": got["launches"]})
+        if ratio < 1.0 - LAUNCH_PEAK_TOL:
+            raise AssertionError(f"launch-probe {arch}: the dry run's "
+                                 f"{est} B is {1 - ratio:.1%} below the "
+                                 f"measured {got['measured_peak_bytes']} B")
+        if not math.isfinite(got["loss"]):
+            raise AssertionError(f"launch-probe {arch}: loss not finite")
+        if got["launches"] != want:
+            raise AssertionError(f"launch-probe {arch}: launches "
+                                 f"{got['launches']} != the path's {want}")
+        for k, v in got["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -5402,9 +5560,12 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    name, smi, bw, flops = phase_card()
+    name, smi, bw, flops, fp32_flops = phase_card()
     phase_build()
-    cases = phase_kernels(args.seed, bw, flops, FP32_PEAKS[peaks(name)[0]])
+    # the launch phase's dry run and roofline trace on the meta device,
+    # on the host's cores, while the card runs the phases before it
+    tools = launch_tools_start()
+    cases = phase_kernels(args.seed, bw, flops, fp32_flops)
     torch.cuda.empty_cache()
     phase_tiny_slots(args.seed, phase_tiny(args.seed))
     serve = phase_serve(args.seed)
@@ -5457,6 +5618,11 @@ def main(argv=None) -> int:
     phase_train_tiny_families(args.seed)
     train_families = phase_train_families(args.seed)
     emit({"phase": "slice11-time", "seconds": time.perf_counter() - t0})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launch = phase_launch(args.seed, tools)
+    emit({"phase": "launch-time", "seconds": time.perf_counter() - t0})
 
     summary = []
     for kname, case_list in cases.items():
@@ -5478,7 +5644,8 @@ def main(argv=None) -> int:
                    "chaos_serve": chaos_serve.get(kname, 0),
                    "chaos_train": chaos_train.get(kname, 0),
                    "serve_families": serve_families.get(kname, 0),
-                   "train_families": train_families.get(kname, 0)}
+                   "train_families": train_families.get(kname, 0),
+                   "launch": launch.get(kname, 0)}
         summary.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/{source}", "replaces": replaces,

@@ -1,7 +1,9 @@
 """Public RMSNorm entry (arbitrary leading dims): the plain version for a
 CPU tensor, the CUDA kernels for a CUDA tensor.  Where autograd needs a
 gradient (the train step), the forward kernel runs inside
-``RMSNormFunction`` and its backward is the backward kernel."""
+``RMSNormFunction`` and its backward is the backward kernel.  Meta
+tensors (a traced step: ``kernels/meta.py``) get the kernels' outputs,
+empty, and launch nothing."""
 from __future__ import annotations
 
 import torch
@@ -16,15 +18,26 @@ class RMSNormFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, eps):
-        rstd = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
-        y = rms_norm_2d(x, w, eps=eps, rstd=rstd)
+        if x.device.type == "meta":
+            from repro_torch.kernels import meta
+
+            y, rstd = meta.rmsnorm_fwd(x, w, True)
+        else:
+            rstd = torch.empty(x.shape[0], dtype=torch.float32,
+                               device=x.device)
+            y = rms_norm_2d(x, w, eps=eps, rstd=rstd)
         ctx.save_for_backward(x, w, rstd)
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, w, rstd = ctx.saved_tensors
-        dx, dw = rms_norm_2d_bwd(g.contiguous(), x, w, rstd)
+        if x.device.type == "meta":
+            from repro_torch.kernels import meta
+
+            dx, dw = meta.rmsnorm_bwd(g.contiguous(), x, w, rstd)
+        else:
+            dx, dw = rms_norm_2d_bwd(g.contiguous(), x, w, rstd)
         return dx, dw, None
 
 
@@ -38,4 +51,8 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor,
     x2 = x.reshape(-1, shape[-1])
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return RMSNormFunction.apply(x2.contiguous(), w, eps).reshape(shape)
+    if x.device.type == "meta":
+        from repro_torch.kernels import meta
+
+        return meta.rmsnorm_fwd(x2, w, False)[0].reshape(shape)
     return rms_norm_2d(x2, w, eps=eps).reshape(shape)

@@ -3,7 +3,9 @@ CUDA kernels for CUDA tensors.  Inputs are taken in float32 (as the
 reference's ``ops.selective_scan`` casts them); B and C may be column
 slices of the ``x_proj`` output, read in place.  The scan runs inside
 ``SelectiveScanFunction``, whose backward is ``selective_scan_bwd``; it
-records a graph only where autograd records (the train step)."""
+records a graph only where autograd records (the train step).  Meta
+tensors (a traced step: ``kernels/meta.py``) get the kernels' outputs,
+empty, and launch nothing."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -21,6 +23,10 @@ _F32 = torch.float32
 def _scan(x, dt, bm, cm, a, h0) -> Tuple[torch.Tensor, torch.Tensor]:
     if x.device.type == "cpu":
         return selective_scan_ref(x, dt, bm, cm, a, h0)
+    if x.device.type == "meta":
+        from repro_torch.kernels import meta
+
+        return meta.scan_fwd(x, dt, bm, cm, a, h0)
     return selective_scan_kernel(
         x.to(_F32).contiguous(), dt.to(_F32).contiguous(), bm.to(_F32),
         cm.to(_F32), a.to(_F32).contiguous(), h0.to(_F32).contiguous())
@@ -35,6 +41,10 @@ def selective_scan_bwd(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     h_last) against ``dy`` and ``dh_last`` (``None`` = 0), float32."""
     if x.device.type == "cpu":
         return selective_scan_bwd_ref(x, dt, bm, cm, a, h0, dy, dh_last)
+    if x.device.type == "meta":
+        from repro_torch.kernels import meta
+
+        return tuple(meta.scan_bwd(x, dt, bm, cm, a, h0, dy, dh_last))
     return selective_scan_bwd_kernel(
         x.to(_F32).contiguous(), dt.to(_F32).contiguous(), bm.to(_F32),
         cm.to(_F32), a.to(_F32).contiguous(), h0.to(_F32).contiguous(),

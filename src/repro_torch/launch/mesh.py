@@ -1,8 +1,18 @@
-"""Small rank meshes (the reference's ``launch/mesh.py``:
-``make_host_mesh`` and ``host_device_map``; its production meshes and
-``make_mesh_compat`` are ROADMAP item 13).
+"""Rank meshes, the reference's ``launch/mesh.py``: the production
+meshes (``make_production_mesh``, ``make_mesh_compat``) and small meshes
+over a run's ranks (``make_host_mesh``, ``host_device_map``).
 
-A "device" here is a rank: one process a rank (``sharding/launch.py``).
+A "device" here is a rank: one process a rank (``sharding/launch.py``),
+one GPU a rank in production.  The production meshes keep the
+reference's shapes, so the dry run and the roofline
+(``launch/dryrun.py``, ``launch/roofline.py``) and every parity test
+compare the same shards: ``(data=16, model=16)``, 256 GPUs, and
+``(pod=2, data=16, model=16)``, 512.  Ranks fill the grid in row-major
+order; on 8-GPU nodes (rank r on node r // 8) each ``"model"`` row of 16
+consecutive ranks spans two nodes, and each ``"data"`` column takes one
+GPU from every other node, so every collective of the mesh step crosses
+the node link (``launch/roofline.py`` prices it so).
+
 Defined as functions, so importing this module touches no process
 group."""
 from __future__ import annotations
@@ -21,6 +31,21 @@ def _world_ranks(ranks: Optional[Sequence[int]]) -> List[int]:
 
     n = dist.get_world_size() if dist.is_initialized() else 1
     return list(range(n))
+
+
+def make_mesh_compat(shape: Sequence[int], axis_names) -> Mesh:
+    """A description mesh (no caller rank, no process group) of ranks
+    0..n-1 in row-major order over ``shape``."""
+    n = int(np.prod(shape))
+    return Mesh(np.arange(n).reshape(tuple(shape)), axis_names)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """Single pod: (data=16, model=16) = 256 GPUs.
+    Multi-pod: (pod=2, data=16, model=16) = 512 GPUs."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh_compat(shape, axes)
 
 
 def make_host_mesh(data: int = 1, model: int = 1, expert: int = 0,

@@ -11,7 +11,8 @@ delta saves of the blocks that changed), termination-signal detection,
 optional UDP heartbeats, straggler watchdog, and automatic
 restore-on-restart.  ``--inject-failure N`` simulates a fail-stop at step
 N and recovers.  The model runs on the card unless ``--device cpu``.
-Every registered family trains on one rank: attention stacks, Mamba-1
+Every registered family trains, on one rank or on a rank mesh
+(``--data-par``/``--model-par``, below): attention stacks, Mamba-1
 stacks (``--arch falcon-mamba-7b``: the selective scan and its backward
 kernel on the card), RG-LRU hybrids, embedding-input stacks (qwen2-vl's
 M-RoPE positions, hubert's frame targets) and padded q heads:
@@ -165,9 +166,6 @@ def main(argv=None) -> int:
         if args.abft:
             raise ValueError("--abft runs on one rank (the checksummed "
                              "projections have no mesh layout)")
-        from repro_torch.train.mesh_step import check_mesh_model
-
-        check_mesh_model(build(args))
         device = str(resolve_device(args.device))
         spawn(_rank_entry, ranks, args=(argv,), device=device,
               run_dir=os.path.join(args.ckpt_dir, ".ranks"),

@@ -126,6 +126,13 @@ class ModelConfig:
     def has_decode(self) -> bool:
         return self.is_causal
 
+    @property
+    def subquadratic(self) -> bool:
+        """True if no layer needs an unbounded full-attention KV cache."""
+        return all(k in (SSM, REC) for k in self.pattern) or (
+            FULL not in self.pattern and BIDIR not in self.pattern
+        )
+
     def layer_kinds(self) -> Tuple[str, ...]:
         """Per-layer kinds, pattern repeated/truncated to num_layers."""
         reps = -(-self.num_layers // len(self.pattern))

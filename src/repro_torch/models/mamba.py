@@ -73,23 +73,32 @@ def _causal_conv(x: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor,
 
 
 def ssm_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
-              cache: Optional[Dict[str, torch.Tensor]] = None
-              ) -> torch.Tensor:
+              cache: Optional[Dict[str, torch.Tensor]] = None,
+              par=None) -> torch.Tensor:
     """One SSM layer with its residual.  x: (B, S, D).  ``cache``
     {"conv": (B, W-1, Di), "h": (B, Di, N) float32} is read as the state
-    before x and overwritten in place with the state after it."""
+    before x and overwritten in place with the state after it.  ``par``
+    (train mode on a mesh, ``train/mesh_step.py``): the leaves hold the
+    rank's Di / tp channels (``in_proj`` its x then z columns), the
+    row-parallel ``x_proj`` product is summed over ``"model"`` and the
+    output projection's too."""
     B, S, _ = x.shape
-    di, n = cfg.d_inner, cfg.ssm_state
+    n = cfg.ssm_state
     dtr = cfg.resolved_dt_rank
     s = p["ssm"]
+    di = s["in_proj"].shape[-1] // 2                          # the rank's
 
     h_in = rms_norm(x, p["ln"], cfg.norm_eps)
+    if par is not None:
+        h_in = par.enter_tp(h_in)
     xi, z = (h_in @ s["in_proj"]).split(di, dim=-1)           # (B, S, Di)
     xi, new_conv = _causal_conv(xi, s["conv_w"], s["conv_b"],
                                 cache["conv"] if cache is not None else None)
     xi = F.silu(xi)
 
     bcd = xi @ s["x_proj"]                                    # (B, S, dtr+2N)
+    if par is not None:
+        bcd = par.sum_tp(bcd)
     dt = F.softplus(bcd[..., :dtr] @ s["dt_w"] + s["dt_b"]).float()
     bcf = bcd[..., dtr:].float()
     bm, cm = bcf[..., :n], bcf[..., n:]                       # (B, S, N)
@@ -111,7 +120,10 @@ def ssm_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if cache is not None:
         cache["conv"].copy_(new_conv)
         cache["h"].copy_(h_last)
-    return x + y @ s["out_proj"]
+    out = y @ s["out_proj"]
+    if par is not None:
+        out = par.exit_tp(out)
+    return x + out
 
 
 def ssm_cache_init(cfg: ModelConfig, batch: int,

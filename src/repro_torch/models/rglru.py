@@ -108,21 +108,27 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor,
 
 
 def rec_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
-              cache: Optional[Dict[str, torch.Tensor]] = None
-              ) -> torch.Tensor:
+              cache: Optional[Dict[str, torch.Tensor]] = None,
+              par=None) -> torch.Tensor:
     """One RG-LRU layer and its MLP block with their residuals.  x: (B, S,
     D).  ``cache`` {"conv": (B, W-1, w), "h": (B, w) float32} is read as
     the state before x and overwritten in place with the state after
-    it."""
+    it.  ``par`` (train mode on a mesh, ``train/mesh_step.py``): the
+    leaves hold the rank's w / tp channels; the gates read every channel
+    of the convolved input, gathered over ``"model"``; the output
+    projection and the MLP are row-parallel."""
     B, S, _ = x.shape
     rec = p["rec"]
     h_in = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if par is not None:
+        h_in = par.enter_tp(h_in)
     u = h_in @ rec["x_proj"]                                  # (B, S, w)
     u, new_conv = _causal_conv(u, rec["conv_w"], rec["conv_b"],
                                cache["conv"] if cache is not None else None)
     uf = u.float()
-    r = torch.sigmoid(uf @ rec["w_r"].float() + rec["b_r"].float())
-    i = torch.sigmoid(uf @ rec["w_i"].float() + rec["b_i"].float())
+    ug = uf if par is None else par.gather_tp(u).float()      # every channel
+    r = torch.sigmoid(ug @ rec["w_r"].float() + rec["b_r"].float())
+    i = torch.sigmoid(ug @ rec["w_i"].float() + rec["b_i"].float())
     log_a = _C * r * F.logsigmoid(rec["lam"].float())
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * uf)
@@ -136,9 +142,13 @@ def rec_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
                                device=x.device))
         h_seq, h_last = linear_scan(a, b, h0)
     gate = F.gelu(h_in @ rec["gate_proj"], approximate="tanh")
-    x = x + (h_seq.to(x.dtype) * gate) @ rec["out_proj"]
+    o = (h_seq.to(x.dtype) * gate) @ rec["out_proj"]
+    x = x + (o if par is None else par.exit_tp(o))
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    x = x + mlp_apply(p["mlp"], h2, cfg.mlp_act)
+    if par is not None:
+        h2 = par.enter_tp(h2)
+    m = mlp_apply(p["mlp"], h2, cfg.mlp_act)
+    x = x + (m if par is None else par.exit_tp(m))
     if cache is not None:
         cache["conv"].copy_(new_conv)
         cache["h"].copy_(h_last)

@@ -63,6 +63,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention.ops import (paged_decode_attention,
                                                      row_decode_attention,
                                                      row_page_table)
@@ -180,8 +181,8 @@ def train_stacked(cfg: ModelConfig) -> bool:
     pattern (the reference's ``scan_layers``): every registered config
     whose layers fill whole blocks does; tiny recurrentgemma's 5 layers
     over a pattern of 3 are one entry a layer, as the reference keeps
-    them."""
-    return cfg.num_layers % len(cfg.pattern) == 0
+    them (as are no layers at all: the roofline's probe at L = 0)."""
+    return cfg.num_layers > 0 and cfg.num_layers % len(cfg.pattern) == 0
 
 
 def init_train_params(cfg: ModelConfig, *, seed: int, device=None) -> Params:
@@ -388,7 +389,9 @@ def _attn_apply(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig,
     """One attention layer and its feed-forward block: (x, aux) with
     ``aux`` the MoE load-balancing loss (None for a dense block).
     ``par`` (train mode on a mesh): the rank's heads and ``d_ff``
-    columns, entered and left through the mesh's Megatron hooks."""
+    columns, entered and left through the mesh's Megatron hooks.
+    ``impl="einsum"``: the plain attention (the roofline's probes, as
+    the reference's take its einsum attention for exact FLOPs)."""
     a = p["attn"]
     B, S, _ = x.shape
     scale = cfg.query_scale or None
@@ -427,13 +430,16 @@ def _attn_apply(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig,
                                  window=window, softcap=cfg.attn_softcap,
                                  scale=scale, table=rows.table(sc))
     else:
-        o = flash_attention(q, k, v, causal=(kind != BIDIR), window=window,
-                            softcap=cfg.attn_softcap, scale=scale)
+        attend = flash_attention_ref if impl == "einsum" else flash_attention
+        o = attend(q, k, v, causal=(kind != BIDIR), window=window,
+                   softcap=cfg.attn_softcap, scale=scale)
         if entry is not None:                            # prefill fills cache
             _fill_cache(entry, k, v, n_valid)
 
     hmask = _head_mask(cfg, o.device, o.dtype)
     if hmask is not None:
+        if par is not None:                      # the rank's q heads
+            hmask = hmask.narrow(0, par.head_offset(o.shape[2]), o.shape[2])
         o = o * hmask[:, None]
     H, hd, d = a["wo"].shape
     o = dot(o.reshape(B, S, H * hd), a["wo"].reshape(H * hd, d), impl)
@@ -445,7 +451,7 @@ def _attn_apply(p: Params, x: torch.Tensor, kind: str, cfg: ModelConfig,
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     aux = None
     if cfg.num_experts:
-        if impl is not None:
+        if impl == "abft":
             raise ValueError(f"impl={impl!r}: the MoE experts' products "
                              "have no checksummed route")
         m, aux = moe_apply(p["moe"], h2, num_experts=cfg.num_experts,
@@ -552,10 +558,10 @@ def _train_block(x, layers, kinds, cfg, positions, impl, par=None):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(layers, kinds):
         if kind == SSM:
-            x = ssm_apply(p, x, cfg)
+            x = ssm_apply(p, x, cfg, par=par)
             continue
         if kind == REC:
-            x = rec_apply(p, x, cfg)
+            x = rec_apply(p, x, cfg, par=par)
             continue
         x, a = _attn_apply(p, x, kind, cfg, positions, impl=impl, par=par)
         if a is not None:

@@ -130,10 +130,21 @@ class Mesh:
 
     def group(self, axes: Sequence[str]):
         """The caller's process group over ``axes`` (None when every such
-        axis has width 1 or the caller is outside the mesh)."""
+        axis has width 1 or the caller is outside the mesh; a
+        ``comm.DescGroup`` for a mesh without process groups under
+        ``comm.recording(self)``)."""
         axes = tuple(a for a in self.axis_names if a in tuple(axes))
         if not self.member or all(self.shape[a] == 1 for a in axes):
             return None
+        from repro_torch.sharding import comm
+
+        rec = comm.recorder()
+        if (rec is not None and rec.mesh is self
+                and self.device_mesh is None and not self._groups):
+            # a description mesh traced without its peers
+            ranks = next(g for g in self._all_groups(axes)
+                         if self.rank in g)
+            return comm.DescGroup(ranks, self.rank)
         if len(axes) == 1 and self.device_mesh is not None:
             return self.device_mesh.get_group(axes[0])
         if axes not in self._groups:

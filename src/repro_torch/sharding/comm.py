@@ -36,9 +36,31 @@ collectives):
 - ``gather_slice``: forward gathers the same way, backward keeps this
   rank's slice unsummed (every rank of the group ran the same
   computation on the gathered leaf, so their gradients are equal).
+
+``recording(mesh)`` traces one rank's step without its peers (the dry
+run, ``launch/dryrun.py``): inside it a description mesh (a ``rank``, no
+process groups) gives ``DescGroup``s, and each collective over one
+returns tensors of its output's shape on its input's device, zeros where
+a peer's data would be, and records its class, its group size G and its
+output bytes.  The classes, by what each op computes (not by how the
+file transport moves it):
+
+- ``ordered_sum`` (so ``leave``'s forward, ``enter``'s backward, both
+  passes of ``weighted_sum`` and ``gather_sum``'s backward over a whole
+  leaf): an all-reduce;
+- ``all_gather`` (so the forward of ``gather_sum`` and ``gather_slice``
+  along a dim): an all-gather;
+- ``reduce_scatter`` (so ``gather_sum``'s backward along a dim): a
+  reduce-scatter.
+
+``wire_bytes`` turns a record into the bytes one rank sends, the
+reference's formulas (``launch/roofline.py:parse_collectives``).  The
+mode is never the default and changes nothing outside it: there a
+description mesh's ``group`` raises as before.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -70,11 +92,88 @@ def _note(op: str, t0: float, nbytes: int) -> None:
     rec[2] += nbytes
 
 
+class DescGroup:
+    """A group of a description mesh under ``recording``: its ranks in
+    group order and the caller's rank among them."""
+
+    def __init__(self, ranks: Sequence[int], me: int):
+        self.ranks = tuple(int(r) for r in ranks)
+        self.index = self.ranks.index(int(me))
+
+    def __repr__(self):
+        return f"DescGroup({self.ranks}, index={self.index})"
+
+
+# the bytes one rank sends for a collective of output ``out`` bytes over
+# G ranks (the reference's launch/roofline.py:parse_collectives)
+_WIRE = {"all-reduce": lambda g, out: 2 * (g - 1) / g * out,
+         "all-gather": lambda g, out: (g - 1) / g * out,
+         "reduce-scatter": lambda g, out: (g - 1) * out,
+         "all-to-all": lambda g, out: (g - 1) / g * out,
+         "collective-permute": lambda g, out: out}
+CLASSES = tuple(_WIRE)
+
+
+def wire_bytes(cls: str, g: int, out_bytes: float) -> float:
+    return _WIRE[cls](g, out_bytes)
+
+
+class Recorder:
+    """The collectives of one rank's trace: ``(class, G, output bytes,
+    the group's ranks)`` in call order."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.records: List[Tuple[str, int, int, Tuple[int, ...]]] = []
+
+    def note(self, cls: str, group: DescGroup, out_bytes: int) -> None:
+        self.records.append((cls, len(group.ranks), int(out_bytes),
+                             group.ranks))
+
+
+def wire_totals(records) -> Dict[str, float]:
+    """Wire bytes of ``Recorder.records`` by class, and their
+    ``total``."""
+    out = {c: 0.0 for c in CLASSES}
+    for cls, g, b, _ in records:
+        out[cls] += wire_bytes(cls, g, b)
+    out["total"] = sum(out.values())
+    return out
+
+
+_RECORDER: Optional[Recorder] = None
+
+
+def recorder() -> Optional[Recorder]:
+    return _RECORDER
+
+
+@contextlib.contextmanager
+def recording(mesh):
+    """Collectives over ``mesh``'s description groups stand in for the
+    peers and are recorded (module docstring); yields the
+    ``Recorder``."""
+    global _RECORDER
+    prev, _RECORDER = _RECORDER, Recorder(mesh)
+    try:
+        yield _RECORDER
+    finally:
+        _RECORDER = prev
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
 def group_size(group: Group) -> int:
+    if isinstance(group, DescGroup):
+        return len(group.ranks)
     return 1 if group is None else dist.get_world_size(group)
 
 
 def group_rank(group: Group) -> int:
+    if isinstance(group, DescGroup):
+        return group.index
     return 0 if group is None else dist.get_rank(group)
 
 
@@ -195,6 +294,10 @@ def all_gather(x: torch.Tensor, group: Group) -> List[torch.Tensor]:
     ``x``'s device."""
     if group is None:
         return [x]
+    if isinstance(group, DescGroup):
+        _RECORDER.note("all-gather", group, _nbytes(x) * len(group.ranks))
+        return [x.detach().clone() if i == group.index
+                else torch.zeros_like(x) for i in range(len(group.ranks))]
     t0 = time.perf_counter()
     out = _exchange([x], group)
     _note("all_gather", t0, x.numel() * x.element_size() * len(out))
@@ -206,6 +309,9 @@ def ordered_sum(x: torch.Tensor, group: Group) -> torch.Tensor:
     for narrower floats), the same bits on every rank."""
     if group is None:
         return x
+    if isinstance(group, DescGroup):
+        _RECORDER.note("all-reduce", group, _nbytes(x))
+        return x.detach().clone()
     parts = all_gather(x, group)
     acc_dtype = (torch.float32 if x.is_floating_point()
                  and x.element_size() < 4 else x.dtype)
@@ -223,8 +329,13 @@ def reduce_scatter(x: torch.Tensor, group: Group, dim: int,
     largest."""
     if group is None:
         return x
-    t0 = time.perf_counter()
     r, m = group_rank(group), max(sizes)
+    if isinstance(group, DescGroup):
+        own = x.detach().narrow(dim, sum(sizes[:r]), sizes[r]).clone(
+            memory_format=torch.contiguous_format)
+        _RECORDER.note("reduce-scatter", group, _nbytes(own))
+        return own
+    t0 = time.perf_counter()
     x = x.detach()
     parts, off = [], 0
     for k in sizes:

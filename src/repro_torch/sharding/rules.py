@@ -169,14 +169,26 @@ def _prepend(tree, n: int = 1):
 
 
 def param_specs(cfg: "ModelConfig", tp_size: int, moe_ep=False) -> dict:
-    """PartitionSpec tree matching the train state's parameter tree (the
-    stacked layout of ``models.transformer.init_train_params``)."""
-    specs: dict = {"embed": {"tok": P(TP, None)}}
+    """PartitionSpec tree matching the train state's parameter tree
+    (``models.transformer.init_train_params``: no ``embed`` for
+    embedding inputs; stacked blocks, or one entry a layer where the
+    layers do not fill whole blocks)."""
+    from repro_torch.models.transformer import train_stacked
+
+    specs: dict = {}
+    if not cfg.embedding_inputs:
+        specs["embed"] = {"tok": P(TP, None)}
     pattern = cfg.pattern
-    specs["blocks"] = {
-        f"l{p}": _prepend(layer_specs(cfg, pattern[p], tp_size, moe_ep))
-        for p in range(len(pattern))
-    }
+    if train_stacked(cfg):
+        specs["blocks"] = {
+            f"l{p}": _prepend(layer_specs(cfg, pattern[p], tp_size, moe_ep))
+            for p in range(len(pattern))
+        }
+    else:
+        specs["layers"] = {
+            f"layer_{i}": layer_specs(cfg, kind, tp_size, moe_ep)
+            for i, kind in enumerate(cfg.layer_kinds())
+        }
     specs["final_norm"] = P(None)
     if not cfg.tie_embeddings:
         specs["lm_head"] = P(None, TP)
@@ -200,8 +212,14 @@ def cache_specs(cfg: "ModelConfig", tp_size: int) -> dict:
             return {"conv": P(DP_AXES, None, TP), "h": P(DP_AXES, TP)}
         raise ValueError(kind)
 
-    return {"blocks": {f"l{p}": _prepend(one(cfg.pattern[p]))
-                       for p in range(len(cfg.pattern))},
+    from repro_torch.models.transformer import train_stacked
+
+    if train_stacked(cfg):
+        return {"blocks": {f"l{p}": _prepend(one(cfg.pattern[p]))
+                           for p in range(len(cfg.pattern))},
+                "index": P()}
+    return {"layers": {f"layer_{i}": one(kind)
+                       for i, kind in enumerate(cfg.layer_kinds())},
             "index": P()}
 
 

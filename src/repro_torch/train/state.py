@@ -26,7 +26,10 @@ def key_tensor(words: Sequence[int], device) -> torch.Tensor:
 
 def next_rng(rng: torch.Tensor) -> torch.Tensor:
     """``jax.random.fold_in(rng, 1)``, as the reference's step advances
-    its key (computed on the host: two words)."""
+    its key (computed on the host: two words; a meta key, a traced
+    step's, has no words to fold)."""
+    if rng.device.type == "meta":
+        return torch.empty_like(rng)
     return key_tensor(fold_in(rng.tolist(), 1), rng.device)
 
 

@@ -230,16 +230,31 @@ def test_spec_tables_cover_the_train_state():
 
 @pytest.mark.parametrize("arch,grid,micro", [
     ("granite-3-8b", (2, 2), 1), ("granite-3-8b", (2, 2), 2),
-    ("mixtral-8x7b", (2, 2, 2), 1), ("granite-3-8b", (1, 1), 1)],
+    ("mixtral-8x7b", (2, 2, 2), 1), ("granite-3-8b", (1, 1), 1),
+    # the families and layouts the step took later: kv heads that tp
+    # does not divide (granite's 2 over tp 4: whole, summed over
+    # "model"), SSM channels over "model" (in_proj's x and z columns),
+    # RG-LRU with padded q heads (3 of 4 real, so rank 1 masks its
+    # second head) in the unstacked layout, embedding
+    # inputs with M-RoPE and with BIDIR layers, and the "pod" axis
+    ("granite-3-8b", (1, 4), 1), ("falcon-mamba-7b", (1, 2), 1),
+    ("recurrentgemma-2b", (1, 2), 1), ("qwen2-vl-2b", (2, 2), 1),
+    ("hubert-xlarge", (2, 2), 1), ("granite-3-8b", (2, 1, 2), 1)],
     ids=["granite-2x2", "granite-2x2-micro2", "mixtral-2x2x2",
-         "granite-1x1"])
+         "granite-1x1", "granite-1x4-kv-whole", "falcon-mamba-1x2",
+         "recurrentgemma-1x2", "qwen2-vl-2x2", "hubert-2x2",
+         "granite-pod-2x1x2"])
 def test_mesh_step_equals_the_single_rank_step(tmp_path, arch, grid, micro):
     """float32: the mesh step's metrics and state within 2e-5 of the
     single-rank step's (a 1 x 1 mesh: bit for bit), every rank agreeing,
     the donated (in-place) update bit-equal to the functional one."""
     n = int(np.prod(grid))
+    axes = ("pod", "data", "model") if arch == "granite-3-8b" and \
+        len(grid) == 3 else None
+    cfg_kw = (dict(num_heads=3, pad_heads_to=4)
+              if arch == "recurrentgemma-2b" else None)
     out = spawn(W.mesh_vs_one, n, run_dir=str(tmp_path),
-                args=(arch, grid, 3, micro), join_timeout=300)
+                args=(arch, grid, 3, micro, axes, cfg_kw), join_timeout=300)
     for r in out:
         assert r["mesh"] == out[0]["mesh"]          # every rank agrees
         np.testing.assert_allclose(r["mesh"], r["one"], rtol=2e-5,

@@ -177,10 +177,11 @@ def test_cli_trains_new_families(tmp_path, capsys, arch):
         "--inject-failure", "4", "--ckpt-dir", str(tmp_path / "ck")]) == 0
     out = capsys.readouterr().out
     assert "[train] done" in out and "restarts=1" in out
-    with pytest.raises(NotImplementedError, match="on one rank"):
-        train_cli.main(["--arch", arch, "--tiny", "--device", "cpu",
-                        "--data-par", "2", "--ckpt-dir",
-                        str(tmp_path / "ck2")])
+    # a rank mesh trains them too (train/mesh_step.py)
+    assert train_cli.main(["--arch", arch, "--tiny", "--device", "cpu",
+                           "--data-par", "2", "--steps", "2",
+                           "--seq-len", "16", "--global-batch", "4",
+                           "--ckpt-dir", str(tmp_path / "ck2")]) == 0
 
 
 def _dep(path, **kw):

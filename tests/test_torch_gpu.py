@@ -1581,3 +1581,54 @@ def test_paged_wide_group_runs_both_kernels(cuda):
     assert any("paged_split_kernel" in n for n in names), names
     assert any("paged_combine_kernel" in n for n in names), names
     assert len(names) == 2, names
+
+
+# --------------------------------------------------------------------------
+# the launch tooling: the kernels' meta path and one rank's step
+# --------------------------------------------------------------------------
+
+def test_kernels_meta_outputs_are_the_kernels_outputs(cuda):
+    """Each kernel op on meta tensors returns what its kernel returns on
+    the card: the same shapes and dtypes, forward and backward."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    for dev in (cuda, torch.device("meta")):
+        q = torch.randn(2, 128, 4, 64, device=cuda, generator=g,
+                        dtype=torch.bfloat16).to(dev).requires_grad_(True)
+        kv = torch.randn(2, 128, 2, 64, device=cuda, generator=g,
+                         dtype=torch.bfloat16).to(dev).requires_grad_(True)
+        o = flash_attention(q, kv, kv, causal=True)
+        o.sum().backward()
+        x = torch.randn(64, 256, device=cuda, generator=g).to(dev)
+        w = torch.ones(256, device=cuda).to(dev)
+        y = rms_norm(x.requires_grad_(True), w.requires_grad_(True))
+        y.sum().backward()
+        got = [(t.shape, t.dtype) for t in (o, q.grad, kv.grad, y, x.grad,
+                                            w.grad)]
+        if dev.type == "cuda":
+            want = got
+    assert got == want
+
+
+def test_rank_probe_peak_is_within_the_dry_run_estimate(cuda):
+    """Rank 0 of a (2, 2) description mesh, tiny granite (kv heads whole
+    over tp 2 at 1 kv head), one real step on the card with the recording
+    comm for its peers: its measured peak within the dry run's estimate
+    (no more than 10 % below), launches on the path."""
+    from repro_torch.launch.dryrun import rank_probe, trace_cell
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.launch.shapes import batch_sds, state_sds
+    from repro_torch.models import get_config
+
+    cfg = dataclasses.replace(get_config("granite-3-8b", tiny=True),
+                              num_kv_heads=1, d_model=256, d_ff=512)
+    mesh = make_mesh_compat((2, 2), ("data", "model"))
+    state_g, st_sh = state_sds(cfg, mesh)
+    batch, b_sh = batch_sds(cfg, 1024, 8, mesh, "train")
+    est = trace_cell(cfg, mesh, state_g, batch, st_sh, b_sh,
+                     microbatches=2)["memory"]["peak_per_device_bytes"]
+    got = rank_probe(cfg, mesh, state_g, batch, st_sh, microbatches=2,
+                     seed=0, device="cuda", profile=False)
+    assert np.isfinite(got["loss"])
+    assert est >= 0.9 * got["measured_peak_bytes"], (est, got)
+    assert got["launches"]["flash_attention"] == 2 * 2 * cfg.num_layers
+    assert got["launches"]["flash_attention_bwd"] == 2 * cfg.num_layers

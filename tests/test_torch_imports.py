@@ -116,20 +116,46 @@ def test_entry_points_default_to_the_card():
 
 def test_non_cpu_tensors_never_take_the_plain_version():
     """ops dispatch on the device: only a CPU tensor reaches the plain
-    version; any other (here ``meta``) goes to the kernel wrapper, which
-    refuses what is not on a CUDA device instead of falling back."""
+    version.  A meta tensor (a traced step, ``kernels/meta.py``) gets the
+    kernel's outputs from its meta op, never the plain version's
+    products; the kernel wrappers, and an op without a meta twin, refuse
+    what is not on a CUDA device instead of falling back."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.kernels.flash_attention.kernel import \
+        flash_attention_bshd
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.paged_attention.ops import \
         paged_decode_attention
+    from repro_torch.kernels.rmsnorm.kernel import rms_norm_2d
     from repro_torch.kernels.rmsnorm.ops import rms_norm
 
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func._overloadpacket))
+            return func(*args, **(kwargs or {}))
+
     m = torch.device("meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        rms_norm(torch.empty(4, 64, device=m), torch.empty(64, device=m))
     q = torch.empty(1, 8, 4, 16, device=m)
     kv = torch.empty(1, 8, 2, 16, device=m)
+    x, w = torch.empty(4, 64, device=m), torch.empty(64, device=m)
+    with Ops() as ops:
+        y = rms_norm(x, w)
+        o = flash_attention(q, kv, kv)
+    assert y.device == m and o.device == m and o.shape == q.shape
+    assert [n for n in ops.names if not n.startswith("aten.")] == [
+        "repro_torch.rmsnorm_fwd", "repro_torch.flash_fwd"]
+    # the plain versions' arithmetic never ran
+    assert not {"aten.bmm", "aten.mm", "aten._softmax", "aten.rsqrt",
+                "aten.pow", "aten.mean", "aten.mul"} & set(ops.names)
     with pytest.raises(ValueError, match="CUDA"):
-        flash_attention(q, kv, kv)
+        rms_norm_2d(torch.empty(4, 64, device=m), torch.empty(64, device=m))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bshd(q, kv, kv)
     pages = torch.empty(5, 4, 2, 16, device=m)
     with pytest.raises(ValueError, match="CUDA"):
         paged_decode_attention(

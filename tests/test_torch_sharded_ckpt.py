@@ -10,7 +10,11 @@
   one), odd dims included; delta chains and the int8 codec work per shard.
 - A reference checkpoint written on 4 forced XLA devices restores in the
   port, whole and onto a rank mesh; a port checkpoint written by 4 ranks
-  restores in the reference (``CheckpointManager(num_hosts=4)``).
+  restores in the reference (``CheckpointManager(num_hosts=4)``), also
+  the state of the families the mesh step took later (a Mamba stack's
+  SSM channels over "model"; RG-LRU in the unstacked layout with padded
+  q heads and kv heads stored whole), saved after a mesh step, into
+  the reference's own train-state layout.
 """
 import json
 import os
@@ -308,3 +312,40 @@ def test_port_sharded_checkpoint_restores_in_the_reference(tmp_path):
     for name, v in full.items():
         np.testing.assert_array_equal(np.asarray(got[name]), v,
                                       err_msg=name)
+
+
+@pytest.mark.parametrize("arch,cfg_kw", [
+    ("falcon-mamba-7b", None),
+    ("recurrentgemma-2b", {"num_heads": 3, "pad_heads_to": 4})],
+    ids=["falcon-mamba", "recurrentgemma"])
+def test_widened_family_mesh_checkpoint_restores_in_the_reference(
+        tmp_path, arch, cfg_kw):
+    """One mesh step on (1, 2) ranks, a sharded save; the reference
+    restores every leaf bit-equal to the port's whole state, and its
+    names and shapes are the reference's train state's."""
+    import dataclasses
+
+    import jax
+    from repro.models import get_config as jax_get_config
+    from repro.train.state import init_state as jax_init_state
+
+    ck = str(tmp_path / "ck")
+    out = spawn(W.mesh_step_save, 2, run_dir=str(tmp_path / "r"),
+                args=(ck, arch, (1, 2), cfg_kw), join_timeout=300)
+    full = out[0]
+    state, _ = JaxCheckpointManager(ck, num_hosts=2).restore(step=1)
+    got = {".".join(str(getattr(k, "key", k)) for k in path): np.asarray(v)
+           for path, v in jax.tree_util.tree_flatten_with_path(state)[0]}
+    jcfg = dataclasses.replace(jax_get_config(arch, tiny=True),
+                               **(cfg_kw or {}))
+    ref = jax.eval_shape(lambda: jax_init_state(jcfg,
+                                                jax.random.PRNGKey(0)))
+    shapes = {".".join(str(getattr(k, "key", k)) for k in path): v.shape
+              for path, v in jax.tree_util.tree_flatten_with_path(ref)[0]}
+    assert sorted(got) == sorted(shapes) == sorted(full)
+    for name, want in full.items():
+        assert got[name].shape == shapes[name], name
+        g = got[name]
+        if g.dtype != want.dtype:
+            g = g.view(want.dtype)
+        np.testing.assert_array_equal(g, want, err_msg=name)

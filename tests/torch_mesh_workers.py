@@ -19,10 +19,12 @@ def _cfg(arch, dtype=torch.float32, **kw):
     return dataclasses.replace(get_config(arch, tiny=True), dtype=dtype, **kw)
 
 
-def mesh_vs_one(world, arch, grid, steps, micro=1):
+def mesh_vs_one(world, arch, grid, steps, micro=1, axes=None, cfg_kw=None):
     """``steps`` mesh steps against ``steps`` single-rank steps from the
     same state and batches: losses, grad norms, and the largest
-    difference of any state leaf after the last step."""
+    difference of any state leaf after the last step.  ``axes``: the
+    grid's axis names (default (data, model[, expert])); ``cfg_kw``:
+    fields of the tiny config replaced."""
     from repro_torch.data import ShardedPipeline
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.train import init_state, make_train_step
@@ -31,8 +33,9 @@ def mesh_vs_one(world, arch, grid, steps, micro=1):
                                              mesh_combos, state_shardings)
     from repro_torch.tree import flatten_named
 
-    cfg = _cfg(arch)
-    mesh = make_host_mesh(*grid, rank=world.rank, device=world.device)
+    cfg = _cfg(arch, **(cfg_kw or {}))
+    mesh = make_host_mesh(*grid, axis_names=axes, rank=world.rank,
+                          device=world.device)
     mesh.init_groups(mesh_combos(mesh))
     ep = mesh.shape.get("expert", 1)
     sh = state_shardings(cfg, mesh, moe_ep=(ep if ep > 1 else False))
@@ -608,3 +611,38 @@ def reduce_scatter_vs_sum(world, seed):
     out.append(bool(torch.equal(w.grad, want)))
     out.append(w.grad)
     return out
+
+
+def mesh_step_save(world, tmp, arch, grid, cfg_kw=None):
+    """One mesh step of tiny ``arch`` (float32) on ``grid``, then a
+    sharded save of the state, every rank writing its shards; returns
+    the whole state after the step (numpy, by name)."""
+    import os
+
+    from repro_torch.core import CheckpointManager
+    from repro_torch.data import ShardedPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train import init_state
+    from repro_torch.train.mesh_step import (init_sharded_state,
+                                             make_mesh_train_step,
+                                             mesh_combos, state_shardings)
+    from repro_torch.tree import flatten_named
+
+    cfg = _cfg(arch, **(cfg_kw or {}))
+    mesh = make_host_mesh(*grid, rank=world.rank, device=world.device)
+    mesh.init_groups(mesh_combos(mesh))
+    sh = state_shardings(cfg, mesh)
+    like = init_state(cfg, seed=0, device="meta")
+    st = init_sharded_state(cfg, sh, seed=0, device="cpu", world=world)
+    step = make_mesh_train_step(cfg, mesh, sh, like, total_steps=10)
+    st, _ = step(st, ShardedPipeline(cfg, 16, 8, dp_width=1).next_batch())
+    if world.rank == 0:
+        world.publish("pid0", str(os.getpid()))
+    pid = int(world.fetch("pid0"))
+    mgr = CheckpointManager(tmp, host_id=world.rank, num_hosts=world.size,
+                            owner_pid=pid)
+    mgr.save(1, st, mesh_meta={"grid": list(grid)}, shardings=sh, like=like)
+    world.barrier("saved")
+    mgr.close()
+    full = unshard(st, sh, like)
+    return {n: x.numpy() for n, x in flatten_named(full)}
